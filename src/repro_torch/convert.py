@@ -1,0 +1,70 @@
+"""Carry state between the JAX package and the port.
+
+There are no weights: the state is a domain, a pair kernel, particles and
+bins. The JAX objects are read by attribute (duck typing), so this module
+imports neither JAX nor ``repro``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from .core.api import ParticleState
+from .core.binning import CellBins
+from .core.domain import Domain
+from .core.interactions import (PairKernel, make_gravity, make_high_flop,
+                                make_lennard_jones, make_low_flop,
+                                make_sph_density)
+
+_FACTORIES = {
+    "lennard_jones": make_lennard_jones,
+    "low_flop": make_low_flop,
+    "high_flop": make_high_flop,
+    "gravity": make_gravity,
+    "sph_density": make_sph_density,
+}
+
+
+def domain_from_jax(d) -> Domain:
+    """The port's Domain with the same box, grid, cutoff and periodicity."""
+    return Domain(box=tuple(float(v) for v in d.box),
+                  ncells=tuple(int(v) for v in d.ncells),
+                  cutoff=float(d.cutoff), periodic=d.periodic)
+
+
+def kernel_from_jax(k) -> PairKernel:
+    """The port's pair kernel of the same factory and parameters."""
+    factory = _FACTORIES.get(k.name)
+    if factory is None:
+        raise ValueError(f"no port of pair kernel {k.name!r}; known: "
+                         f"{sorted(_FACTORIES)}")
+    out = factory(*k.static_params)
+    if (out.name, out.flops, out.static_params) != \
+            (k.name, k.flops, tuple(k.static_params)):
+        raise ValueError(f"pair kernel {k.name!r} with static_params "
+                         f"{k.static_params} does not round-trip")
+    return out
+
+
+def state_from_numpy(positions, fields: Optional[Dict[str, object]] = None,
+                     valid=None, *, device) -> ParticleState:
+    """A ParticleState on ``device`` from numpy arrays (float32 positions)."""
+    def t(a, dtype=None):
+        return torch.as_tensor(np.asarray(a, dtype=dtype), device=device)
+    return ParticleState(
+        positions=t(positions, np.float32),
+        fields={k: t(v) for k, v in (fields or {}).items()},
+        valid=None if valid is None else t(valid, np.bool_))
+
+
+def bins_to_numpy(bins: CellBins) -> Dict[str, np.ndarray]:
+    """Every binned array as numpy, planes under their own names."""
+    out = {k: v.cpu().numpy() for k, v in bins.planes.items()}
+    out.update(slot_id=bins.slot_id.cpu().numpy(),
+               counts=bins.counts.cpu().numpy(),
+               offsets=bins.offsets.cpu().numpy(),
+               particle_slot=bins.particle_slot.cpu().numpy())
+    return out

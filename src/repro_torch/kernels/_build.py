@@ -1,0 +1,110 @@
+"""Build the CUDA sources at first use and load them with ``ctypes``.
+
+Each ``csrc/*.cu`` file has a plain ``extern "C"`` interface and no PyTorch
+headers, so ``nvcc`` builds it in seconds. The library goes to
+``build/repro_torch/`` at the repository root; its name carries a hash of
+the source and the flags, so an edited source is rebuilt. A failed build
+raises with ``nvcc``'s stderr.
+
+``SIGNATURES`` declares every C entry point: pointers and the stream are
+``c_void_p`` (a default ctypes int would cut a 64-bit pointer), and every
+entry returns the ``cudaError_t`` of its launches as an int.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+from typing import Dict, Iterable, Tuple
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+
+# source file -> {C symbol: argtypes}; every restype is c_int (cudaError_t)
+SIGNATURES: Dict[str, Dict[str, Tuple]] = {
+    "prefix_sum.cu": {
+        # in, out, scratch, n, scratch_elems, stream
+        "paper_scan_i32": (_P, _P, _P, _LL, _LL, _P),
+    },
+    "xpencil.cu": {
+        # x, y, z, slot_id, fx, fy, fz, pot, nx, ny, nz, m_c, cutoff2,
+        # kind, p0, p1, p2, p3, n_extra, stream
+        "xpencil_forces_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _F, _I, _F, _F, _F, _F, _I, _P),
+    },
+}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found on PATH or in /usr/local/cuda/bin; "
+                           "the CUDA kernels cannot be built")
+    return found
+
+
+def library_path(source: str) -> pathlib.Path:
+    digest = hashlib.sha256((CSRC / source).read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{pathlib.Path(source).stem}_{digest}.so"
+
+
+def _start_build(source: str):
+    """Start nvcc for ``source`` unless its library exists; -> (process or
+    None, tmp path, final path)."""
+    lib = library_path(source)
+    if lib.exists():
+        return None, None, lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.Popen(
+        [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, tmp, lib
+
+
+def _finish_build(source: str, proc, tmp: pathlib.Path,
+                  lib: pathlib.Path) -> None:
+    if proc is None:
+        return
+    out, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source} "
+                           f"(exit {proc.returncode}):\n{out}{err}")
+    os.replace(tmp, lib)          # atomic publish
+
+
+def build(sources: Iterable[str] = tuple(SIGNATURES)) -> None:
+    """Build the given sources, all ``nvcc`` processes started together."""
+    started = [(s, *_start_build(s)) for s in sources]
+    for source, proc, tmp, lib in started:
+        _finish_build(source, proc, tmp, lib)
+
+
+@functools.lru_cache(maxsize=None)
+def load(source: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<source>``, built first if needed, with
+    ``argtypes``/``restype`` set for every declared entry point."""
+    build([source])
+    lib = ctypes.CDLL(str(library_path(source)))
+    for name, argtypes in SIGNATURES[source].items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(f"{what} failed: cudaError_t {rc} (see "
+                           "cuda_runtime_api.h's cudaError enum)")

@@ -76,3 +76,9 @@ except ModuleNotFoundError:
     hyp.strategies = st_mod
     sys.modules["hypothesis"] = hyp
     sys.modules["hypothesis.strategies"] = st_mod
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips without one "
+        "(run on the card: python -m pytest -m cuda tests/test_torch_cuda.py)")

@@ -1,0 +1,151 @@
+"""Rules the port keeps, checked without a card.
+
+  * The port and chip_smoke.py import neither JAX nor the JAX package.
+  * Nothing in the port catches an exception, so no failed build or launch
+    can fall back to something else.
+  * Entry points run on the card unless the caller asks for the CPU; what
+    is not ported raises and names the ROADMAP item that ports it.
+  * Every C entry point that ``_build.py`` binds exists in ``csrc/*.cu``
+    with the same arity and ctypes types (pointers and the stream as
+    ``c_void_p``), so a mismatched binding shows here and not on the card.
+"""
+
+import ast
+import ctypes
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from repro_torch.core import (Domain, PairKernel, ParticleState,
+                              make_lennard_jones, plan)
+from repro_torch.kernels import _build
+from repro_torch.kernels.prefix_sum import prefix_sum
+from repro_torch.kernels.xpencil import xpencil_forces
+
+torch.set_num_threads(1)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
+def test_no_jax_and_no_reference_package(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {mod}"
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
+def test_nothing_catches_exceptions(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], path
+
+
+def test_import_needs_no_nvcc_triton_or_jax(tmp_path):
+    code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels, "
+            "repro_torch.kernels.ops, repro_torch.kernels.ref, "
+            "repro_torch.convert\n"
+            "bad = [m for m in ('jax', 'triton', 'repro') if m in sys.modules]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PATH=str(tmp_path), PYTHONPATH=str(ROOT / "src"))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   cwd=tmp_path, timeout=120)
+
+
+_CTYPE_OF = {"int": ctypes.c_int, "long long": ctypes.c_longlong,
+             "float": ctypes.c_float}
+
+
+def _c_param_type(decl):
+    if "*" in decl:
+        return ctypes.c_void_p
+    words = [w for w in decl.split() if w != "const"][:-1]   # drop the name
+    return _CTYPE_OF[" ".join(words)]
+
+
+def test_bindings_match_cuda_sources():
+    for source, entries in _build.SIGNATURES.items():
+        text = (_build.CSRC / source).read_text()
+        found = dict(re.findall(r'extern "C" int (\w+)\(([^)]*)\)', text))
+        assert set(entries) == set(found), source
+        for name, argtypes in entries.items():
+            params = [p.strip() for p in found[name].split(",")]
+            assert [_c_param_type(p) for p in params] == list(argtypes), name
+    assert set(_build.SIGNATURES) == {p.name for p in _build.CSRC.glob("*.cu")}
+
+
+def test_library_name_tracks_source_hash():
+    a = _build.library_path("xpencil.cu")
+    assert a.parent == ROOT / "build" / "repro_torch"
+    assert a.name.startswith("xpencil_") and a.suffix == ".so"
+    assert _build.library_path("prefix_sum.cu") != a
+
+
+def test_plan_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible; the default runs there")
+    dom = Domain.cubic(3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        plan(dom, m_c=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        plan(dom, m_c=8, device="cuda")
+    assert plan(dom, m_c=8, device="cpu").device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("kwargs,item", [
+    (dict(strategy="auto"), 8), (dict(strategy="autotune"), 8),
+    (dict(strategy="par_part"), 2), (dict(strategy="cell_dense"), 2),
+    (dict(strategy="allin"), 7), (dict(compact=True), 4),
+    (dict(layout="packed"), 5), (dict(layout="sfc"), 6),
+    (dict(backend="halo"), 11),
+])
+def test_unported_options_raise_with_roadmap_item(kwargs, item):
+    with pytest.raises(ValueError, match=f"Queue 1 item {item}\\b"):
+        plan(Domain.cubic(3), m_c=8, device="cpu", **kwargs)
+
+
+def test_unknown_backend_and_user_kernel_raise():
+    dom = Domain.cubic(3)
+    with pytest.raises(ValueError, match="no backend 'pallas'"):
+        plan(dom, m_c=8, device="cpu", backend="pallas")
+    mine = PairKernel("mine", lambda r2: r2, lambda r2: r2, flops=2)
+    with pytest.raises(ValueError, match="backend='reference'"):
+        plan(dom, mine, m_c=8, device="cpu")
+    assert plan(dom, mine, m_c=8, device="cpu", backend="reference")
+
+
+def test_execute_refuses_state_on_another_device():
+    p = plan(Domain.cubic(3), m_c=8, device="cpu")
+    pos = torch.rand(10, 3) * 3
+    with pytest.raises(ValueError, match="move the state"):
+        p.execute(ParticleState(pos.to("meta")))
+    with pytest.raises(ValueError, match="move the state"):
+        p.execute(ParticleState(pos, valid=torch.ones(10, dtype=torch.bool,
+                                                      device="meta")))
+
+
+def test_wrappers_refuse_other_devices():
+    x = torch.zeros(8, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        prefix_sum(x)
+    plane = torch.zeros((3, 3, 24), device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        xpencil_forces({"x": plane, "y": plane, "z": plane},
+                       plane.to(torch.int32), nx=1, m_c=8,
+                       kernel=make_lennard_jones(), cutoff2=1.0)
+    assert prefix_sum.launches == 0 and xpencil_forces.launches == 0
