@@ -3,13 +3,23 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Run from the repository root. It builds both CUDA kernels from
-``src/repro_torch/kernels/csrc``, holds each against its plain PyTorch
-version on the card, runs the main path (the dense X-pencil force
-evaluation, ``plan(...).execute()``) at 1,048,576 particles and at 327,680,
-checks the results, and times each layer with CUDA events. Any failed check
-raises, so the exit code is non-zero. Without a CUDA device it exits 2 and
-prints no result.
+Run from the repository root. It builds the CUDA kernels from
+``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all started
+together), holds each against its plain PyTorch version on the card, runs
+the main paths through ``plan(...).execute()`` and checks and times them:
+
+  * dense X-pencil (kernels A and B) at 1,048,576 particles (division 64)
+    and 327,680 (division 32, periodic);
+  * packed rows (kernels A and D), 1,048,576 uniform particles, division 64;
+  * a clustered scene (Gaussian blob, 131,072 particles, division 64) with
+    ``compact=True``, dense layout (kernels A and C) and packed layout
+    (kernels A and D);
+  * a plan built on the uniform scene, run on the blob through
+    ``execute_or_replan``.
+
+Per particle, the compacted and packed paths must equal the dense path bit
+for bit. Any failed check raises, so the exit code is non-zero. Without a
+CUDA device it exits 2 and prints no result.
 
 The line before the last is the card's ``nvidia-smi`` name and power limit,
 the one before that a JSON object with one entry per kernel, and the last
@@ -19,6 +29,7 @@ line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import pathlib
 import statistics
@@ -43,6 +54,11 @@ DIST_FLOPS = 9
 
 SCAN_SIZES = (1, 2, 3, 1000, 4097, 262_144, 2_097_157)
 SCAN_TIMED_N = 262_144
+
+DENSE_CASES = ((64, 4, False), (32, 10, True))   # division, per cell, periodic
+PACKED_CASE = (64, 4)                             # division, per cell
+BLOB_CASE = (64, 131_072, 0.1)                    # division, N, sigma_frac
+CHECK_DIVISION = 16
 
 
 def log(*args):
@@ -104,7 +120,7 @@ def assert_term_close(got, want, size, what: str, tol: float) -> float:
 
 def candidate_pairs(domain, counts) -> int:
     """Pairs of real particles in neighbouring cells (the 27-cell stencil),
-    self pairs excluded: what this input needs the kernel to consider."""
+    self pairs excluded: what this input needs a kernel to consider."""
     nx, ny, nz = domain.ncells
     c = counts.view(nz, ny, nx).long()
     if domain.any_periodic:
@@ -119,6 +135,41 @@ def candidate_pairs(domain, counts) -> int:
     return int((c * nbr).sum()) - int(c.sum())
 
 
+def touched_rows(domain, active) -> torch.Tensor:
+    """(nz+2, ny+2) bool: the padded pencil rows that the 9-row stencils of
+    the listed interior pencils read."""
+    nx, ny, nz = domain.ncells
+    a = active.long()
+    z, y = a // ny + 1, a % ny + 1
+    mark = torch.zeros((nz + 2, ny + 2), dtype=torch.bool, device=a.device)
+    for dz in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            mark[z + dz, y + dy] = True
+    return mark
+
+
+def dense_read_bytes(bins, rows=None) -> int:
+    """Bytes a kernel must read of the dense planes: 4 B of slot_id for
+    every slot of the padded pencil rows it reads (all, or the ``rows``
+    mask), and 12 B of x, y, z only for the slots that hold a particle."""
+    sid = bins.slot_id if rows is None else bins.slot_id[rows]
+    return 4 * sid.numel() + 12 * int((sid >= 0).sum())
+
+
+def shapes(d: int, width: str, out: str, **sizes) -> str:
+    """The planes a kernel reads and the outputs it writes at division
+    ``d``, for the kernels line."""
+    return (f"(d+2, d+2, {width}) planes -> 4 x {out}, d = {d}, "
+            + ", ".join(f"{k} = {v}" for k, v in sizes.items()))
+
+
+def bound(n_bytes: float, n_ops: float):
+    """(bound ms, what sets it) on the H100's peaks."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
+                                       else "operations")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -128,17 +179,31 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
 
-    from repro_torch.core import (Domain, ParticleState, make_gravity,
-                                  make_high_flop, make_lennard_jones,
-                                  make_low_flop, make_sph_density, plan)
+    from repro_torch.core import (Domain, ParticleState, active_unit_count,
+                                  cell_counts, full_pencil_occupancy,
+                                  make_gravity, make_high_flop,
+                                  make_lennard_jones, make_low_flop,
+                                  make_sph_density, pack_rows,
+                                  padded_row_counts, pencil_occupancy, plan,
+                                  scenarios, suggest_m_c, suggest_row_cap)
     from repro_torch.core import prefix as plain_prefix
     from repro_torch.core import strategies as S
-    from repro_torch.core.binning import bin_particles, dense_to_particles
+    from repro_torch.core.binning import (bin_particles, dense_to_particles,
+                                          packed_to_particles, scatter_rows)
     from repro_torch.core.interactions import PairKernel
     from repro_torch.kernels import _build
+    from repro_torch.kernels.ops import (xpencil_interactions,
+                                         xpencil_packed_interactions,
+                                         xpencil_sparse_interactions)
     from repro_torch.kernels.prefix_sum import prefix_sum
-    from repro_torch.kernels.xpencil import xpencil_forces
+    from repro_torch.kernels.xpencil import (xpencil_forces,
+                                             xpencil_packed_forces,
+                                             xpencil_sparse_forces)
 
+    wrappers = {"prefix_sum": prefix_sum, "xpencil_forces": xpencil_forces,
+                "xpencil_sparse_forces": xpencil_sparse_forces,
+                "xpencil_packed_forces": xpencil_packed_forces}
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     kind = torch.cuda.get_device_name(0)
@@ -155,7 +220,7 @@ def main(argv=None) -> int:
                           capture_output=True, text=True).stdout
     t0 = time.perf_counter()
     _build.build()
-    log(f"build: {nvcc.strip().splitlines()[-1]}; both kernels in "
+    log(f"build: {nvcc.strip().splitlines()[-1]}; all sources in "
         f"{time.perf_counter() - t0:.1f} s")
 
     gen = torch.Generator(device=dev)
@@ -167,45 +232,96 @@ def main(argv=None) -> int:
                                 bins.planes["z"], bins.slot_id, nx=nx,
                                 m_c=bins.m_c, kernel=kern, cutoff2=1.0)
 
-    def term_sizes(bins, nx, kern):
-        """Per target slot, the sum of the sizes of its pair terms: |coeff|
-        * r bounds every force component's term, |potential| the
-        potential's. Plain X-pencil runs with those as the potential."""
-        return tuple(plain(bins, nx, PairKernel(
-            f"{kern.name}_{part}_term_size", torch.zeros_like, f, flops=0))[3]
-            for part, f in (("force", lambda r2: kern.coeff(r2).abs()
-                             * r2.sqrt()),
-                            ("potential", lambda r2: kern.potential(r2).abs())))
+    def size_kernels(kern):
+        """Pair kernels whose potential channel sums, per target, the size
+        of each pair term: |coeff| * r bounds every force component's term,
+        |potential| the potential's."""
+        return tuple(PairKernel(f"{kern.name}_{part}_term_size",
+                                torch.zeros_like, f, flops=0)
+                     for part, f in (("force", lambda r2: kern.coeff(r2).abs()
+                                      * r2.sqrt()),
+                                     ("potential",
+                                      lambda r2: kern.potential(r2).abs())))
 
-    def check_kernel_b(bins, nx, name, kern, label):
-        """Kernel B against its plain version on ``bins``, every output
-        element against its own term sizes (1e-4); low_flop also within
-        rtol = atol = 1e-4 and the others scale-relative (3e-4).
-        -> (kernel outputs, plain outputs, plain ms, term sizes, max abs
-        error, max term-relative error)."""
-        got = xpencil_forces(bins.planes, bins.slot_id, nx=nx, m_c=bins.m_c,
-                             kernel=kern, cutoff2=1.0)
+    def check_kernel(what, name, kern, launch, plain_of):
+        """A kernel's outputs ``launch(kern)`` against its plain version
+        ``plain_of(kern)``: every element within 1e-4 of |want| plus its
+        own term sizes; low_flop also within rtol = atol = 1e-4 and the
+        others scale-relative (3e-4). -> (kernel outputs, plain outputs,
+        plain ms, term sizes, max abs error, max term-relative error)."""
+        got = launch(kern)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        want = plain(bins, nx, kern)
+        want = plain_of(kern)
         end.record()
         end.synchronize()
-        fsize, usize = term_sizes(bins, nx, kern)
+        fsize, usize = (plain_of(k)[3] for k in size_kernels(kern))
         abs_err = term_err = 0.0
-        for g, w, what in zip(got, want, ("fx", "fy", "fz", "pot")):
-            what = f"xpencil {name} {label} {what}"
-            size = usize if what.endswith("pot") else fsize
-            term_err = max(term_err, assert_term_close(g, w, size, what,
+        for g, w, part in zip(got, want, ("fx", "fy", "fz", "pot")):
+            label = f"{what} {name} {part}"
+            size = usize if part == "pot" else fsize
+            term_err = max(term_err, assert_term_close(g, w, size, label,
                                                        1e-4))
             if name == "low_flop":
                 if not torch.allclose(g, w, rtol=1e-4, atol=1e-4):
-                    raise AssertionError(f"{what}: not within 1e-4")
+                    raise AssertionError(f"{label}: not within 1e-4")
             else:
-                assert_scale_close(g, w, what)
+                assert_scale_close(g, w, label)
             abs_err = max(abs_err, float((g - w).abs().max()))
         return (got, want, start.elapsed_time(end), (fsize, usize), abs_err,
                 term_err)
+
+    def check_kernel_b(bins, nx, name, kern, label):
+        return check_kernel(
+            f"xpencil {label}", name, kern,
+            lambda k: xpencil_forces(bins.planes, bins.slot_id, nx=nx,
+                                     m_c=bins.m_c, kernel=k, cutoff2=1.0),
+            lambda k: plain(bins, nx, k))
+
+    def check_kernel_c(dom, bins, active, name, kern, label):
+        nx, ny, _ = dom.ncells
+        return check_kernel(
+            f"xpencil_sparse {label}", name, kern,
+            lambda k: xpencil_sparse_forces(bins.planes, bins.slot_id,
+                                            active, nx=nx, ny=ny,
+                                            m_c=bins.m_c, kernel=k,
+                                            cutoff2=1.0),
+            lambda k: S.xpencil_sparse_planes(
+                bins.planes["x"], bins.planes["y"], bins.planes["z"],
+                bins.slot_id, active, nx=nx, ny=ny, m_c=bins.m_c, kernel=k,
+                cutoff2=1.0))
+
+    def check_kernel_d(dom, packed, active, name, kern, label):
+        """``active`` None: every row, as the main path launches it."""
+        nx, ny, _ = dom.ncells
+        args = (packed.planes, packed.slot_id, packed.slot_cell,
+                packed.cell_offsets)
+        rows = (full_pencil_occupancy(dom, dev).active if active is None
+                else active)
+        return check_kernel(
+            f"xpencil_packed {label}", name, kern,
+            lambda k: xpencil_packed_forces(*args, active, nx=nx, ny=ny,
+                                            m_c=packed.m_c, kernel=k,
+                                            cutoff2=1.0),
+            lambda k: S.xpencil_packed_planes(
+                packed.planes["x"], packed.planes["y"], packed.planes["z"],
+                *args[1:], rows, nx=nx, ny=ny, m_c=packed.m_c, kernel=k,
+                cutoff2=1.0))
+
+    def reset_launches():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def launch_counts():
+        return {n: w.launches for n, w in wrappers.items() if w.launches}
+
+    def assert_equal_results(got, want, what):
+        for g, w, part in zip(got, want, ("forces", "potential")):
+            if not torch.equal(g, w):
+                d = (g - w).abs().max()
+                raise AssertionError(f"{what}: {part} not bit-equal "
+                                     f"(max |diff| {float(d):.3e})")
 
     # -- kernel A: the paper's scan, exactly equal to its plain versions ----
     scan_checks = 0
@@ -234,20 +350,62 @@ def main(argv=None) -> int:
         f"n={SCAN_TIMED_N}: kernel {scan_ms:.4f} ms, plain {scan_plain_ms:.4f}"
         f" ms, torch.cumsum {cumsum_ms:.4f} ms, bound {scan_bound_ms:.5f} ms")
 
-    # -- kernel B: X-pencil forces against the plain schedule ---------------
+    # -- kernels B, C, D against their plain versions; bit identity --------
     kernels = {"lennard_jones": make_lennard_jones(),
                "low_flop": make_low_flop(), "high_flop": make_high_flop(),
                "gravity": make_gravity(), "sph_density": make_sph_density(1.0)}
-    xp_checks = 0
+    xp_checks = sp_checks = pk_checks = ident_checks = 0
+    div = CHECK_DIVISION
     for periodic in (False, True):
-        dom = Domain.cubic(16, cutoff=1.0, periodic=periodic)
-        pos = dom.sample_uniform(16 ** 3 * 4, generator=gen, device=dev)
+        dom = Domain.cubic(div, cutoff=1.0, periodic=periodic)
+        label = f"div {div} periodic={periodic}"
+        pos = dom.sample_uniform(div ** 3 * 4, generator=gen, device=dev)
         bins = bin_particles(dom, pos, m_c=24)
+        packed = pack_rows(dom, bins, suggest_row_cap(dom, pos))
+        # the same particles squeezed into the lower half in y: half of the
+        # pencils are empty, so half of kernel C's list is padding
+        half = pos * torch.tensor([1.0, 0.5, 1.0], device=dev)
+        hbins = bin_particles(dom, half, m_c=suggest_m_c(dom, half))
+        hocc = pencil_occupancy(dom, hbins.counts, div * div)
+        if int(hocc.n_active) != div * div // 2:
+            raise AssertionError(f"{int(hocc.n_active)} active pencils, "
+                                 f"want {div * div // 2}")
+        hpacked = pack_rows(dom, hbins, suggest_row_cap(dom, half))
         for name, kern in kernels.items():
-            check_kernel_b(bins, 16, name, kern, f"div 16 periodic={periodic}")
+            check_kernel_b(bins, div, name, kern, label)
             xp_checks += 4
-    log(f"xpencil: 5 pair kernels x open/periodic at division 16, 4 per "
-        f"cell, within tolerance ({xp_checks} checks)")
+            c_out = check_kernel_c(dom, hbins, hocc.active, name, kern,
+                                   f"{label} half-empty")[0]
+            b_out = xpencil_forces(hbins.planes, hbins.slot_id, nx=div,
+                                   m_c=hbins.m_c, kernel=kern, cutoff2=1.0)
+            rows = hocc.active.long()
+            for c, b in zip(c_out, b_out):       # padding rows are pencil 0
+                if not torch.equal(c, b.reshape(div * div, -1)[rows]):
+                    raise AssertionError(f"kernel C rows differ from kernel "
+                                         f"B's: {name} {label}")
+            sp_checks += 5
+            check_kernel_d(dom, packed, None, name, kern, label)
+            check_kernel_d(dom, hpacked, hocc.active, name, kern,
+                           f"{label} half-empty")
+            pk_checks += 8
+            # per particle, on the card: B = C = D = D over active rows
+            for b_, p_, occ_max in ((bins, packed, div * div),
+                                    (hbins, hpacked, div * div)):
+                want = xpencil_interactions(dom, b_, kern)
+                for what, got in (
+                        ("C", xpencil_sparse_interactions(dom, b_, kern,
+                                                          occ_max)),
+                        ("D", xpencil_packed_interactions(dom, p_, kern)),
+                        ("D compact", xpencil_packed_interactions(
+                            dom, p_, kern, occ_max))):
+                    assert_equal_results(got, want, f"kernel {what} vs B, "
+                                         f"{name} {label}")
+                    ident_checks += 1
+    log(f"kernels B, C, D: 5 pair kernels x open/periodic at division {div}, "
+        f"within tolerance of their plain versions ({xp_checks} + "
+        f"{sp_checks} + {pk_checks} checks); per particle, C and D "
+        f"(every row and active rows) equal B bit for bit ({ident_checks} "
+        f"checks)")
 
     # -- plan/execute against the O(N^2) oracle on the card ------------------
     for periodic in (False, True):
@@ -262,56 +420,71 @@ def main(argv=None) -> int:
     log("plan(device='cuda').execute() matches naive_n2 at division 8, "
         "2000 particles, open and periodic")
 
-    # -- the main path at full size -----------------------------------------
-    main_cases = [(64, 4, False), (32, 10, True)]
+    def reference_checks(p, state, f, u, what, periodic):
+        """The result of plan ``p`` against the ``"reference"`` backend of
+        the same plan, per particle within 1e-4 of its own term sizes and
+        scale-relative 3e-4; net force ~ 0 in an open box. -> (scale errors,
+        term errors, pairs within the cutoff)."""
+        ref = dataclasses.replace(p, backend="reference")
+        rf, ru = ref.execute(state)
+        err_f = assert_scale_close(f, rf, f"{what} forces vs reference")
+        err_u = assert_scale_close(u, ru, f"{what} potential vs reference")
+        fsize, usize = (dataclasses.replace(ref, kernel=k).execute(state)[1]
+                        for k in size_kernels(p.kernel))
+        term_f = assert_term_close(f, rf, fsize[:, None],
+                                   f"{what} forces vs reference", 1e-4)
+        term_u = assert_term_close(u, ru, usize,
+                                   f"{what} potential vs reference", 1e-4)
+        within = int(dataclasses.replace(ref, kernel=PairKernel(
+            "pairs_in_cutoff", torch.zeros_like, torch.ones_like,
+            flops=0)).execute(state)[1].sum(dtype=torch.float64))
+        if not periodic:
+            net = float(f.double().sum(0).abs().max())
+            total = float(f.double().abs().sum())
+            if net > 1e-5 * total:
+                raise AssertionError(f"{what}: net force {net:.3e} vs sum "
+                                     f"|F| {total:.3e}: antisymmetry broken")
+        return (err_f, err_u), (term_f, term_u), within
+
+    def run_main(p, state, what, need):
+        """One ``execute()`` with every launch count set to 0 just before
+        and read just after; ``need`` names the kernels it must launch."""
+        reset_launches()
+        f, u = p.execute(state)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        missing = [k for k in need if not launches.get(k)]
+        if missing:
+            raise AssertionError(f"{what}: main path did not launch "
+                                 f"{missing}: {launches}")
+        if not (bool(f.isfinite().all()) and bool(u.isfinite().all())):
+            raise AssertionError(f"{what}: non-finite output")
+        return f, u, launches
+
+    # -- the dense main path at full size -------------------------------------
     results = []
-    for division, ppc, periodic in main_cases:
+    for division, ppc, periodic in DENSE_CASES:
         dom = Domain.cubic(division, cutoff=1.0, periodic=periodic)
         n = division ** 3 * ppc
         kern = make_lennard_jones()
         pos = dom.sample_uniform(n, generator=gen, device=dev)
         state = ParticleState(pos)
         p = plan(dom, kern, positions=pos, strategy="xpencil")
-
-        prefix_sum.launches = 0
-        xpencil_forces.launches = 0
-        f, u = p.execute(state)
-        torch.cuda.synchronize()
-        launches = {"prefix_sum": prefix_sum.launches,
-                    "xpencil_forces": xpencil_forces.launches}
-        if min(launches.values()) < 1:
-            raise AssertionError(f"main path skipped a kernel: {launches}")
-        if not (bool(f.isfinite().all()) and bool(u.isfinite().all())):
-            raise AssertionError("main path: non-finite output")
+        label = f"div {division} periodic={periodic}"
+        f, u, launches = run_main(p, state, f"dense {label}",
+                                  ("prefix_sum", "xpencil_forces"))
 
         # kernel B against its plain version on the main path's bins: LJ
         # (the main path's kernel) and three more pair kernels
         bins = p.bin(state)
-        label = f"div {division} periodic={periodic}"
         kb, _, xp_plain_ms, (fsize, usize), xp_abs_err, xp_term_err = \
             check_kernel_b(bins, division, "lennard_jones", kern, label)
         for name in ("low_flop", "gravity", "sph_density"):
             check_kernel_b(bins, division, name, kernels[name], label)
             xp_checks += 4
         xp_checks += 4
-
-        ref = plan(dom, kern, m_c=p.m_c, backend="reference")
-        rf, ru = ref.execute(state)
-        err_f = assert_scale_close(f, rf, "main path forces vs reference")
-        err_u = assert_scale_close(u, ru, "main path potential vs reference")
-        fsize_p, usize_p = dense_to_particles(dom, bins, fsize, fsize, fsize,
-                                              usize)
-        term_f = assert_term_close(f, rf, fsize_p,
-                                   "main path forces vs reference", 1e-4)
-        term_u = assert_term_close(u, ru, usize_p,
-                                   "main path potential vs reference", 1e-4)
-        if not periodic:
-            net = float(f.double().sum(0).abs().max())
-            total = float(f.double().abs().sum())
-            if net > 1e-5 * total:
-                raise AssertionError(f"net force {net:.3e} vs sum |F| "
-                                     f"{total:.3e}: pair antisymmetry broken")
-
+        (err_f, err_u), (term_f, term_u), within = reference_checks(
+            p, state, f, u, f"dense {label}", periodic)
 
         reps = 10
         execute_ms = cuda_ms(lambda: p.execute(state), reps)
@@ -324,60 +497,251 @@ def main(argv=None) -> int:
         scatter_ms = cuda_ms(lambda: dense_to_particles(dom, bins, *kb),
                              reps)
 
-        slots = bins.slot_id.numel()
         out_slots = kb[0].numel()
-        xp_bytes = 4 * 4 * slots + 4 * 4 * out_slots
         pairs = candidate_pairs(dom, counts)
-        within = int(plain(bins, division, PairKernel(
-            "pairs_in_cutoff", torch.zeros_like, torch.ones_like,
-            flops=0))[3].sum(dtype=torch.float64))
-        xp_ops = pairs * DIST_FLOPS + within * kern.flops
-        xp_bound_ms = 1e3 * max(xp_bytes / HBM_BYTES_PER_S,
-                                xp_ops / F32_OPS_PER_S)
-        dense_pairs = out_slots * 9 * 3 * p.m_c
-        res = dict(division=division, ppc=ppc, periodic=periodic, n=n,
-                   m_c=p.m_c, launches=launches, execute_ms=execute_ms,
-                   bin_ms=bin_ms, scan_ms=a_ms, xpencil_ms=b_ms,
-                   scatter_ms=scatter_ms, xpencil_plain_ms=xp_plain_ms,
-                   xpencil_bound_ms=xp_bound_ms,
-                   xpencil_bound_by=("bytes" if xp_bytes / HBM_BYTES_PER_S
-                                     > xp_ops / F32_OPS_PER_S
-                                     else "operations"),
-                   xpencil_bytes=xp_bytes, xpencil_ops=xp_ops,
-                   candidate_pairs=pairs, pairs_in_cutoff=within,
-                   dense_slot_pairs=dense_pairs, xpencil_max_abs_err=xp_abs_err,
+        xp_bound_ms, xp_bound_by = bound(
+            dense_read_bytes(bins) + 4 * 4 * out_slots,
+            pairs * DIST_FLOPS + within * kern.flops)
+        res = dict(case=f"dense {label}", division=division, ppc=ppc,
+                   periodic=periodic, n=n, m_c=p.m_c, launches=launches,
+                   execute_ms=execute_ms, bin_ms=bin_ms, scan_ms=a_ms,
+                   xpencil_ms=b_ms, scatter_ms=scatter_ms,
+                   xpencil_plain_ms=xp_plain_ms, xpencil_bound_ms=xp_bound_ms,
+                   xpencil_bound_by=xp_bound_by, candidate_pairs=pairs,
+                   pairs_in_cutoff=within,
+                   dense_slot_pairs=out_slots * 9 * 3 * p.m_c,
+                   xpencil_max_abs_err=xp_abs_err,
                    xpencil_term_rel_err=xp_term_err,
                    forces_vs_reference=err_f, potential_vs_reference=err_u,
-                   forces_term_rel_err=term_f,
-                   potential_term_rel_err=term_u,
+                   forces_term_rel_err=term_f, potential_term_rel_err=term_u,
                    n_cells=dom.n_cells)
         results.append(res)
         log("main path: " + json.dumps(res))
+    dense_main = results[0]
 
-    first = results[0]
+    # -- the packed and compacted main paths at full size ----------------------
+    def kernel_c_bound(dom, bins, occ, kern, within):
+        act = occ.active[:int(occ.n_active)]
+        n_bytes = (dense_read_bytes(bins, touched_rows(dom, act))
+                   + 4 * act.numel() + 16 * act.numel() * dom.nx * bins.m_c)
+        return bound(n_bytes, candidate_pairs(dom, bins.counts) * DIST_FLOPS
+                     + within * kern.flops)
+
+    def kernel_d_bound(dom, packed, active, kern, within):
+        ny = dom.ny
+        rows = touched_rows(dom, active)
+        real = packed.row_counts
+        a = active.long()
+        listed_real = int(real[a // ny + 1, a % ny + 1].sum())
+        n_bytes = (16 * int(real[rows].sum()) + 4 * int(rows.sum())
+                   * (dom.nx + 3) + 4 * active.numel()
+                   + (4 + 16) * listed_real)
+        return bound(n_bytes, candidate_pairs(dom, packed.counts)
+                     * DIST_FLOPS + within * kern.flops)
+
+    kern = make_lennard_jones()
+    reps = 10
+    new_cases = {}
+
+    # (a) packed rows, uniform: the paper's regime, as the dense main case
+    division, ppc = PACKED_CASE
+    dom = Domain.cubic(division, cutoff=1.0)
+    pos_u = dom.sample_uniform(division ** 3 * ppc, generator=gen, device=dev)
+    state_u = ParticleState(pos_u)
+    pa = plan(dom, kern, positions=pos_u, layout="packed")
+    f, u, launches = run_main(pa, state_u, "packed uniform",
+                              ("prefix_sum", "xpencil_packed_forces"))
+    dense_u = plan(dom, kern, m_c=pa.m_c).execute(state_u)
+    assert_equal_results((f, u), dense_u, "packed vs dense, uniform")
+    for layout in ("dense", "packed"):             # kernel C; D, active rows
+        assert_equal_results(
+            plan(dom, kern, positions=pos_u, m_c=pa.m_c, compact=True,
+                 layout=layout).execute(state_u),
+            dense_u, f"compact {layout} vs dense, uniform")
+    errs, terms, within = reference_checks(pa, state_u, f, u,
+                                           "packed uniform", False)
+    bins = pa.bin(state_u)
+    packed = pa.pack(bins)
+    every = full_pencil_occupancy(dom, dev).active
+    kd, _, d_plain_ms, _, d_abs_err, d_term_err = check_kernel_d(
+        dom, packed, None, "lennard_jones", kern, "main case (a)")
+    pk_checks += 4
+    d_bound_ms, d_bound_by = kernel_d_bound(dom, packed, every, kern, within)
+    new_cases["a"] = dict(
+        case="packed uniform", division=division, ppc=ppc, n=pos_u.shape[0],
+        m_c=pa.m_c, row_cap=pa.row_cap,
+        fullest_row=int(packed.row_counts.max()), launches=launches,
+        execute_ms=cuda_ms(lambda: pa.execute(state_u), reps),
+        dense_execute_ms=cuda_ms(lambda: plan(dom, kern, m_c=pa.m_c).execute(
+            state_u), reps),
+        bin_ms=cuda_ms(lambda: pa.bin(state_u), reps),
+        pack_ms=cuda_ms(lambda: pa.pack(bins), reps),
+        kernel_d_ms=cuda_ms(lambda: xpencil_packed_forces(
+            packed.planes, packed.slot_id, packed.slot_cell,
+            packed.cell_offsets, None, nx=division, ny=division, m_c=pa.m_c,
+            kernel=kern, cutoff2=1.0), reps),
+        kernel_d_plain_ms=d_plain_ms, kernel_d_bound_ms=d_bound_ms,
+        kernel_d_bound_by=d_bound_by,
+        unpack_ms=cuda_ms(lambda: packed_to_particles(dom, packed, *kd),
+                          reps),
+        candidate_pairs=candidate_pairs(dom, bins.counts),
+        pairs_in_cutoff=within, kernel_d_max_abs_err=d_abs_err,
+        kernel_d_term_rel_err=d_term_err, forces_vs_reference=errs[0],
+        potential_vs_reference=errs[1], forces_term_rel_err=terms[0],
+        potential_term_rel_err=terms[1])
+    log("main path: " + json.dumps(new_cases["a"]))
+
+    # (b) a clustered scene, compacted: dense layout (C), packed layout (D)
+    division, n_blob, sigma_frac = BLOB_CASE
+    dom = Domain.cubic(division, cutoff=1.0)
+    pos_b = scenarios.sample_gaussian_blob(dom, n_blob, generator=gen,
+                                           device=dev, sigma_frac=sigma_frac)
+    state_b = ParticleState(pos_b)
+    pb = plan(dom, kern, positions=pos_b, compact=True)
+    f, u, launches_c = run_main(pb, state_b, "compact blob",
+                                ("prefix_sum", "xpencil_sparse_forces"))
+    pbp = plan(dom, kern, positions=pos_b, compact=True, layout="packed")
+    fp, up, launches_d = run_main(pbp, state_b, "compact packed blob",
+                                  ("prefix_sum", "xpencil_packed_forces"))
+    dense_b = plan(dom, kern, m_c=pb.m_c).execute(state_b)
+    assert_equal_results((f, u), dense_b, "compact vs dense, blob")
+    assert_equal_results((fp, up), dense_b, "compact packed vs dense, blob")
+    assert_equal_results(plan(dom, kern, m_c=pb.m_c, layout="packed",
+                              row_cap=pbp.row_cap).execute(state_b),
+                         dense_b, "packed vs dense, blob")
+    errs_c, terms_c, within_b = reference_checks(pb, state_b, f, u,
+                                                 "compact blob", False)
+    errs_d, terms_d, _ = reference_checks(pbp, state_b, fp, up,
+                                          "compact packed blob", False)
+    bins_b = pb.bin(state_b)
+    occ = pencil_occupancy(dom, bins_b.counts, pb.max_active)
+    kc, _, c_plain_ms, _, c_abs_err, c_term_err = check_kernel_c(
+        dom, bins_b, occ.active, "lennard_jones", kern, "main case (b)")
+    sp_checks += 4
+    packed_b = pbp.pack(bins_b)
+    _, _, db_plain_ms, _, db_abs_err, _ = check_kernel_d(
+        dom, packed_b, occ.active, "lennard_jones", kern, "main case (b)")
+    pk_checks += 4
+    c_bound_ms, c_bound_by = kernel_c_bound(dom, bins_b, occ, kern, within_b)
+    db_bound_ms, db_bound_by = kernel_d_bound(
+        dom, packed_b, occ.active[:int(occ.n_active)], kern, within_b)
+    idx = occ.scatter_indices()
+    nz_ny = dom.nz * dom.ny
+
+    def scatter_back():
+        planes = [scatter_rows(r, idx, nz_ny).view(dom.nz, dom.ny, -1)
+                  for r in kc]
+        return dense_to_particles(dom, bins_b, *planes)
+
+    new_cases["b"] = dict(
+        case="compact blob", division=division, n=n_blob,
+        sigma_frac=sigma_frac, m_c=pb.m_c, max_active=pb.max_active,
+        n_active=int(occ.n_active), n_units=nz_ny, row_cap=pbp.row_cap,
+        fullest_row=int(packed_b.row_counts.max()),
+        launches_compact=launches_c, launches_compact_packed=launches_d,
+        execute_compact_ms=cuda_ms(lambda: pb.execute(state_b), reps),
+        execute_compact_packed_ms=cuda_ms(lambda: pbp.execute(state_b), reps),
+        execute_dense_ms=cuda_ms(lambda: plan(dom, kern, m_c=pb.m_c).execute(
+            state_b), reps),
+        bin_ms=cuda_ms(lambda: pb.bin(state_b), reps),
+        occupancy_ms=cuda_ms(lambda: pencil_occupancy(
+            dom, bins_b.counts, pb.max_active), reps),
+        pack_ms=cuda_ms(lambda: pbp.pack(bins_b), reps),
+        kernel_c_ms=cuda_ms(lambda: xpencil_sparse_forces(
+            bins_b.planes, bins_b.slot_id, occ.active, nx=division,
+            ny=division, m_c=pb.m_c, kernel=kern, cutoff2=1.0), reps),
+        kernel_c_plain_ms=c_plain_ms, kernel_c_bound_ms=c_bound_ms,
+        kernel_c_bound_by=c_bound_by,
+        kernel_b_ms=cuda_ms(lambda: xpencil_forces(
+            bins_b.planes, bins_b.slot_id, nx=division, m_c=pb.m_c,
+            kernel=kern, cutoff2=1.0), reps),
+        kernel_d_ms=cuda_ms(lambda: xpencil_packed_forces(
+            packed_b.planes, packed_b.slot_id, packed_b.slot_cell,
+            packed_b.cell_offsets, occ.active, nx=division, ny=division,
+            m_c=pb.m_c, kernel=kern, cutoff2=1.0), reps),
+        kernel_d_plain_ms=db_plain_ms, kernel_d_bound_ms=db_bound_ms,
+        kernel_d_bound_by=db_bound_by,
+        scatter_ms=cuda_ms(scatter_back, reps),
+        candidate_pairs=candidate_pairs(dom, bins_b.counts),
+        pairs_in_cutoff=within_b, kernel_c_max_abs_err=c_abs_err,
+        kernel_c_term_rel_err=c_term_err, kernel_d_max_abs_err=db_abs_err,
+        forces_vs_reference=errs_c[0], potential_vs_reference=errs_c[1],
+        forces_term_rel_err=terms_c[0], potential_term_rel_err=terms_c[1],
+        packed_forces_term_rel_err=terms_d[0],
+        packed_potential_term_rel_err=terms_d[1])
+    log("main path: " + json.dumps(new_cases["b"]))
+
+    # -- replan on the card: a plan sized on the uniform scene, run on the blob
+    pu = plan(dom, kern, positions=pos_u, layout="packed", compact=True)
+    counts_b = cell_counts(dom, pos_b)
+    over = {"m_c": int(counts_b.max()) > pu.m_c,
+            "row_cap": int(padded_row_counts(dom, counts_b).max())
+            > pu.row_cap,
+            "max_active": active_unit_count(dom, pos_b) > pu.max_active}
+    (f, u), p1 = pu.execute_or_replan(state_b)
+    for name, overflowed in over.items():
+        old, new = getattr(pu, name), getattr(p1, name)
+        if (new > old) != overflowed or (new != old) != overflowed:
+            raise AssertionError(f"replan: {name} {old} -> {new}, overflowed "
+                                 f"{overflowed}")
+    fresh = plan(dom, kern, m_c=p1.m_c, layout="packed", compact=True,
+                 max_active=p1.max_active, row_cap=p1.row_cap).execute(state_b)
+    assert_equal_results((f, u), fresh, "execute_or_replan vs a fresh plan")
+    assert_equal_results((f, u), dense_b, "execute_or_replan vs dense")
+    replan = {n: [getattr(pu, n), getattr(p1, n)] for n in over}
+    log(f"replan: uniform plan on the blob grew {replan} (overflowed: "
+        f"{over}); result equals a fresh plan's and the dense path's")
+
+    a, b = new_cases["a"], new_cases["b"]
     report = {"kernels": [
         {"name": "prefix_sum", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/prefix_sum.cu",
          "replaces": "src/repro/kernels/prefix_sum.py:66",
-         "launches": first["launches"]["prefix_sum"], "max_abs_err": 0,
-         "ms": scan_ms, "plain_ms": scan_plain_ms, "bound_ms": scan_bound_ms,
-         "bound_by": "bytes", "library_ms": cumsum_ms,
-         "shapes": f"int32 ({SCAN_TIMED_N},)", "checks_passed": scan_checks},
+         "launches": a["launches"]["prefix_sum"], "main_case": a["case"],
+         "max_abs_err": 0, "ms": scan_ms, "plain_ms": scan_plain_ms,
+         "bound_ms": scan_bound_ms, "bound_by": "bytes",
+         "library_ms": cumsum_ms, "shapes": f"int32 ({SCAN_TIMED_N},)",
+         "checks_passed": scan_checks},
         {"name": "xpencil_forces", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/xpencil.cu",
          "replaces": "src/repro/kernels/xpencil.py:148",
-         "launches": first["launches"]["xpencil_forces"],
-         "max_abs_err": first["xpencil_max_abs_err"],
-         "ms": first["xpencil_ms"], "plain_ms": first["xpencil_plain_ms"],
-         "bound_ms": first["xpencil_bound_ms"],
-         "bound_by": first["xpencil_bound_by"], "library_ms": None,
-         "shapes": (f"4 x ({first['division'] + 2}, {first['division'] + 2}, "
-                    f"{(first['division'] + 2) * first['m_c']}) -> 4 x "
-                    f"({first['division']}, {first['division']}, "
-                    f"{first['division'] * first['m_c']})"),
-         "max_term_rel_err": first["xpencil_term_rel_err"],
+         "launches": dense_main["launches"]["xpencil_forces"],
+         "main_case": dense_main["case"],
+         "max_abs_err": dense_main["xpencil_max_abs_err"],
+         "ms": dense_main["xpencil_ms"],
+         "plain_ms": dense_main["xpencil_plain_ms"],
+         "bound_ms": dense_main["xpencil_bound_ms"],
+         "bound_by": dense_main["xpencil_bound_by"], "library_ms": None,
+         "shapes": shapes(dense_main["division"], "(d+2)*m_c",
+                          "(d, d*m_c)", m_c=dense_main["m_c"]),
+         "max_term_rel_err": dense_main["xpencil_term_rel_err"],
          "checks_passed": xp_checks},
+        {"name": "xpencil_sparse_forces", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/xpencil.cu",
+         "replaces": "src/repro/kernels/xpencil.py:244",
+         "launches": b["launches_compact"]["xpencil_sparse_forces"],
+         "main_case": b["case"], "max_abs_err": b["kernel_c_max_abs_err"],
+         "ms": b["kernel_c_ms"], "plain_ms": b["kernel_c_plain_ms"],
+         "bound_ms": b["kernel_c_bound_ms"],
+         "bound_by": b["kernel_c_bound_by"], "library_ms": None,
+         "shapes": shapes(b["division"], "(d+2)*m_c", "(max_active, d*m_c)",
+                          m_c=b["m_c"], max_active=b["max_active"]),
+         "max_term_rel_err": b["kernel_c_term_rel_err"],
+         "checks_passed": sp_checks},
+        {"name": "xpencil_packed_forces", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/xpencil.cu",
+         "replaces": "src/repro/kernels/xpencil.py:393",
+         "launches": a["launches"]["xpencil_packed_forces"],
+         "main_case": a["case"], "max_abs_err": a["kernel_d_max_abs_err"],
+         "ms": a["kernel_d_ms"], "plain_ms": a["kernel_d_plain_ms"],
+         "bound_ms": a["kernel_d_bound_ms"],
+         "bound_by": a["kernel_d_bound_by"], "library_ms": None,
+         "shapes": shapes(a["division"], "row_cap", "(d*d, row_cap)",
+                          row_cap=a["row_cap"]),
+         "max_term_rel_err": a["kernel_d_term_rel_err"],
+         "checks_passed": pk_checks},
     ]}
+    log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(report))
     print(smi[0])
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of ``repro``: the dense X-pencil force evaluation.
+"""PyTorch/CUDA port of ``repro``: the X-pencil force evaluation, dense,
+occupancy-compacted and packed-row.
 
     from repro_torch.core import Domain, ParticleState, plan
     p = plan(domain, kernel, positions=pos)          # runs on the CUDA card

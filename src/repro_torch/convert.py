@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from .core.api import ParticleState
-from .core.binning import CellBins
+from .core.binning import CellBins, Occupancy, PackedRows
 from .core.domain import Domain
 from .core.interactions import (PairKernel, make_gravity, make_high_flop,
                                 make_lennard_jones, make_low_flop,
@@ -68,3 +68,21 @@ def bins_to_numpy(bins: CellBins) -> Dict[str, np.ndarray]:
                offsets=bins.offsets.cpu().numpy(),
                particle_slot=bins.particle_slot.cpu().numpy())
     return out
+
+
+def packed_to_numpy(packed: PackedRows) -> Dict[str, np.ndarray]:
+    """Every packed-row array as numpy, planes under their own names."""
+    out = {k: v.cpu().numpy() for k, v in packed.planes.items()}
+    for name in ("slot_id", "slot_cell", "cell_offsets", "row_counts",
+                 "counts", "particle_slot"):
+        out[name] = getattr(packed, name).cpu().numpy()
+    return out
+
+
+def occupancy_to_numpy(occ: Occupancy) -> Dict[str, np.ndarray]:
+    """The occupancy summary's arrays (and its write-side indices) as
+    numpy."""
+    return {"unit_counts": occ.unit_counts.cpu().numpy(),
+            "active": occ.active.cpu().numpy(),
+            "n_active": occ.n_active.cpu().numpy(),
+            "scatter_indices": occ.scatter_indices().cpu().numpy()}

@@ -1,9 +1,16 @@
-"""The port's core: domain, pair kernels, binning, schedules, plan/execute."""
+"""The port's core: domain, pair kernels, binning (dense, occupancy,
+packed rows), schedules, plan/execute."""
 
-from .api import (InteractionPlan, ParticleState, get_backend, plan,
-                  register_backend)
-from .binning import (EMPTY_POS, GHOST_ID_BUMP, CellBins, bin_particles,
-                      cell_counts, dense_to_particles, gather_to_particles)
+from . import scenarios
+from .api import (InteractionPlan, ParticleState, active_unit_count,
+                  get_backend, n_units, plan, register_backend,
+                  suggest_max_active, suggest_row_cap, supports_compact,
+                  supports_layout)
+from .binning import (EMPTY_POS, GHOST_ID_BUMP, CellBins, Occupancy,
+                      PackedRows, bin_particles, cell_counts,
+                      dense_to_particles, full_pencil_occupancy,
+                      gather_to_particles, pack_rows, packed_to_particles,
+                      padded_row_counts, pencil_occupancy, unpack_scatter)
 from .domain import Domain
 from .engine import suggest_m_c
 from .interactions import (PairKernel, make_gravity, make_high_flop,
@@ -11,8 +18,13 @@ from .interactions import (PairKernel, make_gravity, make_high_flop,
 
 __all__ = [
     "CellBins", "Domain", "EMPTY_POS", "GHOST_ID_BUMP", "InteractionPlan",
-    "PairKernel", "ParticleState", "bin_particles", "cell_counts",
-    "dense_to_particles", "gather_to_particles", "get_backend",
-    "make_gravity", "make_high_flop", "make_lennard_jones", "make_low_flop",
-    "make_sph_density", "plan", "register_backend", "suggest_m_c",
+    "Occupancy", "PackedRows", "PairKernel", "ParticleState",
+    "active_unit_count", "bin_particles", "cell_counts",
+    "dense_to_particles", "full_pencil_occupancy", "gather_to_particles",
+    "get_backend", "make_gravity", "make_high_flop", "make_lennard_jones",
+    "make_low_flop", "make_sph_density", "n_units", "pack_rows",
+    "packed_to_particles", "padded_row_counts", "pencil_occupancy", "plan",
+    "register_backend", "scenarios", "suggest_m_c", "suggest_max_active",
+    "suggest_row_cap", "supports_compact", "supports_layout",
+    "unpack_scatter",
 ]

@@ -245,3 +245,266 @@ def dense_to_particles(domain: Domain, bins: CellBins, fx, fy, fz, pot
         out.append(gather_to_particles(
             bins, interior_to_padded(domain, shaped, bins.m_c)))
     return torch.stack(out[:3], dim=-1), out[3]
+
+
+# --------------------------------------------------------------------------
+# occupancy: the sparsity summary behind the compacted schedules
+# --------------------------------------------------------------------------
+#
+# Port of the JAX package's occupancy summary: per-unit particle counts plus
+# a compacted list of the active (z, y) pencils under a static
+# ``max_active`` bound that follows the m_c replan contract (overflow is
+# detectable, never silent). ``jnp.nonzero(size=..., fill_value=0)`` has no
+# static-size torch twin and ``torch.nonzero`` waits on the device, so the
+# list is built without a host sync: a running count of the active units
+# gives each its place, and inactive or overflowing units go to a dump
+# slot that is cut off.
+
+
+@dataclasses.dataclass
+class Occupancy:
+    """Compacted active-work-unit summary (pencils).
+
+    ``active`` holds the linearized ids of the units with at least one
+    particle, in ascending order, padded to the static bound ``max_active``
+    with unit 0 (always a valid unit to *read*; padded entries are dropped
+    on the write side via :meth:`scatter_indices`). ``n_active`` is the true
+    count; above ``max_active`` the summary has overflowed and results
+    computed from it miss units, exactly like a cell overflowing m_c.
+    """
+
+    unit_counts: torch.Tensor     # (n_units,) int32 particles per work unit
+    active: torch.Tensor          # (max_active,) int32 unit ids, 0-padded
+    n_active: torch.Tensor        # () int32 true number of active units
+    max_active: int
+    n_units: int
+
+    @property
+    def overflowed(self) -> torch.Tensor:
+        """True when active units were dropped from ``active`` (replan)."""
+        return self.n_active > self.max_active
+
+    def scatter_indices(self) -> torch.Tensor:
+        """(max_active,) write-side unit ids: padding entries point at
+        ``n_units``, the dump row of a ``(n_units + 1, ...)`` scatter."""
+        slot = torch.arange(self.max_active, dtype=torch.int32,
+                            device=self.active.device)
+        return torch.where(slot < self.n_active, self.active,
+                           torch.full_like(self.active, self.n_units))
+
+    @property
+    def fill_fraction(self) -> torch.Tensor:
+        return self.n_active / max(self.n_units, 1)
+
+
+def _compact_active(unit_counts: torch.Tensor, max_active: int,
+                    n_units: int) -> Occupancy:
+    flag = unit_counts > 0
+    place = torch.cumsum(flag.to(torch.int32), 0, dtype=torch.int32) - 1
+    dest = torch.where(flag & (place < max_active), place,
+                       torch.full_like(place, max_active)).long()
+    buf = torch.zeros((max_active + 1,), dtype=torch.int32,
+                      device=unit_counts.device)
+    buf[dest] = torch.arange(n_units, dtype=torch.int32,
+                             device=unit_counts.device)
+    return Occupancy(unit_counts=unit_counts, active=buf[:max_active],
+                     n_active=flag.sum(dtype=torch.int32),
+                     max_active=max_active, n_units=n_units)
+
+
+def scatter_rows(rows: torch.Tensor, idx: torch.Tensor,
+                 n_units: int) -> torch.Tensor:
+    """(max_active, W) compact rows -> (n_units, W), zero where no row
+    lands; rows whose ``idx`` is ``n_units`` (``scatter_indices``'s
+    padding) go to a dump row that is cut off."""
+    out = rows.new_zeros((n_units + 1, rows.shape[-1]))
+    out[idx.long()] = rows
+    return out[:n_units]
+
+
+def full_pencil_occupancy(domain: Domain,
+                          device: torch.device | str = "cpu") -> Occupancy:
+    """The identity occupancy: every (z, y) pencil active, in order, so the
+    packed runners iterate all rows through the active-list machinery."""
+    n = domain.nz * domain.ny
+    return Occupancy(
+        unit_counts=torch.ones((n,), dtype=torch.int32, device=device),
+        active=torch.arange(n, dtype=torch.int32, device=device),
+        n_active=torch.tensor(n, dtype=torch.int32, device=device),
+        max_active=n, n_units=n)
+
+
+def counts_grid(domain: Domain, counts: torch.Tensor) -> torch.Tensor:
+    """(n_cells,) linear cell counts -> (nz, ny, nx) grid (X fastest)."""
+    return counts.reshape(domain.nz, domain.ny, domain.nx)
+
+
+def pencil_counts(domain: Domain, counts: torch.Tensor) -> torch.Tensor:
+    """(n_cells,) cell counts -> (nz*ny,) int32 particles per (z, y)
+    X-pencil; unit id = z * ny + y."""
+    return counts_grid(domain, counts).sum(-1, dtype=torch.int32).reshape(-1)
+
+
+def pencil_occupancy(domain: Domain, counts: torch.Tensor,
+                     max_active: int) -> Occupancy:
+    """Active (z, y) X-pencils of ``CellBins.counts``."""
+    return _compact_active(pencil_counts(domain, counts), max_active,
+                           domain.nz * domain.ny)
+
+
+def gather_pencil_rows(plane: torch.Tensor, active_zy: torch.Tensor, ny: int,
+                       dz: int = 0, dy: int = 0) -> torch.Tensor:
+    """One padded row per pencil id: row ``a`` is the padded
+    ``(z + dz + 1, y + dy + 1)`` row of ``plane`` for ``active_zy[a] =
+    z * ny + y``."""
+    zy = active_zy.long()
+    return plane[zy // ny + 1 + dz, zy % ny + 1 + dy]
+
+
+# --------------------------------------------------------------------------
+# packed-row layout: CSR-style slot compaction per pencil row
+# --------------------------------------------------------------------------
+#
+# Each padded (z, y) pencil row stores its particles contiguously (cell
+# order kept) under a static ``row_cap`` bound with the replan contract of
+# m_c; per-cell start offsets come from the paper's §6 scan (kernel A on a
+# CUDA tensor), so the dense layout's contiguous 3-cell X-window becomes an
+# (offset, length) range.
+
+
+@dataclasses.dataclass
+class PackedRows:
+    """CSR cell layout: per-pencil packed rows + scan-built cell offsets.
+
+    Every padded (z, y) pencil row, ghost ring included, owns ``row_cap``
+    slots; the row's particles (X-ghost copies included) sit at the front
+    in cell-then-rank order, the dense row's order minus its empty slots.
+    ``cell_offsets[..., c]`` is where padded cell ``c`` starts, so a target
+    in cell ``c`` reads ``[cell_offsets[c-1], cell_offsets[c+2])``. A row
+    holding more than ``row_cap`` particles drops its tail (``overflowed``).
+    """
+
+    planes: Dict[str, torch.Tensor]   # (nz+2, ny+2, row_cap) packed fields
+    slot_id: torch.Tensor             # (nz+2, ny+2, row_cap) int32, -1 pad
+    slot_cell: torch.Tensor           # (nz+2, ny+2, row_cap) int32 cell
+    cell_offsets: torch.Tensor        # (nz+2, ny+2, nx+3) int32
+    row_counts: torch.Tensor          # (nz+2, ny+2) int32 particles per row
+    counts: torch.Tensor              # (n_cells,) pass-through from CellBins
+    particle_slot: torch.Tensor       # (N,) int32 interior packed slot
+    row_cap: int
+    m_c: int
+
+    @property
+    def overflowed(self) -> torch.Tensor:
+        """True when some row held more than ``row_cap`` particles."""
+        return self.row_counts.max() > self.row_cap
+
+
+def padded_row_counts(domain: Domain, counts: torch.Tensor) -> torch.Tensor:
+    """(n_cells,) cell counts -> (nz, ny) int32 particles per *padded*
+    pencil row: the interior particles plus, under a periodic X axis, the
+    ghost copies of the first and last cell (a 1-cell-thick periodic X axis
+    counts its cell three times). Ghost Y/Z rows copy interior rows, so the
+    interior maximum covers every padded row."""
+    grid = counts_grid(domain, counts)
+    per_row = grid.sum(-1, dtype=torch.int32)
+    if domain.periodic_axes[0]:
+        per_row = per_row + grid[..., 0] + grid[..., -1]
+    return per_row
+
+
+def pack_rows(domain: Domain, bins: CellBins, row_cap: int) -> PackedRows:
+    """Compact a dense :class:`CellBins` into the packed-row layout.
+
+    Per padded row, the occupied slots give per-cell counts, the §6 scan
+    turns them into start offsets, and every occupied dense slot (cell c,
+    rank r) moves to packed position ``offsets[c] + r``. The scan is one
+    rank-1 exclusive scan over all rows' counts (kernel A on a CUDA tensor)
+    minus each row's first entry: exact in int32 and equal to a per-row
+    scan. Slots past ``row_cap`` go to a dump slot that is cut off.
+    """
+    from ..kernels.prefix_sum import prefix_sum
+
+    nx, ny, nz = domain.ncells
+    m_c = bins.m_c
+    nzp, nyp = nz + 2, ny + 2
+    dev = bins.slot_id.device
+    shape4 = (nzp, nyp, nx + 2, m_c)
+
+    occupied = bins.slot_id.view(shape4) >= 0
+    cell_counts_p = occupied.sum(-1, dtype=torch.int32)    # (nzp, nyp, nx+2)
+    flat_scan = exclusive_prefix_sum(cell_counts_p.reshape(-1),
+                                     scan=prefix_sum).view(cell_counts_p.shape)
+    offsets = flat_scan - flat_scan[..., :1]
+    row_counts = cell_counts_p.sum(-1, dtype=torch.int32)  # (nzp, nyp)
+    cell_offsets = torch.cat([offsets, row_counts[..., None]], dim=-1)
+
+    rank = torch.arange(m_c, dtype=torch.int32, device=dev)
+    dest = offsets[..., None] + rank                       # (nzp,nyp,nx+2,m_c)
+    row_base = (torch.arange(nzp, device=dev)[:, None] * nyp
+                + torch.arange(nyp, device=dev)[None, :])
+    total = nzp * nyp * row_cap
+    flat = row_base[..., None, None] * row_cap + dest
+    flat = torch.where(occupied & (dest < row_cap), flat,
+                       torch.full_like(flat, total)).reshape(-1)
+
+    def pack(plane: torch.Tensor, fill) -> torch.Tensor:
+        # slot ``total`` is the dump slot of empty and overflowing slots
+        out = torch.full((total + 1,), fill, dtype=plane.dtype, device=dev)
+        out[flat] = plane.reshape(-1)
+        return out[:total].view(nzp, nyp, row_cap)
+
+    planes = {name: pack(plane, EMPTY_POS if name in ("x", "y", "z") else 0.0)
+              for name, plane in bins.planes.items()}
+    slot_id = pack(bins.slot_id, -1)
+    # padding slots read cell 1 (a valid interior cell) so window arithmetic
+    # stays in bounds; their results are masked by slot_id == -1
+    cell_idx = torch.arange(nx + 2, dtype=torch.int32, device=dev)
+    slot_cell = pack(cell_idx[:, None].expand(shape4), 1)
+
+    # per-particle packed slot (interior rows only). JAX clamps each gather
+    # index, so a particle the dense binning dropped (particle_slot ==
+    # total) reads offsets[nz+1, 0, 0] == 0 and lands past the unpacked
+    # array, where unpack_scatter's clamp reads the zero pad slot.
+    row_len = (nx + 2) * m_c
+    ds = bins.particle_slot.long()
+    zp = ds // (nyp * row_len)
+    rem = ds % (nyp * row_len)
+    yp = rem // row_len
+    col = rem % row_len
+    c = col // m_c
+    r = col % m_c
+    pos_in_row = offsets[torch.clamp(zp, max=nzp - 1), yp, c] + r
+    pos_in_row = torch.clamp(pos_in_row, max=row_cap)
+    particle_slot = (((zp - 1) * ny + (yp - 1)) * (row_cap + 1)
+                     + pos_in_row).to(torch.int32)
+
+    return PackedRows(planes=planes, slot_id=slot_id, slot_cell=slot_cell,
+                      cell_offsets=cell_offsets, row_counts=row_counts,
+                      counts=bins.counts, particle_slot=particle_slot,
+                      row_cap=row_cap, m_c=m_c)
+
+
+def unpack_scatter(domain: Domain, packed: PackedRows,
+                   rows: torch.Tensor) -> torch.Tensor:
+    """Packed per-slot values back to particle order.
+
+    ``rows`` holds one value per *interior* packed slot, ``(nz * ny,
+    row_cap)`` in pencil-id order. Particles past ``row_cap`` read a zero
+    pad slot; particles the dense binning dropped point past the array and
+    are clamped onto the last pad slot, as JAX's gather clamps."""
+    nz, ny = domain.nz, domain.ny
+    per_row = rows.reshape(nz * ny, packed.row_cap)
+    padded = torch.cat([per_row, per_row.new_zeros((nz * ny, 1))], dim=-1)
+    flat = padded.reshape(-1)
+    idx = torch.clamp(packed.particle_slot, max=flat.shape[0] - 1).long()
+    return flat[idx]
+
+
+def packed_to_particles(domain: Domain, packed: PackedRows, fx, fy, fz, pot
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Packed ``(nz * ny, row_cap)`` schedule outputs -> per-particle
+    (forces (N, 3), potential (N,)), the same contract as
+    :func:`dense_to_particles`."""
+    out = [unpack_scatter(domain, packed, p) for p in (fx, fy, fz, pot)]
+    return torch.stack(out[:3], dim=-1), out[3]

@@ -19,6 +19,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ._device import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class Domain:
@@ -127,9 +129,12 @@ class Domain:
     def sample_uniform(self, n: int, *,
                        generator: Optional[torch.Generator] = None,
                        dtype: torch.dtype = torch.float32,
-                       device: torch.device | str = "cpu") -> torch.Tensor:
+                       device: torch.device | str | None = None
+                       ) -> torch.Tensor:
         """Uniformly distributed particles (the paper's benchmark input).
-        Draws from ``generator``, which must live on ``device``."""
+        Draws from ``generator``, which must live on ``device``. ``device``
+        None means the CUDA card, and raises when none is visible."""
+        device = resolve_device(device)
         box = torch.tensor(self.box, dtype=dtype, device=device)
         return torch.rand((n, 3), generator=generator, dtype=dtype,
                           device=device) * box

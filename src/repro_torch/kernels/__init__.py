@@ -1,22 +1,36 @@
 """Hand-written CUDA kernels of the port (built with nvcc at first use).
 
-xpencil      the paper's X-pencil schedule (csrc/xpencil.cu)
-prefix_sum   the paper's §6 scan (csrc/prefix_sum.cu)
+xpencil      the paper's X-pencil schedule, dense (kernel B), compacted
+             (kernel C) and packed-row (kernel D) (csrc/xpencil.cu)
+prefix_sum   the paper's §6 scan (kernel A, csrc/prefix_sum.cu)
 
 Each kernel has a wrapper that runs its plain PyTorch version on CPU
 tensors and launches the kernel on CUDA tensors. Importing this package
-registers the X-pencil kernel as the ``"cuda"`` backend of the port's own
-registry, so ``plan(domain, kernel, positions=pos)`` runs it.
+registers the X-pencil kernels as the ``"cuda"`` backend of the port's own
+registry, so ``plan(domain, kernel, positions=pos)`` runs them.
 """
 
 from ..core.api import InteractionPlan, ParticleState, register_backend
-from ..core.binning import CellBins
-from .ops import prefix_sum, xpencil_interactions
+from ..core.binning import CellBins, PackedRows
+from .ops import (prefix_sum, xpencil_interactions,
+                  xpencil_packed_interactions, xpencil_sparse_interactions)
 
-__all__ = ["prefix_sum", "xpencil_interactions"]
+__all__ = ["prefix_sum", "xpencil_interactions",
+           "xpencil_packed_interactions", "xpencil_sparse_interactions"]
 
 
-@register_backend("cuda", "xpencil")
+@register_backend("cuda", "xpencil", compact=True)
 def _cuda_xpencil(plan: InteractionPlan, bins: CellBins,
                   state: ParticleState):
+    if plan.compact:
+        return xpencil_sparse_interactions(plan.domain, bins, plan.kernel,
+                                           plan.max_active)
     return xpencil_interactions(plan.domain, bins, plan.kernel)
+
+
+@register_backend("cuda", "xpencil", compact=True, layout="packed")
+def _cuda_xpencil_packed(plan: InteractionPlan, packed: PackedRows,
+                         state: ParticleState):
+    return xpencil_packed_interactions(
+        plan.domain, packed, plan.kernel,
+        max_active=plan.max_active if plan.compact else None)

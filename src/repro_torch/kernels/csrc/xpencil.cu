@@ -1,33 +1,56 @@
-// Dense X-pencil cutoff forces (the paper's §5.2 schedule) in float32.
+// X-pencil cutoff forces (the paper's §5.2 schedule) in float32: the dense
+// kernel B, the occupancy-compacted kernel C and the packed-row kernel D.
 //
-// Replaces src/repro/kernels/xpencil.py::xpencil_forces, whose Pallas kernel
-// runs a (nz, ny, 9) grid: one program per target pencil, the 9 (dz, dy)
-// neighbour rows streamed through VMEM, outputs accumulated across k.
+// Replaces, in src/repro/kernels/xpencil.py:
+//   B  xpencil_forces         (Pallas grid (nz, ny, 9): one program per
+//                              target pencil, 9 neighbour rows through VMEM)
+//   C  xpencil_sparse_forces  (grid (max_active, 9) over a scalar-prefetched
+//                              list of active pencils)
+//   D  xpencil_packed_forces  (grid (n_rows, 9) over packed CSR rows; each
+//                              target's 3-cell window from the row offsets)
 //
-// What bounds it on the card: operations. It evaluates every dense slot
-// pair of each target's 3*m_c window (9 * 3 * m_c candidates per target
-// slot), of which only the pairs of real particles within the cutoff do
-// work; at 4 particles per cell and m_c = 24 that is about 3% of the
-// evaluated pairs. The bytes (planes read once, outputs written once) would
-// take far less time than the masked pair arithmetic. Skipping empty source
-// slots (sentinel skipping), staging with TMA and packing rows are the
-// later work that moves it toward the bound.
+// What bounds them on the card: operations. B and C evaluate every dense
+// slot pair of each target's 3*m_c window (9 * 3 * m_c candidates per
+// target slot), of which only the pairs of real particles within the cutoff
+// do work; at 4 particles per cell and m_c = 24 that is about 3% of the
+// evaluated pairs. D visits only the real sources of each window, about
+// 9 * 12 per particle at 4 per cell, so its work follows the particles. The
+// bytes (rows read once, outputs written once) would take far less time
+// than the pair arithmetic. Staging with TMA, double buffering and load
+// balancing are later work.
 //
-// Design (simple and right first): one block per (x-chunk of CX cells, y, z).
-// For each of the 9 neighbour rows in the order k = 0..8 (dz = k/3 - 1,
-// dy = k%3 - 1, as the TPU index map (z + k//3, y + k%3) has it) the block
-// stages the row's (CX+2)*m_c slots of x, y, z, id into shared memory; each
-// thread owns one target slot, keeps it in registers, scans its contiguous
-// 3*m_c window and adds the window's sum to its accumulators. The outputs
-// are written once at the end: no atomics, nothing carried between blocks.
-// The mask is the JAX kernel's (sid != tid, both ids >= 0, 0 < r2 < cutoff2),
-// and coeff/potential are evaluated on the masked-safe r2 (1.0 where masked)
-// and multiplied by the 0/1 weight. r2 is computed with explicit
-// round-to-nearest operations so the cutoff test sees the same r2 as the
-// plain PyTorch version (no fused multiply-add across it). An empty target
-// slot (tid < 0) is skipped; its output is 0 either way.
+// B and C (one kernel, xpencil_kernel): one block per (pencil row, x-chunk
+// of CX cells). The row is blockIdx.x itself (B) or act[blockIdx.x] (C: the
+// block loads its own id; Hopper has no scalar prefetch), mapped to the
+// padded pencil (z + 1, y + 1); C's output row is the list position, so
+// padding entries (pencil 0) recompute pencil 0 as on the TPU. For each of
+// the 9 neighbour rows in the order k = 0..8 (dz = k/3 - 1, dy = k%3 - 1,
+// the TPU index map (z + k//3, y + k%3)) the block stages the row's
+// (CX+2)*m_c slots of x, y, z, id in shared memory; each thread owns one
+// target slot, keeps it in registers and scans its contiguous 3*m_c window.
+//
+// D (xpencil_packed_kernel): one thread per packed target slot, one block
+// per (row, tile of <= 256 slots), so row_cap is not limited to one block.
+// Per neighbour row the block stages the row's real particles (at most
+// row_cap of x, y, z, id) in shared memory; each thread reads its cell's
+// window [off[c-1], off[c+2]) from the row's offsets (c = its slot cell
+// clamped to [1, nx]) and visits only those sources, in ascending order.
+//
+// One accumulation step (pair_step) serves all three: r2 with explicit
+// round-to-nearest operations (the cutoff test sees the r2 of the plain
+// PyTorch version), the JAX mask (sid != tid, both ids >= 0,
+// 0 < r2 < cutoff2), coeff/potential on the masked-safe r2 (1.0 where
+// masked) times the 0/1 weight, and each term added to the partial (the
+// compiler fuses that multiply-add the same way in all three kernels, since
+// they share this one function). Each neighbour row is summed into its own
+// partial, then added to the accumulator. A dense window's empty slots add
+// exactly +-0 to a partial that starts at +0, so D's per-particle result
+// equals B's and C's value for value without visiting them. Outputs are
+// written once at the end: no atomics, nothing carried between blocks.
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -47,6 +70,8 @@ struct PairParams {
 
 constexpr int kMaxThreads = 1024;
 constexpr int kTargetThreads = 256;
+constexpr int kPackedThreads = 256;
+constexpr size_t kMaxSmem = 232448;  // 227 KB a block may opt in to
 
 __device__ __forceinline__ void lj(float r2, const PairParams& q, float& c,
                                    float& u) {
@@ -98,13 +123,41 @@ __device__ __forceinline__ void pair_terms(float r2, const PairParams& q,
   }
 }
 
+// One candidate pair: adds the masked terms of source (sx, sy, sz, s) to
+// the partial sums of target (tx, ty, tz, tid).
+template <int KIND>
+__device__ __forceinline__ void pair_step(float tx, float ty, float tz,
+                                          int tid, float sx, float sy,
+                                          float sz, int s, float cutoff2,
+                                          const PairParams& prm, float& px,
+                                          float& py, float& pz, float& pp) {
+  const float ddx = tx - sx;
+  const float ddy = ty - sy;
+  const float ddz = tz - sz;
+  const float r2 = __fadd_rn(__fadd_rn(__fmul_rn(ddx, ddx),
+                                       __fmul_rn(ddy, ddy)),
+                             __fmul_rn(ddz, ddz));
+  const bool m = (s != tid) && (s >= 0) && (r2 < cutoff2) && (r2 > 0.0f);
+  const float w = m ? 1.0f : 0.0f;
+  float c, u;
+  pair_terms<KIND>(m ? r2 : 1.0f, prm, c, u);
+  const float sc = c * w;
+  px += sc * ddx;
+  py += sc * ddy;
+  pz += sc * ddz;
+  pp += u * w;
+}
+
+// Kernels B (act == nullptr: row r is pencil r) and C (row r is pencil
+// act[r]). Grid (n_rows, x-chunks).
 template <int KIND>
 __global__ void __launch_bounds__(kMaxThreads)
 xpencil_kernel(const float* __restrict__ x, const float* __restrict__ y,
                const float* __restrict__ z, const int* __restrict__ sid,
-               float* __restrict__ fx, float* __restrict__ fy,
-               float* __restrict__ fz, float* __restrict__ pot, int nx,
-               int ny, int m_c, int cx_cells, float cutoff2, PairParams prm) {
+               const int* __restrict__ act, float* __restrict__ fx,
+               float* __restrict__ fy, float* __restrict__ fz,
+               float* __restrict__ pot, int nx, int ny, int m_c, int cx_cells,
+               float cutoff2, PairParams prm) {
   extern __shared__ float stage[];
   const int stage_len = (cx_cells + 2) * m_c;
   float* sx = stage;
@@ -112,9 +165,11 @@ xpencil_kernel(const float* __restrict__ x, const float* __restrict__ y,
   float* sz = sy + stage_len;
   int* ss = reinterpret_cast<int*>(sz + stage_len);
 
-  const int x0 = blockIdx.x * cx_cells;
+  const int row_out = blockIdx.x;
+  const int zy = act ? act[row_out] : row_out;
+  const int zz = zy / ny, yy = zy - (zy / ny) * ny;
+  const int x0 = blockIdx.y * cx_cells;
   const int cx = min(cx_cells, nx - x0);
-  const int yy = blockIdx.y, zz = blockIdx.z;
   const long long row_len = (long long)(nx + 2) * m_c;
   const int t = threadIdx.x;
   const int cell = t / m_c;
@@ -152,24 +207,9 @@ xpencil_kernel(const float* __restrict__ x, const float* __restrict__ y,
     __syncthreads();
     if (work) {
       float px = 0.0f, py = 0.0f, pz = 0.0f, pp = 0.0f;
-      for (int j = w0; j < w0 + 3 * m_c; ++j) {
-        const float ddx = tx - sx[j];
-        const float ddy = ty - sy[j];
-        const float ddz = tz - sz[j];
-        const int s = ss[j];
-        const float r2 = __fadd_rn(__fadd_rn(__fmul_rn(ddx, ddx),
-                                             __fmul_rn(ddy, ddy)),
-                                   __fmul_rn(ddz, ddz));
-        const bool m = (s != tid) && (s >= 0) && (r2 < cutoff2) && (r2 > 0.0f);
-        const float w = m ? 1.0f : 0.0f;
-        float c, u;
-        pair_terms<KIND>(m ? r2 : 1.0f, prm, c, u);
-        const float sc = c * w;
-        px += sc * ddx;
-        py += sc * ddy;
-        pz += sc * ddz;
-        pp += u * w;
-      }
+      for (int j = w0; j < w0 + 3 * m_c; ++j)
+        pair_step<KIND>(tx, ty, tz, tid, sx[j], sy[j], sz[j], ss[j], cutoff2,
+                        prm, px, py, pz, pp);
       ax += px;
       ay += py;
       az += pz;
@@ -177,7 +217,7 @@ xpencil_kernel(const float* __restrict__ x, const float* __restrict__ y,
     }
   }
   if (active) {
-    const long long o = ((long long)zz * ny + yy) * nx * m_c
+    const long long o = (long long)row_out * nx * m_c
                         + (long long)(x0 + cell) * m_c + slot;
     fx[o] = ax;
     fy[o] = ay;
@@ -186,31 +226,142 @@ xpencil_kernel(const float* __restrict__ x, const float* __restrict__ y,
   }
 }
 
+// Kernel D over packed rows of row_cap slots (act == nullptr: row r is
+// pencil r; else row r is pencil act[r]). Grid (n_rows, slot tiles).
 template <int KIND>
-cudaError_t launch(const float* x, const float* y, const float* z,
-                   const int* sid, float* fx, float* fy, float* fz,
-                   float* pot, int nx, int ny, int nz, int m_c, float cutoff2,
-                   PairParams prm, cudaStream_t stream) {
+__global__ void __launch_bounds__(kPackedThreads)
+xpencil_packed_kernel(const float* __restrict__ x,
+                      const float* __restrict__ y,
+                      const float* __restrict__ z,
+                      const int* __restrict__ sid,
+                      const int* __restrict__ scell,
+                      const int* __restrict__ off,
+                      const int* __restrict__ act, float* __restrict__ fx,
+                      float* __restrict__ fy, float* __restrict__ fz,
+                      float* __restrict__ pot, int nx, int ny, int row_cap,
+                      float cutoff2, PairParams prm) {
+  extern __shared__ float stage[];
+  float* sx = stage;
+  float* sy = sx + row_cap;
+  float* sz = sy + row_cap;
+  int* ss = reinterpret_cast<int*>(sz + row_cap);
+
+  const int a = blockIdx.x;
+  const int zy = act ? act[a] : a;
+  const int zz = zy / ny, yy = zy - (zy / ny) * ny;
+  const int nyp = ny + 2, n_off = nx + 3;
+  const int t = blockIdx.y * blockDim.x + threadIdx.x;
+  const bool active = t < row_cap;
+
+  float tx = 0.0f, ty = 0.0f, tz = 0.0f;
+  int tid = -1, tcell = 1;
+  if (active) {
+    const long long ti = ((long long)(zz + 1) * nyp + (yy + 1)) * row_cap + t;
+    tx = x[ti];
+    ty = y[ti];
+    tz = z[ti];
+    tid = sid[ti];
+    tcell = min(max(scell[ti], 1), nx);
+  }
+  const bool work = active && tid >= 0;
+
+  float ax = 0.0f, ay = 0.0f, az = 0.0f, ap = 0.0f;
+  for (int k = 0; k < 9; ++k) {
+    const int dz = k / 3 - 1, dy = k % 3 - 1;
+    const long long srow = (long long)(zz + 1 + dz) * nyp + (yy + 1 + dy);
+    const int* so = off + srow * n_off;
+    const long long base = srow * row_cap;
+    // the row's real particles: offsets of an overflowed row run past
+    // row_cap, whose slots hold only the first row_cap of them
+    const int n_real = min(so[nx + 2], row_cap);
+    __syncthreads();  // the previous row is no longer read
+    for (int i = threadIdx.x; i < n_real; i += blockDim.x) {
+      sx[i] = x[base + i];
+      sy[i] = y[base + i];
+      sz[i] = z[base + i];
+      ss[i] = sid[base + i];
+    }
+    __syncthreads();
+    if (work) {
+      const int lo = min(so[tcell - 1], n_real);
+      const int hi = min(so[tcell + 2], n_real);
+      float px = 0.0f, py = 0.0f, pz = 0.0f, pp = 0.0f;
+      for (int j = lo; j < hi; ++j)
+        pair_step<KIND>(tx, ty, tz, tid, sx[j], sy[j], sz[j], ss[j], cutoff2,
+                        prm, px, py, pz, pp);
+      ax += px;
+      ay += py;
+      az += pz;
+      ap += pp;
+    }
+  }
+  if (active) {
+    const long long o = (long long)a * row_cap + t;
+    fx[o] = ax;
+    fy[o] = ay;
+    fz[o] = az;
+    pot[o] = ap;
+  }
+}
+
+// Calls f(std::integral_constant<int, KIND>) for the runtime pair kind.
+template <typename F>
+cudaError_t by_kind(int kind, F&& f) {
+  switch (kind) {
+    case kLJ:
+      return f(std::integral_constant<int, kLJ>{});
+    case kLowFlop:
+      return f(std::integral_constant<int, kLowFlop>{});
+    case kHighFlop:
+      return f(std::integral_constant<int, kHighFlop>{});
+    case kGravity:
+      return f(std::integral_constant<int, kGravity>{});
+    case kSphDensity:
+      return f(std::integral_constant<int, kSphDensity>{});
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+cudaError_t launch_pencils(const void* x, const void* y, const void* z,
+                           const void* slot_id, const int* act, void* fx,
+                           void* fy, void* fz, void* pot, int n_rows, int nx,
+                           int ny, int m_c, float cutoff2, int kind,
+                           PairParams prm, void* stream) {
+  if (n_rows == 0) return cudaSuccess;
   int cx_cells = kTargetThreads / m_c;
   if (cx_cells < 1) cx_cells = 1;
   if (cx_cells > nx) cx_cells = nx;
   const int threads = (cx_cells * m_c + 31) / 32 * 32;
   const size_t smem = (size_t)16 * (cx_cells + 2) * m_c;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        xpencil_kernel<KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+  const dim3 grid(n_rows, (nx + cx_cells - 1) / cx_cells);
+  return by_kind(kind, [&](auto kc) {
+    constexpr int K = decltype(kc)::value;
+    const cudaError_t err = allow_smem(xpencil_kernel<K>, smem);
     if (err != cudaSuccess) return err;
-  }
-  const dim3 grid((nx + cx_cells - 1) / cx_cells, ny, nz);
-  xpencil_kernel<KIND><<<grid, threads, smem, stream>>>(
-      x, y, z, sid, fx, fy, fz, pot, nx, ny, m_c, cx_cells, cutoff2, prm);
-  return cudaGetLastError();
+    xpencil_kernel<K><<<grid, threads, smem,
+                        static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x), static_cast<const float*>(y),
+        static_cast<const float*>(z), static_cast<const int*>(slot_id), act,
+        static_cast<float*>(fx), static_cast<float*>(fy),
+        static_cast<float*>(fz), static_cast<float*>(pot), nx, ny, m_c,
+        cx_cells, cutoff2, prm);
+    return cudaGetLastError();
+  });
 }
 
 }  // namespace
 
-// Planes x, y, z (float32) and slot_id (int32) of shape
+// Kernel B. Planes x, y, z (float32) and slot_id (int32) of shape
 // (nz+2, ny+2, (nx+2)*m_c), contiguous; outputs fx, fy, fz, pot (float32)
 // of shape (nz, ny, nx*m_c). m_c <= 1024 (one thread per target slot).
 // Allocates nothing and does not synchronise; returns the launch's
@@ -223,33 +374,64 @@ extern "C" int xpencil_forces_f32(const void* x, const void* y, const void* z,
                                   void* stream) {
   if (m_c < 1 || m_c > kMaxThreads || nx < 1 || ny < 1 || nz < 1)
     return cudaErrorInvalidValue;
+  return launch_pencils(x, y, z, slot_id, nullptr, fx, fy, fz, pot, ny * nz,
+                        nx, ny, m_c, cutoff2, kind,
+                        PairParams{p0, p1, p2, p3, n_extra}, stream);
+}
+
+// Kernel C. Planes as for kernel B; active (int32, n_rows) holds interior
+// pencil ids z*ny + y in [0, nz*ny); outputs of shape (n_rows, nx*m_c), row a
+// for pencil active[a].
+extern "C" int xpencil_sparse_f32(const void* x, const void* y, const void* z,
+                                  const void* slot_id, const void* active,
+                                  void* fx, void* fy, void* fz, void* pot,
+                                  int n_rows, int nx, int ny, int nz, int m_c,
+                                  float cutoff2, int kind, float p0, float p1,
+                                  float p2, float p3, int n_extra,
+                                  void* stream) {
+  if (m_c < 1 || m_c > kMaxThreads || nx < 1 || ny < 1 || nz < 1 ||
+      n_rows < 0)
+    return cudaErrorInvalidValue;
+  return launch_pencils(x, y, z, slot_id, static_cast<const int*>(active), fx,
+                        fy, fz, pot, n_rows, nx, ny, m_c, cutoff2, kind,
+                        PairParams{p0, p1, p2, p3, n_extra}, stream);
+}
+
+// Kernel D. Packed planes x, y, z (float32), slot_id and slot_cell (int32)
+// of shape (nz+2, ny+2, row_cap), cell_offsets (int32) of shape
+// (nz+2, ny+2, nx+3), active (int32, n_rows) interior pencil ids or NULL for
+// every pencil in id order (n_rows = nz*ny); outputs of shape (n_rows,
+// row_cap). Needs 16*row_cap bytes of shared memory, at most 227 KB.
+extern "C" int xpencil_packed_f32(const void* x, const void* y, const void* z,
+                                  const void* slot_id, const void* slot_cell,
+                                  const void* cell_offsets, const void* active,
+                                  void* fx, void* fy, void* fz, void* pot,
+                                  int n_rows, int nx, int ny, int nz,
+                                  int row_cap, float cutoff2, int kind,
+                                  float p0, float p1, float p2, float p3,
+                                  int n_extra, void* stream) {
+  if (row_cap < 1 || nx < 1 || ny < 1 || nz < 1 || n_rows < 0 ||
+      (active == nullptr && n_rows != nz * ny))
+    return cudaErrorInvalidValue;
+  if (n_rows == 0) return cudaSuccess;
   const PairParams prm{p0, p1, p2, p3, n_extra};
-  const float* px = static_cast<const float*>(x);
-  const float* py = static_cast<const float*>(y);
-  const float* pz = static_cast<const float*>(z);
-  const int* ps = static_cast<const int*>(slot_id);
-  float* ox = static_cast<float*>(fx);
-  float* oy = static_cast<float*>(fy);
-  float* oz = static_cast<float*>(fz);
-  float* op = static_cast<float*>(pot);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (kind) {
-    case kLJ:
-      return launch<kLJ>(px, py, pz, ps, ox, oy, oz, op, nx, ny, nz, m_c,
-                         cutoff2, prm, st);
-    case kLowFlop:
-      return launch<kLowFlop>(px, py, pz, ps, ox, oy, oz, op, nx, ny, nz, m_c,
-                              cutoff2, prm, st);
-    case kHighFlop:
-      return launch<kHighFlop>(px, py, pz, ps, ox, oy, oz, op, nx, ny, nz,
-                               m_c, cutoff2, prm, st);
-    case kGravity:
-      return launch<kGravity>(px, py, pz, ps, ox, oy, oz, op, nx, ny, nz, m_c,
-                              cutoff2, prm, st);
-    case kSphDensity:
-      return launch<kSphDensity>(px, py, pz, ps, ox, oy, oz, op, nx, ny, nz,
-                                 m_c, cutoff2, prm, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  const int threads =
+      row_cap < kPackedThreads ? (row_cap + 31) / 32 * 32 : kPackedThreads;
+  const size_t smem = (size_t)16 * row_cap;
+  const dim3 grid(n_rows, (row_cap + threads - 1) / threads);
+  return by_kind(kind, [&](auto kc) {
+    constexpr int K = decltype(kc)::value;
+    const cudaError_t err = allow_smem(xpencil_packed_kernel<K>, smem);
+    if (err != cudaSuccess) return err;
+    xpencil_packed_kernel<K><<<grid, threads, smem,
+                               static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x), static_cast<const float*>(y),
+        static_cast<const float*>(z), static_cast<const int*>(slot_id),
+        static_cast<const int*>(slot_cell),
+        static_cast<const int*>(cell_offsets),
+        static_cast<const int*>(active), static_cast<float*>(fx),
+        static_cast<float*>(fy), static_cast<float*>(fz),
+        static_cast<float*>(pot), nx, ny, row_cap, cutoff2, prm);
+    return cudaGetLastError();
+  });
 }

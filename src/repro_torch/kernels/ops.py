@@ -1,23 +1,29 @@
 """Entry points of the CUDA kernels at the port's level of abstraction.
 
-``xpencil_interactions`` runs the X-pencil kernel over binned planes and
-scatters the result back to particle order; ``prefix_sum`` is the paper's
-§6 scan. Each wrapper runs its plain PyTorch version on CPU tensors.
+``xpencil_interactions`` (kernel B), ``xpencil_sparse_interactions``
+(kernel C) and ``xpencil_packed_interactions`` (kernel D) run an X-pencil
+kernel and scatter its result back to particle order; ``prefix_sum`` is
+the paper's §6 scan. Each wrapper runs its plain PyTorch version on CPU
+tensors.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from ..core.binning import CellBins, dense_to_particles
+from ..core.binning import (CellBins, PackedRows, dense_to_particles,
+                            packed_to_particles, pencil_occupancy,
+                            scatter_rows)
 from ..core.domain import Domain
 from ..core.interactions import PairKernel
 from .prefix_sum import prefix_sum
-from .xpencil import xpencil_forces
+from .xpencil import (xpencil_forces, xpencil_packed_forces,
+                      xpencil_sparse_forces)
 
-__all__ = ["prefix_sum", "xpencil_interactions"]
+__all__ = ["prefix_sum", "xpencil_interactions",
+           "xpencil_packed_interactions", "xpencil_sparse_interactions"]
 
 
 def xpencil_interactions(domain: Domain, bins: CellBins, kernel: PairKernel
@@ -27,3 +33,49 @@ def xpencil_interactions(domain: Domain, bins: CellBins, kernel: PairKernel
         bins.planes, bins.slot_id, nx=domain.nx, m_c=bins.m_c, kernel=kernel,
         cutoff2=float(domain.cutoff) ** 2)
     return dense_to_particles(domain, bins, fx, fy, fz, pot)
+
+
+def xpencil_sparse_interactions(domain: Domain, bins: CellBins,
+                                kernel: PairKernel, max_active: int
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Compacted X-pencil kernel -> per-particle (forces, potential).
+
+    Builds the pencil occupancy from the bin counts (no host sync), runs
+    kernel C over the ``max_active``-bounded active list and scatters the
+    compact rows back into dense planes. Pencils past ``max_active`` are
+    dropped: ``InteractionPlan.check_overflow`` detects that and
+    ``replan`` grows the bound.
+    """
+    nx, ny, nz = domain.ncells
+    occ = pencil_occupancy(domain, bins.counts, max_active)
+    rows = xpencil_sparse_forces(
+        bins.planes, bins.slot_id, occ.active, nx=nx, ny=ny, m_c=bins.m_c,
+        kernel=kernel, cutoff2=float(domain.cutoff) ** 2)
+    idx = occ.scatter_indices()
+    fx, fy, fz, pot = (scatter_rows(r, idx, nz * ny).view(nz, ny, -1)
+                       for r in rows)
+    return dense_to_particles(domain, bins, fx, fy, fz, pot)
+
+
+def xpencil_packed_interactions(domain: Domain, packed: PackedRows,
+                                kernel: PairKernel,
+                                max_active: Optional[int] = None
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Packed-row X-pencil kernel -> per-particle (forces, potential).
+
+    Runs kernel D over every pencil row when ``max_active`` is None, or over
+    the ``max_active``-bounded active list otherwise; compact rows scatter
+    back into packed ``(nz * ny, row_cap)`` planes, then unpack to particle
+    order.
+    """
+    nx, ny, nz = domain.ncells
+    occ = (None if max_active is None
+           else pencil_occupancy(domain, packed.counts, max_active))
+    rows = xpencil_packed_forces(
+        packed.planes, packed.slot_id, packed.slot_cell, packed.cell_offsets,
+        None if occ is None else occ.active, nx=nx, ny=ny, m_c=packed.m_c,
+        kernel=kernel, cutoff2=float(domain.cutoff) ** 2)
+    if occ is not None:
+        idx = occ.scatter_indices()
+        rows = tuple(scatter_rows(r, idx, nz * ny) for r in rows)
+    return packed_to_particles(domain, packed, *rows)

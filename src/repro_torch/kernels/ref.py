@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the CUDA kernels (the allclose targets).
 
-The X-pencil kernel is held against the X-pencil strategy of ``core`` (the
-same schedule); the scan against ``torch.cumsum``, independent of the
+The X-pencil kernels are held against the X-pencil strategies of ``core``
+(the same schedules); the scan against ``torch.cumsum``, independent of the
 paper's own schedule.
 """
 
@@ -12,7 +12,7 @@ from typing import Tuple
 import torch
 
 from ..core import strategies as S
-from ..core.binning import CellBins
+from ..core.binning import CellBins, Occupancy, PackedRows
 from ..core.domain import Domain
 from ..core.interactions import PairKernel
 
@@ -23,6 +23,22 @@ def xpencil_ref(domain: Domain, bins: CellBins, kernel: PairKernel
     nx, ny, nz = domain.ncells
     out = S.xpencil(domain, bins, kernel)
     return tuple(o.reshape(nz, ny, nx * bins.m_c) for o in out)
+
+
+def xpencil_sparse_ref(domain: Domain, bins: CellBins, kernel: PairKernel,
+                       occ: Occupancy) -> Tuple[torch.Tensor, ...]:
+    """(nz, ny, nx*m_c) planes of the compacted schedule (inactive and
+    dropped pencils 0)."""
+    nx, ny, nz = domain.ncells
+    out = S.xpencil_sparse(domain, bins, kernel, occ)
+    return tuple(o.reshape(nz, ny, nx * bins.m_c) for o in out)
+
+
+def xpencil_packed_ref(domain: Domain, packed: PackedRows,
+                       kernel: PairKernel, occ: Occupancy
+                       ) -> Tuple[torch.Tensor, ...]:
+    """(nz * ny, row_cap) packed planes of the packed-row schedule."""
+    return S.xpencil_packed(domain, packed, kernel, occ)
 
 
 def prefix_sum_ref(x: torch.Tensor) -> torch.Tensor:

@@ -1,31 +1,88 @@
-"""Dense X-pencil forces: wrapper of the CUDA kernel ``csrc/xpencil.cu``.
+"""X-pencil forces: wrappers of the CUDA kernels in ``csrc/xpencil.cu``.
 
-Replaces ``repro/kernels/xpencil.py::xpencil_forces``. On CPU tensors the
-wrapper runs the plain version (``repro_torch.core.strategies.xpencil_planes``,
-the same schedule in PyTorch); on CUDA tensors it launches the kernel or
-raises. ``xpencil_forces.launches`` counts the launches.
+  xpencil_forces         kernel B, dense planes, every pencil
+                         (replaces ``repro/kernels/xpencil.py::xpencil_forces``)
+  xpencil_sparse_forces  kernel C, dense planes, a list of active pencils
+                         (replaces ``::xpencil_sparse_forces``)
+  xpencil_packed_forces  kernel D, packed (CSR) rows, a list of pencil rows
+                         (replaces ``::xpencil_packed_forces``)
 
-The kernel evaluates every dense slot pair of each target's 3*m_c window,
-so it is bound by operations, not bytes; see the note in the CUDA source.
+On CPU tensors each wrapper runs its plain version (the same schedule in
+PyTorch, ``repro_torch.core.strategies.xpencil_*planes``); on CUDA tensors
+it launches its kernel or raises. ``<wrapper>.launches`` counts the
+launches. Kernels B and C evaluate every dense slot pair of each target's
+3*m_c window, kernel D only the window's real particles; all three are
+bound by operations, not bytes (see the note in the CUDA source).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from ..core.interactions import PairKernel
-from ..core.strategies import xpencil_planes
+from ..core.strategies import (xpencil_packed_planes, xpencil_planes,
+                               xpencil_sparse_planes)
 from . import _build
 
-MAX_M_C = 1024         # one thread per target slot of a block
+MAX_M_C = 1024         # kernels B, C: one thread per target slot of a block
+MAX_SMEM = 232448      # bytes of shared memory a block may opt in to
+
+
+def _check(device: torch.device, tensors, what: str) -> None:
+    """Raise unless every (name, tensor, dtype, shape) is a contiguous
+    tensor of that dtype and shape on ``device``."""
+    for name, t, dtype, shape in tensors:
+        if (t.device != device or t.dtype != dtype
+                or tuple(t.shape) != tuple(shape) or not t.is_contiguous()):
+            raise ValueError(
+                f"{what}: {name} must be a contiguous {dtype} tensor of "
+                f"shape {tuple(shape)} on {device}, got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}")
+
+
+def _cuda_form(kernel: PairKernel):
+    """(kind, p0, p1, p2, p3, n_extra) of the kernel's CUDA form."""
+    form = kernel.cuda
+    if form is None:
+        raise ValueError(f"pair kernel {kernel.name!r} has no CUDA form; use "
+                         "backend='reference'")
+    return (form.kind, *(tuple(form.params) + (0.0,) * 4)[:4], form.n_extra)
+
+
+def _outputs(shape, device) -> Tuple[torch.Tensor, ...]:
+    return tuple(torch.empty(shape, dtype=torch.float32, device=device)
+                 for _ in range(4))
+
+
+def _launch(entry: str, x: torch.Tensor, *args) -> None:
+    lib = _build.load("xpencil.cu")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, entry)(*args, stream)
+    _build.check(rc, entry)
+
+
+def _dense_planes(x, y, z, slot_id, nx: int, m_c: int, what: str):
+    """Check kernel B/C's dense planes -> (nz, ny)."""
+    if not 1 <= m_c <= MAX_M_C:
+        raise ValueError(f"m_c={m_c} does not fit the CUDA X-pencil kernel "
+                         f"(one thread per target slot, 1 <= m_c <= {MAX_M_C})")
+    nzp, nyp, width = x.shape
+    if width != (nx + 2) * m_c or nzp < 3 or nyp < 3:
+        raise ValueError(f"planes of shape {tuple(x.shape)} do not match "
+                         f"nx={nx}, m_c={m_c}")
+    _check(x.device, [(n, t, d, x.shape) for n, t, d in (
+        ("x", x, torch.float32), ("y", y, torch.float32),
+        ("z", z, torch.float32), ("slot_id", slot_id, torch.int32))], what)
+    return nzp - 2, nyp - 2
 
 
 def xpencil_forces(planes: Dict[str, torch.Tensor], slot_id: torch.Tensor, *,
                    nx: int, m_c: int, kernel: PairKernel, cutoff2: float
                    ) -> Tuple[torch.Tensor, ...]:
-    """Run the X-pencil schedule over padded planes.
+    """Kernel B: the X-pencil schedule over padded planes.
 
     Args:
       planes: "x", "y", "z" float32 planes of shape (nz+2, ny+2, (nx+2)*m_c).
@@ -39,40 +96,118 @@ def xpencil_forces(planes: Dict[str, torch.Tensor], slot_id: torch.Tensor, *,
                               kernel=kernel, cutoff2=cutoff2)
     if x.device.type != "cuda":
         raise ValueError(f"xpencil_forces runs on cpu or cuda, not {x.device}")
-    if kernel.cuda is None:
-        raise ValueError(f"pair kernel {kernel.name!r} has no CUDA form; use "
-                         "backend='reference'")
-    if not 1 <= m_c <= MAX_M_C:
-        raise ValueError(f"m_c={m_c} does not fit the CUDA X-pencil kernel "
-                         f"(one thread per target slot, 1 <= m_c <= {MAX_M_C})")
-    nzp, nyp, width = x.shape
-    if width != (nx + 2) * m_c or nzp < 3 or nyp < 3:
-        raise ValueError(f"planes of shape {tuple(x.shape)} do not match "
-                         f"nx={nx}, m_c={m_c}")
-    for name, t, dtype in (("x", x, torch.float32), ("y", y, torch.float32),
-                           ("z", z, torch.float32),
-                           ("slot_id", slot_id, torch.int32)):
-        if (t.device != x.device or t.dtype != dtype
-                or tuple(t.shape) != tuple(x.shape) or not t.is_contiguous()):
-            raise ValueError(
-                f"{name}: want a contiguous {dtype} tensor of shape "
-                f"{tuple(x.shape)} on {x.device}, got {t.dtype} "
-                f"{tuple(t.shape)} on {t.device}")
-    nz, ny = nzp - 2, nyp - 2
-    outs = [torch.empty((nz, ny, nx * m_c), dtype=torch.float32,
-                        device=x.device) for _ in range(4)]
-    form = kernel.cuda
-    p = (tuple(form.params) + (0.0,) * 4)[:4]
-    lib = _build.load("xpencil.cu")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.xpencil_forces_f32(
-            x.data_ptr(), y.data_ptr(), z.data_ptr(), slot_id.data_ptr(),
-            *(o.data_ptr() for o in outs), nx, ny, nz, m_c, float(cutoff2),
-            form.kind, *p, form.n_extra, stream)
-    _build.check(rc, "xpencil_forces_f32")
+    form = _cuda_form(kernel)
+    nz, ny = _dense_planes(x, y, z, slot_id, nx, m_c, "xpencil_forces")
+    outs = _outputs((nz, ny, nx * m_c), x.device)
+    _launch("xpencil_forces_f32", x, x.data_ptr(), y.data_ptr(), z.data_ptr(),
+            slot_id.data_ptr(), *(o.data_ptr() for o in outs), nx, ny, nz,
+            m_c, float(cutoff2), *form)
     xpencil_forces.launches += 1
-    return tuple(outs)
+    return outs
+
+
+def xpencil_sparse_forces(planes: Dict[str, torch.Tensor],
+                          slot_id: torch.Tensor, active_zy: torch.Tensor, *,
+                          nx: int, ny: int, m_c: int, kernel: PairKernel,
+                          cutoff2: float) -> Tuple[torch.Tensor, ...]:
+    """Kernel C: the X-pencil schedule over the listed pencils.
+
+    Args:
+      planes / slot_id: dense padded planes as in :func:`xpencil_forces`.
+      active_zy: (n_rows,) int32 interior pencil ids ``z * ny + y``, each in
+        [0, nz * ny) (``Occupancy.active``; its padding, pencil 0,
+        recomputes pencil 0 and is dropped by the caller's scatter).
+    Returns:
+      (fx, fy, fz, pot), each ``(n_rows, nx*m_c)``: row ``a`` holds the
+      interior forces of pencil ``active_zy[a]``.
+    """
+    x, y, z = planes["x"], planes["y"], planes["z"]
+    if x.device.type == "cpu":
+        return xpencil_sparse_planes(x, y, z, slot_id, active_zy, nx=nx,
+                                     ny=ny, m_c=m_c, kernel=kernel,
+                                     cutoff2=cutoff2)
+    if x.device.type != "cuda":
+        raise ValueError(
+            f"xpencil_sparse_forces runs on cpu or cuda, not {x.device}")
+    form = _cuda_form(kernel)
+    nz, nyy = _dense_planes(x, y, z, slot_id, nx, m_c,
+                            "xpencil_sparse_forces")
+    if nyy != ny:
+        raise ValueError(f"planes of shape {tuple(x.shape)} do not match "
+                         f"ny={ny}")
+    n_rows = active_zy.shape[0]
+    _check(x.device, [("active_zy", active_zy, torch.int32, (n_rows,))],
+           "xpencil_sparse_forces")
+    outs = _outputs((n_rows, nx * m_c), x.device)
+    _launch("xpencil_sparse_f32", x, x.data_ptr(), y.data_ptr(), z.data_ptr(),
+            slot_id.data_ptr(), active_zy.data_ptr(),
+            *(o.data_ptr() for o in outs), n_rows, nx, ny, nz, m_c,
+            float(cutoff2), *form)
+    xpencil_sparse_forces.launches += 1
+    return outs
+
+
+def xpencil_packed_forces(planes: Dict[str, torch.Tensor],
+                          slot_id: torch.Tensor, slot_cell: torch.Tensor,
+                          cell_offsets: torch.Tensor,
+                          active_zy: Optional[torch.Tensor], *, nx: int,
+                          ny: int, m_c: int, kernel: PairKernel,
+                          cutoff2: float) -> Tuple[torch.Tensor, ...]:
+    """Kernel D: the packed-row X-pencil over the listed pencil rows.
+
+    Args:
+      planes / slot_id / slot_cell: the packed layout's ``(nz+2, ny+2,
+        row_cap)`` arrays (``core.binning.PackedRows``); cell_offsets
+        ``(nz+2, ny+2, nx+3)`` int32.
+      active_zy: (n_rows,) int32 interior pencil ids (an
+        ``Occupancy.active`` list), or None for every row in id order.
+      m_c: the dense bound the plain version re-expands windows to; the
+        kernel reads windows from the offsets and does not need it.
+    Returns:
+      (fx, fy, fz, pot), each ``(n_rows, row_cap)``: row ``a`` holds the
+      packed-slot forces of pencil ``active_zy[a]``; padding slots are 0.
+    """
+    x, y, z = planes["x"], planes["y"], planes["z"]
+    nzp, nyp, row_cap = x.shape
+    if x.device.type == "cpu":
+        if active_zy is None:
+            active_zy = torch.arange((nzp - 2) * ny, dtype=torch.int32)
+        return xpencil_packed_planes(x, y, z, slot_id, slot_cell,
+                                     cell_offsets, active_zy, nx=nx, ny=ny,
+                                     m_c=m_c, kernel=kernel, cutoff2=cutoff2)
+    if x.device.type != "cuda":
+        raise ValueError(
+            f"xpencil_packed_forces runs on cpu or cuda, not {x.device}")
+    form = _cuda_form(kernel)
+    if nyp != ny + 2 or nzp < 3 or row_cap < 1:
+        raise ValueError(f"packed planes of shape {tuple(x.shape)} do not "
+                         f"match ny={ny}")
+    if 16 * row_cap > MAX_SMEM:
+        raise ValueError(
+            f"row_cap={row_cap} does not fit kernel D: a block stages one "
+            f"packed row of 16*row_cap bytes in shared memory, at most "
+            f"{MAX_SMEM} (row_cap <= {MAX_SMEM // 16})")
+    tensors = [
+        ("x", x, torch.float32, x.shape), ("y", y, torch.float32, x.shape),
+        ("z", z, torch.float32, x.shape),
+        ("slot_id", slot_id, torch.int32, x.shape),
+        ("slot_cell", slot_cell, torch.int32, x.shape),
+        ("cell_offsets", cell_offsets, torch.int32, (nzp, nyp, nx + 3))]
+    if active_zy is None:
+        n_rows, act_ptr = (nzp - 2) * ny, None
+    else:
+        n_rows, act_ptr = active_zy.shape[0], active_zy.data_ptr()
+        tensors.append(("active_zy", active_zy, torch.int32, (n_rows,)))
+    _check(x.device, tensors, "xpencil_packed_forces")
+    outs = _outputs((n_rows, row_cap), x.device)
+    _launch("xpencil_packed_f32", x, x.data_ptr(), y.data_ptr(), z.data_ptr(),
+            slot_id.data_ptr(), slot_cell.data_ptr(), cell_offsets.data_ptr(),
+            act_ptr, *(o.data_ptr() for o in outs), n_rows, nx,
+            ny, nzp - 2, row_cap, float(cutoff2), *form)
+    xpencil_packed_forces.launches += 1
+    return outs
 
 
 xpencil_forces.launches = 0
+xpencil_sparse_forces.launches = 0
+xpencil_packed_forces.launches = 0

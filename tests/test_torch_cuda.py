@@ -8,12 +8,17 @@ On the card: ``python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 import pytest
 import torch
 
-from repro_torch.core import Domain, ParticleState, make_low_flop, plan
+from repro_torch.core import (Domain, ParticleState, full_pencil_occupancy,
+                              make_lennard_jones, make_low_flop, pack_rows,
+                              pencil_occupancy, plan, scenarios,
+                              suggest_m_c, suggest_row_cap)
 from repro_torch.core import prefix as plain_prefix
 from repro_torch.core import strategies as S
 from repro_torch.core.binning import bin_particles
 from repro_torch.kernels.prefix_sum import prefix_sum
-from repro_torch.kernels.xpencil import xpencil_forces
+from repro_torch.kernels.xpencil import (xpencil_forces,
+                                         xpencil_packed_forces,
+                                         xpencil_sparse_forces)
 
 pytestmark = pytest.mark.cuda
 
@@ -60,3 +65,84 @@ def test_main_path_launches_both_kernels(gen):
     torch.cuda.synchronize()
     assert prefix_sum.launches == 1 and xpencil_forces.launches == 1
     assert bool(f.isfinite().all()) and bool(u.isfinite().all())
+
+
+def _blob(gen, division, n, periodic=False, sigma_frac=0.15):
+    dom = Domain.cubic(division, periodic=periodic)
+    return dom, scenarios.sample_gaussian_blob(
+        dom, n, generator=gen, device="cuda", sigma_frac=sigma_frac)
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+def test_sparse_kernel_matches_plain(gen, periodic):
+    dom, pos = _blob(gen, 8, 1500, periodic)
+    m_c = suggest_m_c(dom, pos)
+    bins = bin_particles(dom, pos, m_c=m_c)
+    n_act = int((bins.counts.view(8, 8, 8).sum(-1) > 0).sum())
+    occ = pencil_occupancy(dom, bins.counts, n_act + 7)   # padding rows
+    kern = make_low_flop()
+    args = (bins.planes, bins.slot_id, occ.active)
+    got = xpencil_sparse_forces(*args, nx=8, ny=8, m_c=m_c, kernel=kern,
+                                cutoff2=1.0)
+    want = S.xpencil_sparse_planes(bins.planes["x"], bins.planes["y"],
+                                   bins.planes["z"], bins.slot_id,
+                                   occ.active, nx=8, ny=8, m_c=m_c,
+                                   kernel=kern, cutoff2=1.0)
+    dense = xpencil_forces(bins.planes, bins.slot_id, nx=8, m_c=m_c,
+                           kernel=kern, cutoff2=1.0)
+    for g, w, d in zip(got, want, dense):
+        assert g.shape == (n_act + 7, 8 * m_c)
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+        assert torch.equal(g, d.reshape(64, -1)[occ.active.long()])
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("ppc", [4, 40])
+def test_packed_kernel_matches_plain(gen, periodic, ppc):
+    """ppc 40 gives row_cap above 256: several blocks share a row."""
+    dom = Domain.cubic(8, periodic=periodic)
+    pos = dom.sample_uniform(8 ** 3 * ppc, generator=gen, device="cuda")
+    m_c, row_cap = suggest_m_c(dom, pos), suggest_row_cap(dom, pos)
+    assert (row_cap > 256) == (ppc == 40)
+    packed = pack_rows(dom, bin_particles(dom, pos, m_c=m_c), row_cap)
+    kern = make_low_flop()
+    active = full_pencil_occupancy(dom, "cuda").active
+    args = (packed.planes, packed.slot_id, packed.slot_cell,
+            packed.cell_offsets, active)
+    got = xpencil_packed_forces(*args, nx=8, ny=8, m_c=m_c, kernel=kern,
+                                cutoff2=1.0)
+    want = S.xpencil_packed_planes(packed.planes["x"], packed.planes["y"],
+                                   packed.planes["z"], *args[1:], nx=8,
+                                   ny=8, m_c=m_c, kernel=kern, cutoff2=1.0)
+    every = xpencil_packed_forces(*args[:4], None, nx=8, ny=8, m_c=m_c,
+                                  kernel=kern, cutoff2=1.0)
+    for g, w, e in zip(got, want, every):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+        assert torch.equal(e, g)          # no list: every row in id order
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+def test_dense_compact_packed_equal_and_launch(gen, periodic):
+    dom, pos = _blob(gen, 8, 3000, periodic)
+    state = ParticleState(pos)
+    kern = make_lennard_jones()
+    runs = {}
+    for compact, layout, want in (
+            (False, "dense", {"prefix_sum": 1, "xpencil_forces": 1}),
+            (True, "dense", {"prefix_sum": 1, "xpencil_sparse_forces": 1}),
+            (False, "packed", {"prefix_sum": 2, "xpencil_packed_forces": 1}),
+            (True, "packed", {"prefix_sum": 2,
+                              "xpencil_packed_forces": 1})):
+        p = plan(dom, kern, positions=pos, compact=compact, layout=layout)
+        counters = (prefix_sum, xpencil_forces, xpencil_sparse_forces,
+                    xpencil_packed_forces)
+        for c in counters:
+            c.launches = 0
+        runs[(compact, layout)] = p.execute(state)
+        torch.cuda.synchronize()
+        got = {c.__name__: c.launches for c in counters if c.launches}
+        assert got == want, (compact, layout, got)
+    f_d, u_d = runs[(False, "dense")]
+    assert bool(f_d.isfinite().all())
+    for key, (f, u) in runs.items():
+        assert torch.equal(f, f_d) and torch.equal(u, u_d), key

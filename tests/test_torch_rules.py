@@ -22,10 +22,12 @@ import pytest
 import torch
 
 from repro_torch.core import (Domain, PairKernel, ParticleState,
-                              make_lennard_jones, plan)
+                              make_lennard_jones, plan, scenarios)
 from repro_torch.kernels import _build
 from repro_torch.kernels.prefix_sum import prefix_sum
-from repro_torch.kernels.xpencil import xpencil_forces
+from repro_torch.kernels.xpencil import (xpencil_forces,
+                                         xpencil_packed_forces,
+                                         xpencil_sparse_forces)
 
 torch.set_num_threads(1)
 
@@ -107,11 +109,23 @@ def test_plan_defaults_to_the_card():
     assert plan(dom, m_c=8, device="cpu").device == torch.device("cpu")
 
 
+def test_samplers_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible; the default runs there")
+    dom = Domain.cubic(3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dom.sample_uniform(10)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        scenarios.sample_gaussian_blob(dom, 10)
+    assert dom.sample_uniform(10, device="cpu").device == torch.device("cpu")
+
+
 @pytest.mark.parametrize("kwargs,item", [
     (dict(strategy="auto"), 8), (dict(strategy="autotune"), 8),
     (dict(strategy="par_part"), 2), (dict(strategy="cell_dense"), 2),
-    (dict(strategy="allin"), 7), (dict(compact=True), 4),
-    (dict(layout="packed"), 5), (dict(layout="sfc"), 6),
+    (dict(strategy="allin"), 7),
+    (dict(strategy="cell_dense", compact=True), 2),
+    (dict(strategy="allin", compact=True), 7), (dict(layout="sfc"), 6),
     (dict(backend="halo"), 11),
 ])
 def test_unported_options_raise_with_roadmap_item(kwargs, item):
@@ -148,4 +162,19 @@ def test_wrappers_refuse_other_devices():
         xpencil_forces({"x": plane, "y": plane, "z": plane},
                        plane.to(torch.int32), nx=1, m_c=8,
                        kernel=make_lennard_jones(), cutoff2=1.0)
+    ids = torch.zeros(1, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        xpencil_sparse_forces({"x": plane, "y": plane, "z": plane},
+                              plane.to(torch.int32), ids, nx=1, ny=1, m_c=8,
+                              kernel=make_lennard_jones(), cutoff2=1.0)
+    packed = torch.zeros((3, 3, 16), device="meta")
+    pids = packed.to(torch.int32)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        xpencil_packed_forces({"x": packed, "y": packed, "z": packed}, pids,
+                              pids, torch.zeros((3, 3, 4), dtype=torch.int32,
+                                                device="meta"), ids, nx=1,
+                              ny=1, m_c=8, kernel=make_lennard_jones(),
+                              cutoff2=1.0)
     assert prefix_sum.launches == 0 and xpencil_forces.launches == 0
+    assert xpencil_sparse_forces.launches == 0
+    assert xpencil_packed_forces.launches == 0
