@@ -9,17 +9,22 @@ together), holds each against its plain PyTorch version on the card, runs
 the main paths through ``plan(...).execute()`` and checks and times them:
 
   * dense X-pencil (kernels A and B) at 1,048,576 particles (division 64)
-    and 327,680 (division 32, periodic);
+    and 327,680 (division 32, periodic), and All-in-SM (kernels A and E,
+    ``strategy="allin"``) on the same particles;
   * packed rows (kernels A and D), 1,048,576 uniform particles, division 64;
   * a clustered scene (Gaussian blob, 131,072 particles, division 64) with
     ``compact=True``, dense layout (kernels A and C) and packed layout
     (kernels A and D);
   * a plan built on the uniform scene, run on the blob through
-    ``execute_or_replan``.
+    ``execute_or_replan``, for the packed+compacted X-pencil and for
+    All-in-SM (whose sub-box follows the grown ``m_c``);
+  * the reference strategies (Par-Part, Par-Cell, All-in-SM, compacted and
+    not) at division 12 and 8 against the O(N^2) oracle.
 
-Per particle, the compacted and packed paths must equal the dense path bit
-for bit. Any failed check raises, so the exit code is non-zero. Without a
-CUDA device it exits 2 and prints no result.
+Per particle, the compacted and packed paths and kernel E must equal the
+dense X-pencil path (kernel B) bit for bit. Any failed check raises, so the
+exit code is non-zero. Without a CUDA device it exits 2 and prints no
+result.
 
 The line before the last is the card's ``nvidia-smi`` name and power limit,
 the one before that a JSON object with one entry per kernel, and the last
@@ -183,7 +188,7 @@ def main(argv=None) -> int:
                                   cell_counts, full_pencil_occupancy,
                                   make_gravity, make_high_flop,
                                   make_lennard_jones, make_low_flop,
-                                  make_sph_density, pack_rows,
+                                  make_sph_density, n_units, pack_rows,
                                   padded_row_counts, pencil_occupancy, plan,
                                   scenarios, suggest_m_c, suggest_row_cap)
     from repro_torch.core import prefix as plain_prefix
@@ -192,6 +197,7 @@ def main(argv=None) -> int:
                                           packed_to_particles, scatter_rows)
     from repro_torch.core.interactions import PairKernel
     from repro_torch.kernels import _build
+    from repro_torch.kernels.allin import allin_forces, halo_bytes
     from repro_torch.kernels.ops import (xpencil_interactions,
                                          xpencil_packed_interactions,
                                          xpencil_sparse_interactions)
@@ -202,7 +208,8 @@ def main(argv=None) -> int:
 
     wrappers = {"prefix_sum": prefix_sum, "xpencil_forces": xpencil_forces,
                 "xpencil_sparse_forces": xpencil_sparse_forces,
-                "xpencil_packed_forces": xpencil_packed_forces}
+                "xpencil_packed_forces": xpencil_packed_forces,
+                "allin_forces": allin_forces}
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -279,6 +286,15 @@ def main(argv=None) -> int:
                                      m_c=bins.m_c, kernel=k, cutoff2=1.0),
             lambda k: plain(bins, nx, k))
 
+    def check_kernel_e(bins, box, name, kern, label):
+        return check_kernel(
+            f"allin box {box} {label}", name, kern,
+            lambda k: allin_forces(bins.planes, bins.slot_id, box=box,
+                                   m_c=bins.m_c, kernel=k, cutoff2=1.0),
+            lambda k: S.allin_planes(bins.planes["x"], bins.planes["y"],
+                                     bins.planes["z"], bins.slot_id, box=box,
+                                     m_c=bins.m_c, kernel=k, cutoff2=1.0))
+
     def check_kernel_c(dom, bins, active, name, kern, label):
         nx, ny, _ = dom.ncells
         return check_kernel(
@@ -317,7 +333,10 @@ def main(argv=None) -> int:
         return {n: w.launches for n, w in wrappers.items() if w.launches}
 
     def assert_equal_results(got, want, what):
-        for g, w, part in zip(got, want, ("forces", "potential")):
+        """Per particle (forces, potential) or per slot (fx, fy, fz, pot)."""
+        parts = (("forces", "potential") if len(got) == 2
+                 else ("fx", "fy", "fz", "pot"))
+        for g, w, part in zip(got, want, parts):
             if not torch.equal(g, w):
                 d = (g - w).abs().max()
                 raise AssertionError(f"{what}: {part} not bit-equal "
@@ -354,7 +373,7 @@ def main(argv=None) -> int:
     kernels = {"lennard_jones": make_lennard_jones(),
                "low_flop": make_low_flop(), "high_flop": make_high_flop(),
                "gravity": make_gravity(), "sph_density": make_sph_density(1.0)}
-    xp_checks = sp_checks = pk_checks = ident_checks = 0
+    xp_checks = sp_checks = pk_checks = ident_checks = al_checks = 0
     div = CHECK_DIVISION
     for periodic in (False, True):
         dom = Domain.cubic(div, cutoff=1.0, periodic=periodic)
@@ -371,9 +390,21 @@ def main(argv=None) -> int:
             raise AssertionError(f"{int(hocc.n_active)} active pencils, "
                                  f"want {div * div // 2}")
         hpacked = pack_rows(dom, hbins, suggest_row_cap(dom, half))
+        # kernel E at the plan's sub-box (within 48 KB of shared memory) and
+        # at one past 48 KB, which needs the opt-in
+        boxes = (S.shrink_to_divisors(dom, S.subbox_dims(dom, 24)), (4, 4, 2))
+        if halo_bytes(boxes[0], 24) > 48 * 1024 or \
+                halo_bytes(boxes[1], 24) <= 48 * 1024:
+            raise AssertionError(f"boxes {boxes} do not straddle 48 KB")
         for name, kern in kernels.items():
-            check_kernel_b(bins, div, name, kern, label)
+            b_planes = check_kernel_b(bins, div, name, kern, label)[0]
             xp_checks += 4
+            for box in boxes:
+                e_planes = check_kernel_e(bins, box, name, kern, label)[0]
+                al_checks += 4
+                assert_equal_results(e_planes, b_planes, f"kernel E box "
+                                     f"{box} vs B, {name} {label}")
+                ident_checks += 1
             c_out = check_kernel_c(dom, hbins, hocc.active, name, kern,
                                    f"{label} half-empty")[0]
             b_out = xpencil_forces(hbins.planes, hbins.slot_id, nx=div,
@@ -401,11 +432,11 @@ def main(argv=None) -> int:
                     assert_equal_results(got, want, f"kernel {what} vs B, "
                                          f"{name} {label}")
                     ident_checks += 1
-    log(f"kernels B, C, D: 5 pair kernels x open/periodic at division {div}, "
-        f"within tolerance of their plain versions ({xp_checks} + "
-        f"{sp_checks} + {pk_checks} checks); per particle, C and D "
-        f"(every row and active rows) equal B bit for bit ({ident_checks} "
-        f"checks)")
+    log(f"kernels B, C, D, E: 5 pair kernels x open/periodic at division "
+        f"{div}, within tolerance of their plain versions ({xp_checks} + "
+        f"{sp_checks} + {pk_checks} + {al_checks} checks; E at boxes "
+        f"{list(boxes)}); C and D per particle (every row and active rows) "
+        f"and E per slot equal B bit for bit ({ident_checks} checks)")
 
     # -- plan/execute against the O(N^2) oracle on the card ------------------
     for periodic in (False, True):
@@ -419,6 +450,47 @@ def main(argv=None) -> int:
                            f"periodic={periodic}")
     log("plan(device='cuda').execute() matches naive_n2 at division 8, "
         "2000 particles, open and periodic")
+
+    # -- the other strategies against the O(N^2) oracle at a small size ------
+    matrix = []
+    for division, periodic, scene in ((12, False, "blob"),
+                                      (8, True, "uniform")):
+        dom = Domain.cubic(division, cutoff=1.0, periodic=periodic)
+        pos = (scenarios.sample_gaussian_blob(dom, 2000, generator=gen,
+                                              device=dev, sigma_frac=0.15)
+               if scene == "blob" else
+               dom.sample_uniform(2000, generator=gen, device=dev))
+        state = ParticleState(pos)
+        kern = make_lennard_jones()
+        *nf, nu = S.naive_n2(dom, pos, kern)
+        nf = torch.stack(nf, -1)
+        runs = {}
+        for name, compact, backend in (
+                ("par_part", False, "reference"),
+                ("cell_dense", False, "reference"),
+                ("cell_dense", True, "reference"),
+                ("allin", False, "reference"), ("allin", True, "reference"),
+                ("allin", False, "cuda")):
+            p = plan(dom, kern, positions=pos, strategy=name,
+                     backend=backend, compact=compact)
+            f, u = p.execute(state)
+            what = (f"{name} compact={compact} {backend} div {division} "
+                    f"periodic={periodic}")
+            errs = (assert_scale_close(f, nf, f"{what} forces vs naive_n2"),
+                    assert_scale_close(u, nu, f"{what} potential vs "
+                                       "naive_n2"))
+            runs[(name, compact, backend)] = (f, u)
+            matrix.append(dict(case=what, box=p.box, max_active=p.max_active,
+                               n_units=(n_units(dom, name, box=p.box)
+                                        if compact else None),
+                               forces_vs_naive=errs[0],
+                               potential_vs_naive=errs[1]))
+        for name in ("cell_dense", "allin"):
+            assert_equal_results(runs[(name, True, "reference")],
+                                 runs[(name, False, "reference")],
+                                 f"{name} compact vs dense, div {division}")
+    log("strategy matrix vs naive_n2 (scale-relative 3e-4; compact = dense "
+        "bit for bit for cell_dense and allin): " + json.dumps(matrix))
 
     def reference_checks(p, state, f, u, what, periodic):
         """The result of plan ``p`` against the ``"reference"`` backend of
@@ -486,14 +558,38 @@ def main(argv=None) -> int:
         (err_f, err_u), (term_f, term_u), within = reference_checks(
             p, state, f, u, f"dense {label}", periodic)
 
+        # main case (c): All-in-SM on the same particles, kernel E
+        pe = plan(dom, kern, positions=pos, strategy="allin")
+        fe, ue, launches_e = run_main(pe, state, f"allin {label}",
+                                      ("prefix_sum", "allin_forces"))
+        if launches_e["allin_forces"] != 1 or pe.m_c != p.m_c:
+            raise AssertionError(f"allin {label}: {launches_e}, m_c "
+                                 f"{pe.m_c} vs {p.m_c}")
+        assert_equal_results((fe, ue), (f, u),
+                             f"allin (kernel E) vs dense X-pencil, {label}")
+        ke, _, e_plain_ms, _, e_abs_err, e_term_err = check_kernel_e(
+            bins, pe.box, "lennard_jones", kern, label)
+        al_checks += 4
+        assert_equal_results(ke, kb, f"kernel E vs B planes, {label}")
+        ident_checks += 1
+
         reps = 10
         execute_ms = cuda_ms(lambda: p.execute(state), reps)
+        allin_execute_ms = cuda_ms(lambda: pe.execute(state), reps)
         bin_ms = cuda_ms(lambda: p.bin(state), reps)
         counts = bins.counts
         a_ms = cuda_ms(lambda: prefix_sum(counts), 50)
-        b_ms = cuda_ms(lambda: xpencil_forces(
-            bins.planes, bins.slot_id, nx=division, m_c=p.m_c, kernel=kern,
-            cutoff2=1.0), reps)
+        # B and E in turns on the same bins: B, E, E, B
+        turns = {"B": [], "E": []}
+        for which in ("B", "E", "E", "B"):
+            turns[which].append(cuda_ms(
+                (lambda: xpencil_forces(bins.planes, bins.slot_id,
+                                        nx=division, m_c=p.m_c, kernel=kern,
+                                        cutoff2=1.0)) if which == "B" else
+                (lambda: allin_forces(bins.planes, bins.slot_id, box=pe.box,
+                                      m_c=p.m_c, kernel=kern, cutoff2=1.0)),
+                reps))
+        b_ms, e_ms = (statistics.mean(turns[k]) for k in ("B", "E"))
         scatter_ms = cuda_ms(lambda: dense_to_particles(dom, bins, *kb),
                              reps)
 
@@ -514,7 +610,16 @@ def main(argv=None) -> int:
                    xpencil_term_rel_err=xp_term_err,
                    forces_vs_reference=err_f, potential_vs_reference=err_u,
                    forces_term_rel_err=term_f, potential_term_rel_err=term_u,
-                   n_cells=dom.n_cells)
+                   n_cells=dom.n_cells, xpencil_ms_turns=turns["B"],
+                   allin_launches=launches_e,
+                   allin_execute_ms=allin_execute_ms, allin_ms=e_ms,
+                   allin_ms_turns=turns["E"], allin_over_xpencil=e_ms / b_ms,
+                   allin_plain_ms=e_plain_ms, allin_box=pe.box,
+                   allin_smem_bytes=halo_bytes(pe.box, pe.m_c),
+                   allin_blocks=dom.n_cells // (pe.box[0] * pe.box[1]
+                                                * pe.box[2]),
+                   allin_max_abs_err=e_abs_err,
+                   allin_term_rel_err=e_term_err)
         results.append(res)
         log("main path: " + json.dumps(res))
     dense_main = results[0]
@@ -692,6 +797,25 @@ def main(argv=None) -> int:
     log(f"replan: uniform plan on the blob grew {replan} (overflowed: "
         f"{over}); result equals a fresh plan's and the dense path's")
 
+    # an allin plan sized on the uniform scene: its sub-box follows m_c
+    pe0 = plan(dom, kern, positions=pos_u, strategy="allin")
+    reset_launches()
+    (f, u), pe1 = pe0.execute_or_replan(state_b)
+    torch.cuda.synchronize()
+    launches_r = launch_counts()
+    grown_box = S.shrink_to_divisors(dom, S.subbox_dims(dom, pe1.m_c))
+    if not (pe1.m_c > pe0.m_c and pe1.box == grown_box != pe0.box
+            and launches_r.get("allin_forces") == 1):
+        raise AssertionError(f"allin replan: m_c {pe0.m_c} -> {pe1.m_c}, box "
+                             f"{pe0.box} -> {pe1.box} (want {grown_box}), "
+                             f"launches {launches_r}")
+    assert_equal_results((f, u), plan(dom, kern, m_c=pe1.m_c).execute(state_b),
+                         "replanned allin vs dense X-pencil, blob")
+    log(f"allin replan: m_c {pe0.m_c} -> {pe1.m_c}, box {pe0.box} -> "
+        f"{pe1.box} ({halo_bytes(pe0.box, pe0.m_c)} -> "
+        f"{halo_bytes(pe1.box, pe1.m_c)} B of shared memory), launches "
+        f"{launches_r}; result equals the dense X-pencil path's")
+
     a, b = new_cases["a"], new_cases["b"]
     report = {"kernels": [
         {"name": "prefix_sum", "route": "cuda",
@@ -740,6 +864,22 @@ def main(argv=None) -> int:
                           row_cap=a["row_cap"]),
          "max_term_rel_err": a["kernel_d_term_rel_err"],
          "checks_passed": pk_checks},
+        {"name": "allin_forces", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/allin.cu",
+         "replaces": "src/repro/kernels/allin.py:129",
+         "launches": dense_main["allin_launches"]["allin_forces"],
+         "main_case": f"allin {dense_main['case']}",
+         "max_abs_err": dense_main["allin_max_abs_err"],
+         "ms": dense_main["allin_ms"],
+         "plain_ms": dense_main["allin_plain_ms"],
+         "bound_ms": dense_main["xpencil_bound_ms"],
+         "bound_by": dense_main["xpencil_bound_by"], "library_ms": None,
+         "shapes": shapes(dense_main["division"], "(d+2)*m_c",
+                          "(d, d*m_c)", m_c=dense_main["m_c"],
+                          box=dense_main["allin_box"],
+                          smem_bytes=dense_main["allin_smem_bytes"]),
+         "max_term_rel_err": dense_main["allin_term_rel_err"],
+         "checks_passed": al_checks},
     ]}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(report))

@@ -1,5 +1,5 @@
 """The port's core: domain, pair kernels, binning (dense, occupancy,
-packed rows), schedules, plan/execute."""
+packed rows), schedules, plan/execute and the engine shims."""
 
 from . import scenarios
 from .api import (InteractionPlan, ParticleState, active_unit_count,
@@ -10,21 +10,23 @@ from .binning import (EMPTY_POS, GHOST_ID_BUMP, CellBins, Occupancy,
                       PackedRows, bin_particles, cell_counts,
                       dense_to_particles, full_pencil_occupancy,
                       gather_to_particles, pack_rows, packed_to_particles,
-                      padded_row_counts, pencil_occupancy, unpack_scatter)
+                      padded_row_counts, pencil_occupancy, subbox_counts,
+                      subbox_occupancy, unpack_scatter)
 from .domain import Domain
-from .engine import suggest_m_c
+from .engine import CellListEngine, compute_interactions, suggest_m_c
 from .interactions import (PairKernel, make_gravity, make_high_flop,
                            make_lennard_jones, make_low_flop, make_sph_density)
 
 __all__ = [
-    "CellBins", "Domain", "EMPTY_POS", "GHOST_ID_BUMP", "InteractionPlan",
-    "Occupancy", "PackedRows", "PairKernel", "ParticleState",
-    "active_unit_count", "bin_particles", "cell_counts",
-    "dense_to_particles", "full_pencil_occupancy", "gather_to_particles",
-    "get_backend", "make_gravity", "make_high_flop", "make_lennard_jones",
-    "make_low_flop", "make_sph_density", "n_units", "pack_rows",
-    "packed_to_particles", "padded_row_counts", "pencil_occupancy", "plan",
-    "register_backend", "scenarios", "suggest_m_c", "suggest_max_active",
-    "suggest_row_cap", "supports_compact", "supports_layout",
-    "unpack_scatter",
+    "CellBins", "CellListEngine", "Domain", "EMPTY_POS", "GHOST_ID_BUMP",
+    "InteractionPlan", "Occupancy", "PackedRows", "PairKernel",
+    "ParticleState", "active_unit_count", "bin_particles", "cell_counts",
+    "compute_interactions", "dense_to_particles", "full_pencil_occupancy",
+    "gather_to_particles", "get_backend", "make_gravity", "make_high_flop",
+    "make_lennard_jones", "make_low_flop", "make_sph_density", "n_units",
+    "pack_rows", "packed_to_particles", "padded_row_counts",
+    "pencil_occupancy", "plan", "register_backend", "scenarios",
+    "subbox_counts", "subbox_occupancy", "suggest_m_c",
+    "suggest_max_active", "suggest_row_cap", "supports_compact",
+    "supports_layout", "unpack_scatter",
 ]

@@ -4,6 +4,11 @@
     p = plan(domain, kernel, positions=positions, strategy="xpencil")
     forces, potential = p.execute(state)
 
+Strategies: ``par_part``, ``cell_dense``, ``xpencil``, ``allin`` and the
+``naive_n2`` oracle. The ``"cuda"`` backend runs ``xpencil`` (dense,
+compacted, packed) and ``allin`` (dense only), as the JAX package's
+``"pallas"`` backend does; ``"reference"`` runs every strategy.
+
 ``plan`` runs on the CUDA device unless the caller passes ``device="cpu"``;
 with no visible card it raises instead of falling back. On the CPU the
 ``"cuda"`` backend's kernel wrappers run their plain PyTorch versions,
@@ -17,7 +22,8 @@ never touched. This module registers the ``"reference"`` backends;
 ``repro_torch.kernels`` registers the ``"cuda"`` ones.
 
 Every static bound (``m_c``, ``max_active``, ``row_cap``) follows one
-replan contract, stated on :meth:`InteractionPlan.replan`.
+replan contract, stated on :meth:`InteractionPlan.replan`; the ``allin``
+sub-box ``box`` follows ``m_c``.
 """
 
 from __future__ import annotations
@@ -32,18 +38,18 @@ from ._device import resolve_device
 from .binning import (CellBins, PackedRows, bin_particles, cell_counts,
                       dense_to_particles, full_pencil_occupancy, pack_rows,
                       packed_to_particles, padded_row_counts, pencil_counts,
-                      pencil_occupancy)
+                      pencil_occupancy, subbox_counts, subbox_occupancy)
 from .domain import Domain
 from .interactions import PairKernel, make_lennard_jones
 
-STRATEGY_NAMES = ("xpencil",)
+STRATEGY_NAMES = ("par_part", "cell_dense", "xpencil", "allin")
+CELL_SCHEDULES = ("cell_dense", "xpencil", "allin")   # have compact=True
 LAYOUT_NAMES = ("dense", "packed")
 
 # What the JAX package has and this port does not yet, with the ROADMAP.md
 # Queue 1 item that ports it. Asking for one raises; nothing runs instead.
 _NOT_PORTED = {
-    "strategy": {"par_part": 2, "cell_dense": 2, "allin": 7, "auto": 8,
-                 "autotune": 8},
+    "strategy": {"auto": 8, "autotune": 8},
     "backend": {"halo": 11},
     "layout": {"sfc": 6},
 }
@@ -154,12 +160,13 @@ class InteractionPlan:
     m_c: int
     strategy: str = "xpencil"
     backend: str = "cuda"
-    batch_size: int = 64              # pencils per chunk of the plain version
+    batch_size: int = 64              # units per chunk of the plain versions
     device: torch.device = torch.device("cuda")
     compact: bool = False             # occupancy-compacted path
-    max_active: Optional[int] = None  # static active-pencil bound
+    max_active: Optional[int] = None  # static active-unit bound
     layout: str = "dense"             # dense | packed
     row_cap: Optional[int] = None     # static packed-row bound
+    box: Optional[Tuple[int, int, int]] = None   # allin sub-box (bx, by, bz)
 
     def __post_init__(self):
         if self.strategy in _NOT_PORTED["strategy"]:
@@ -173,8 +180,10 @@ class InteractionPlan:
             raise ValueError(
                 f"pair kernel {self.kernel.name!r} has no CUDA form; use "
                 "backend='reference'")
+        if self.strategy == "allin" and self.box is None:
+            object.__setattr__(self, "box", _allin_box(self.domain, self.m_c))
         if self.compact:
-            if self.strategy not in STRATEGY_NAMES:
+            if self.strategy not in CELL_SCHEDULES:
                 raise ValueError(
                     f"compact=True is not defined for {self.strategy!r} "
                     "(only the cell schedules have empty work units to skip)")
@@ -188,10 +197,10 @@ class InteractionPlan:
             raise ValueError(
                 f"unknown layout {self.layout!r}; have {LAYOUT_NAMES}")
         if self.layout == "packed":
-            if self.strategy not in STRATEGY_NAMES:
+            if self.strategy != "xpencil":
                 raise ValueError(
                     f'layout="packed" is not defined for {self.strategy!r}; '
-                    f"packed strategies: {list(STRATEGY_NAMES)}")
+                    "packed strategies: ['xpencil']")
             if not self.row_cap or self.row_cap < 1:
                 raise ValueError(
                     'layout="packed" needs a positive static row_cap bound '
@@ -252,7 +261,8 @@ class InteractionPlan:
                 return "row_cap"
         if self.compact:
             if active_unit_count(self.domain, state.positions, self.strategy,
-                                 counts=counts) > self.max_active:
+                                 box=self.box, counts=counts) > \
+                    self.max_active:
                 return "max_active"
         return None
 
@@ -265,18 +275,20 @@ class InteractionPlan:
         only what overflowed. The bounds and their probes:
 
         * ``m_c``: max particles per cell (``suggest_m_c``),
-        * ``max_active``: active pencils of a compacted plan
-          (``suggest_max_active``),
+        * ``max_active``: active work units (pencils, or ``allin``
+          sub-boxes) of a compacted plan (``suggest_max_active``),
         * ``row_cap``: particles per padded pencil row of a
           ``layout="packed"`` plan (``suggest_row_cap``).
 
         An exceeded bound makes results silently drop interactions, so
         ``check_overflow`` detects it from one binning pass, and this method
         grows only the bound that overflowed, re-measured with slack and
-        strictly past its old value. ``row_cap`` and ``max_active`` depend
-        only on the positions, so they never move when ``m_c`` does.
-        Padding rows (``state.valid`` False) are excluded from every
-        measure."""
+        strictly past its old value. Derived statics follow their inputs:
+        the ``allin`` sub-box is recomputed whenever ``m_c`` changes, and a
+        compacted ``allin`` plan re-measures ``max_active`` against the new
+        tiling. ``row_cap`` depends only on the positions, so it never moves
+        when ``m_c`` does. Padding rows (``state.valid`` False) are excluded
+        from every measure."""
         counts = cell_counts(self.domain, state.positions, state.valid)
         m_c = self.m_c
         mx_cell = int(counts.max())
@@ -285,6 +297,7 @@ class InteractionPlan:
                          ) * align
             grow = -(-(self.m_c + 1) // align) * align   # aligned, > m_c
             m_c = max(measured, grow)
+        box = self.box if m_c == self.m_c else None
         row_cap = self.row_cap
         if self.layout == "packed":
             mx_row = int(padded_row_counts(self.domain, counts).max())
@@ -295,14 +308,18 @@ class InteractionPlan:
                               grow)
         max_active = self.max_active
         if self.compact:
+            if self.strategy == "allin" and box is None:
+                # fix the new tiling first: the active-sub-box bound must be
+                # measured against the grid that will run
+                box = _allin_box(self.domain, m_c)
             n_act = active_unit_count(self.domain, state.positions,
-                                      self.strategy, counts=counts)
-            if n_act > max_active:
+                                      self.strategy, box=box, counts=counts)
+            if n_act > max_active or box != self.box:
                 max_active = max(suggest_max_active(
-                    self.domain, state.positions, self.strategy, align=align,
-                    counts=counts), n_act)
-        return dataclasses.replace(self, m_c=m_c, max_active=max_active,
-                                   row_cap=row_cap)
+                    self.domain, state.positions, self.strategy, box=box,
+                    align=align, counts=counts), n_act)
+        return dataclasses.replace(self, m_c=m_c, box=box,
+                                   max_active=max_active, row_cap=row_cap)
 
     def execute_or_replan(self, state: ParticleState
                           ) -> Tuple[Tuple[torch.Tensor, torch.Tensor],
@@ -321,7 +338,8 @@ def plan(domain: Domain, kernel: Optional[PairKernel] = None, *,
          strategy: str = "xpencil", backend: str = "cuda",
          batch_size: int = 64, device=None, compact: bool = False,
          max_active: Optional[int] = None, layout: str = "dense",
-         row_cap: Optional[int] = None) -> InteractionPlan:
+         row_cap: Optional[int] = None,
+         box: Optional[Tuple[int, int, int]] = None) -> InteractionPlan:
     """Build an :class:`InteractionPlan`.
 
     Every bound taken or measured here (``m_c``, ``max_active``,
@@ -333,14 +351,17 @@ def plan(domain: Domain, kernel: Optional[PairKernel] = None, *,
       positions: representative positions; required when a bound is None.
       m_c: static max-particles-per-cell bound; measured from ``positions``
         with slack and rounded up to a multiple of 8 when omitted.
-      strategy: ``"xpencil"`` or the ``"naive_n2"`` oracle.
-      backend: ``"cuda"`` (hand-written kernels; their plain PyTorch
-        versions on CPU tensors) or ``"reference"`` (plain PyTorch).
+      strategy: ``"par_part"``, ``"cell_dense"``, ``"xpencil"``, ``"allin"``
+        or the ``"naive_n2"`` oracle.
+      backend: ``"cuda"`` (hand-written kernels, for ``xpencil`` and
+        ``allin``; their plain PyTorch versions on CPU tensors) or
+        ``"reference"`` (plain PyTorch, every strategy).
       device: ``None`` means the CUDA device, and raises when none is
         visible; ``"cpu"`` runs on the CPU.
-      compact: occupancy-compacted execution: only the (z, y) pencils that
-        hold particles are visited (kernel C, or kernel D over active rows).
-      max_active: static active-pencil bound for ``compact=True``; measured
+      compact: occupancy-compacted execution: only the work units that
+        hold particles are visited ((z, y) pencils: kernel C, or kernel D
+        over active rows; ``allin`` sub-boxes on the reference backend).
+      max_active: static active-unit bound for ``compact=True``; measured
         from ``positions`` with slack when omitted.
       layout: ``"dense"`` (every cell owns ``m_c`` slots) or ``"packed"``
         (CSR pencil rows under ``row_cap``, kernel D). Composes with
@@ -348,6 +369,8 @@ def plan(domain: Domain, kernel: Optional[PairKernel] = None, *,
       row_cap: static particles-per-packed-row bound for
         ``layout="packed"``; measured from ``positions`` with slack when
         omitted.
+      box: ``allin`` sub-box (bx, by, bz); sized from a block's shared
+        memory (``strategies.subbox_dims``) when omitted.
     """
     device = resolve_device(device)
     kernel = kernel or make_lennard_jones()
@@ -357,26 +380,30 @@ def plan(domain: Domain, kernel: Optional[PairKernel] = None, *,
                              "(to measure the M_C bound)")
         from .engine import suggest_m_c
         m_c = suggest_m_c(domain, positions)
-    if layout == "packed" and strategy in STRATEGY_NAMES and row_cap is None:
+    if layout == "packed" and strategy == "xpencil" and row_cap is None:
         if positions is None:
             raise ValueError('layout="packed" needs either row_cap or '
                              "positions (to measure the packed-row bound)")
         row_cap = suggest_row_cap(domain, positions)
-    if compact and strategy in STRATEGY_NAMES:
+    if compact and strategy in CELL_SCHEDULES:
         if not supports_compact(backend, strategy, layout):
             raise ValueError(f"backend {backend!r} has no compacted path for "
                              f"strategy {strategy!r} (layout {layout!r})")
         if max_active is None:
             if positions is None:
                 raise ValueError("compact=True needs either max_active or "
-                                 "positions (to measure the active-pencil "
+                                 "positions (to measure the active-unit "
                                  "bound)")
-            max_active = suggest_max_active(domain, positions, strategy)
+            mbox = box
+            if strategy == "allin" and mbox is None:
+                mbox = _allin_box(domain, m_c)
+            max_active = suggest_max_active(domain, positions, strategy,
+                                            box=mbox)
     p = InteractionPlan(domain=domain, kernel=kernel, m_c=m_c,
                         strategy=strategy, backend=backend,
                         batch_size=batch_size, device=device,
                         compact=compact, max_active=max_active,
-                        layout=layout, row_cap=row_cap)
+                        layout=layout, row_cap=row_cap, box=box)
     if strategy != "naive_n2":
         get_backend(backend, strategy, layout)        # fail at plan time
     return p
@@ -387,36 +414,56 @@ def plan(domain: Domain, kernel: Optional[PairKernel] = None, *,
 # device)
 # --------------------------------------------------------------------------
 
+def _allin_box(domain: Domain, m_c: int) -> Tuple[int, int, int]:
+    """Shared-memory-budget sub-box, shrunk to divisors of the grid."""
+    return S.shrink_to_divisors(domain, S.subbox_dims(domain, m_c))
+
+
+def _unit_box(domain: Domain,
+              box: Optional[Tuple[int, int, int]]) -> Tuple[int, int, int]:
+    """The sub-box tiling the allin units are counted on; the box of
+    ``m_c`` 1 when none is given, as in the JAX package."""
+    return S.shrink_to_divisors(domain, box or _allin_box(domain, 1))
+
+
 def active_unit_count(domain: Domain, positions: torch.Tensor,
                       strategy: str = "xpencil",
+                      box: Optional[Tuple[int, int, int]] = None,
                       counts: Optional[torch.Tensor] = None) -> int:
-    """Number of (z, y) pencils holding at least one particle. Pass
-    precomputed per-cell ``counts`` to skip the binning pass. The sub-box
-    units of ``allin`` are not ported."""
-    if strategy == "allin":
-        raise _not_ported("strategy", "allin")
+    """Number of work units holding at least one particle: (z, y) pencils
+    (``xpencil``/``cell_dense``) or sub-boxes of the given tiling
+    (``allin``). Pass precomputed per-cell ``counts`` to skip the binning
+    pass."""
     if counts is None:
         counts = cell_counts(domain, positions)
-    return int((pencil_counts(domain, counts) > 0).sum())
-
-
-def n_units(domain: Domain, strategy: str = "xpencil") -> int:
-    """Total pencils of a schedule (denominator of the fill fraction)."""
     if strategy == "allin":
-        raise _not_ported("strategy", "allin")
+        units = subbox_counts(domain, counts, _unit_box(domain, box))
+    else:
+        units = pencil_counts(domain, counts)
+    return int((units > 0).sum())
+
+
+def n_units(domain: Domain, strategy: str = "xpencil",
+            box: Optional[Tuple[int, int, int]] = None) -> int:
+    """Total work units of a schedule (denominator of the fill fraction)."""
+    if strategy == "allin":
+        bx, by, bz = _unit_box(domain, box)
+        return (domain.nx // bx) * (domain.ny // by) * (domain.nz // bz)
     return domain.nz * domain.ny
 
 
 def suggest_max_active(domain: Domain, positions: torch.Tensor,
-                       strategy: str = "xpencil", slack: float = 1.25,
-                       align: int = 8,
+                       strategy: str = "xpencil",
+                       box: Optional[Tuple[int, int, int]] = None,
+                       slack: float = 1.25, align: int = 8,
                        counts: Optional[torch.Tensor] = None) -> int:
-    """Static ``max_active`` bound: active pencils with slack, rounded up to
-    ``align``, clipped to the total pencil count."""
-    n_act = active_unit_count(domain, positions, strategy, counts=counts)
+    """Static ``max_active`` bound: active units with slack, rounded up to
+    ``align``, clipped to the total unit count."""
+    n_act = active_unit_count(domain, positions, strategy, box=box,
+                              counts=counts)
     bound = max(1, int(n_act * slack + 0.999))
     bound = -(-bound // align) * align
-    return min(bound, n_units(domain, strategy))
+    return min(bound, n_units(domain, strategy, box=box))
 
 
 def suggest_row_cap(domain: Domain, positions: torch.Tensor,
@@ -436,15 +483,41 @@ def suggest_row_cap(domain: Domain, positions: torch.Tensor,
 # reference backend: the plain PyTorch schedules of core.strategies
 # --------------------------------------------------------------------------
 
-@register_backend("reference", "xpencil", compact=True)
-def _ref_xpencil(p: InteractionPlan, bins: CellBins, state: ParticleState):
-    if p.compact:
-        occ = pencil_occupancy(p.domain, bins.counts, p.max_active)
-        out = S.xpencil_sparse(p.domain, bins, p.kernel, occ,
-                               batch_size=p.batch_size)
-    else:
-        out = S.xpencil(p.domain, bins, p.kernel, batch_size=p.batch_size)
-    return dense_to_particles(p.domain, bins, *out)
+@register_backend("reference", "par_part")
+def _ref_par_part(p: InteractionPlan, bins: CellBins, state: ParticleState):
+    fx, fy, fz, pot = S.par_part(p.domain, bins, state.positions, p.kernel,
+                                 p.batch_size)
+    return torch.stack([fx, fy, fz], dim=-1), pot
+
+
+def _ref_cell_schedule(name: str) -> Callable:
+    """Reference backend of a cell schedule: the dense sweep, or its
+    occupancy-compacted variant when the plan asks for it."""
+    dense_fn, sparse_fn = S.STRATEGIES[name], S.SPARSE_STRATEGIES[name]
+
+    def impl(p: InteractionPlan, bins: CellBins, state: ParticleState):
+        kwargs = {"batch_size": p.batch_size}
+        if name == "allin":
+            kwargs["box"] = S.shrink_to_divisors(p.domain, p.box)
+        if not p.compact:
+            out = dense_fn(p.domain, bins, p.kernel, **kwargs)
+        elif name == "allin":
+            occ = subbox_occupancy(p.domain, bins.counts, kwargs["box"],
+                                   p.max_active)
+            out = sparse_fn(p.domain, bins, p.kernel, occ, **kwargs)
+        else:
+            occ = pencil_occupancy(p.domain, bins.counts, p.max_active)
+            out = sparse_fn(p.domain, bins, p.kernel, occ, **kwargs)
+        return dense_to_particles(p.domain, bins, *out)
+    return impl
+
+
+register_backend("reference", "cell_dense", compact=True)(
+    _ref_cell_schedule("cell_dense"))
+register_backend("reference", "xpencil", compact=True)(
+    _ref_cell_schedule("xpencil"))
+register_backend("reference", "allin", compact=True)(
+    _ref_cell_schedule("allin"))
 
 
 @register_backend("reference", "xpencil", compact=True, layout="packed")

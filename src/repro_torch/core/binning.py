@@ -252,18 +252,18 @@ def dense_to_particles(domain: Domain, bins: CellBins, fx, fy, fz, pot
 # --------------------------------------------------------------------------
 #
 # Port of the JAX package's occupancy summary: per-unit particle counts plus
-# a compacted list of the active (z, y) pencils under a static
-# ``max_active`` bound that follows the m_c replan contract (overflow is
-# detectable, never silent). ``jnp.nonzero(size=..., fill_value=0)`` has no
-# static-size torch twin and ``torch.nonzero`` waits on the device, so the
-# list is built without a host sync: a running count of the active units
-# gives each its place, and inactive or overflowing units go to a dump
-# slot that is cut off.
+# a compacted list of the active units ((z, y) pencils, or the sub-boxes of
+# the All-in-SM tiling) under a static ``max_active`` bound that follows the
+# m_c replan contract (overflow is detectable, never silent).
+# ``jnp.nonzero(size=..., fill_value=0)`` has no static-size torch twin and
+# ``torch.nonzero`` waits on the device, so the list is built without a host
+# sync: a running count of the active units gives each its place, and
+# inactive or overflowing units go to a dump slot that is cut off.
 
 
 @dataclasses.dataclass
 class Occupancy:
-    """Compacted active-work-unit summary (pencils).
+    """Compacted active-work-unit summary (pencils or sub-boxes).
 
     ``active`` holds the linearized ids of the units with at least one
     particle, in ascending order, padded to the static bound ``max_active``
@@ -350,6 +350,28 @@ def pencil_occupancy(domain: Domain, counts: torch.Tensor,
     """Active (z, y) X-pencils of ``CellBins.counts``."""
     return _compact_active(pencil_counts(domain, counts), max_active,
                            domain.nz * domain.ny)
+
+
+def subbox_counts(domain: Domain, counts: torch.Tensor,
+                  box: Tuple[int, int, int]) -> torch.Tensor:
+    """(n_cells,) cell counts -> (gz*gy*gx,) int32 particles per sub-box of
+    the All-in-SM tiling. ``box`` = (bx, by, bz) must divide the grid; unit
+    id = iz*(gy*gx) + iy*gx + ix, the sub-box order of the allin schedule."""
+    nx, ny, nz = domain.ncells
+    bx, by, bz = box
+    grid = counts_grid(domain, counts).reshape(nz // bz, bz, ny // by, by,
+                                               nx // bx, bx)
+    return grid.sum((1, 3, 5), dtype=torch.int32).reshape(-1)
+
+
+def subbox_occupancy(domain: Domain, counts: torch.Tensor,
+                     box: Tuple[int, int, int], max_active: int) -> Occupancy:
+    """Active sub-boxes of ``CellBins.counts`` (unit ids as in
+    :func:`subbox_counts`)."""
+    nx, ny, nz = domain.ncells
+    bx, by, bz = box
+    return _compact_active(subbox_counts(domain, counts, box), max_active,
+                           (nx // bx) * (ny // by) * (nz // bz))
 
 
 def gather_pencil_rows(plane: torch.Tensor, active_zy: torch.Tensor, ny: int,

@@ -1,29 +1,38 @@
 """Scheduling strategies in plain PyTorch (port of ``repro.core.strategies``).
 
   naive_n2        O(N^2) masked all-pairs: the correctness oracle.
+  par_part        Par-Part: parallel over particles; each gathers the 27*m_c
+                  slots of its 27 neighbour cells (no staging, no reuse).
+  cell_dense      Par-Cell: parallel over cells; the m_c targets of a cell
+                  meet 27 one-cell source slabs, in the order dz, dy, dx.
   xpencil         the paper's X-pencil: parallel over (z, y) pencils; the
                   target pencil is staged once, the 9 (dz, dy) neighbour
                   pencils are visited one at a time, and the X window of a
                   target cell is a contiguous 3*m_c slice of the neighbour
                   pencil row.
-  xpencil_sparse  the same body over the occupancy summary's active pencils
-                  only, results scattered back into the dense planes.
-  xpencil_packed  the same pair terms over packed (CSR) rows: each target's
-                  window is re-expanded to the dense 3*m_c shape.
+  allin           the paper's All-in-SM: parallel over sub-boxes; a halo
+                  block of (bz+2, by+2, bx+2) cells is staged once and every
+                  interior target reads its 9 X windows from it.
+  *_sparse        the cell schedules over the occupancy summary's active
+                  units only (pencils, or sub-boxes for ``allin``), results
+                  scattered back into the dense planes.
+  xpencil_packed  the X-pencil pair terms over packed (CSR) rows: each
+                  target's window is re-expanded to the dense 3*m_c shape.
 
-``xpencil_planes``, ``xpencil_sparse_planes`` and ``xpencil_packed_planes``
-are the plain versions of the CUDA kernels B, C and D
-(``repro_torch.kernels.xpencil``), with their signatures. JAX's ``lax.map``
-over pencils becomes a Python loop over chunks of ``batch_size`` pencils,
-which bounds peak memory; the last chunk is ragged, so JAX's padding of the
+``xpencil_planes``, ``xpencil_sparse_planes``, ``xpencil_packed_planes`` and
+``allin_planes`` are the plain versions of the CUDA kernels B, C, D and E
+(``repro_torch.kernels``), with their signatures. JAX's ``lax.map`` over
+units becomes a Python loop over chunks of ``batch_size`` units, which
+bounds peak memory; the last chunk is ragged, so JAX's padding of the
 active list to whole chunks (``_chunked_active``) is not needed. Every
-variant shares the per-pencil body and the order of its sums with the
-dense schedule, so compaction and packing change no computed value.
+compacted or packed variant shares the per-unit body and the order of its
+sums with its dense schedule, so compaction and packing change no computed
+value.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -69,6 +78,114 @@ def _pair_reduce(kernel, cut2, tx, ty, tz, tid, sx, sy, sz, sid):
             & (sid[..., None, :] >= 0) & (tid[..., :, None] >= 0))
     fx, fy, fz, pot = pair_contribution(kernel, ddx, ddy, ddz, mask, cut2)
     return fx.sum(-1), fy.sum(-1), fz.sum(-1), pot.sum(-1)
+
+
+# --------------------------------------------------------------------------
+# Par-Part: parallel over particles, gather everything
+# --------------------------------------------------------------------------
+
+def par_part(domain: Domain, bins: CellBins, positions: torch.Tensor,
+             kernel: PairKernel, batch_size: int = 4096) -> ForceOut:
+    """One target per particle; the 27 * m_c slots of its 27 neighbour cells
+    are gathered for it. Returns per-particle outputs (N,) directly: this
+    schedule builds no dense output plane. Targets are ``positions`` as
+    given, so a row the binning dropped (``valid`` False, or past ``m_c``)
+    still gets the forces of the binned particles around it, as in JAX."""
+    n = positions.shape[0]
+    nx, ny, _ = domain.ncells
+    m_c = bins.m_c
+    dev = positions.device
+    row_len = (nx + 2) * m_c
+    coords = domain.cell_coords(positions).long()                 # (N, 3)
+    offs = torch.from_numpy(domain.neighbor_offsets()).to(dev).long()
+    flat = [p.reshape(-1) for p in (bins.planes["x"], bins.planes["y"],
+                                    bins.planes["z"], bins.slot_id)]
+    slot = torch.arange(m_c, device=dev)
+    pid = torch.arange(n, dtype=torch.int32, device=dev)
+    outs = []
+    for lo in range(0, n, batch_size):
+        # padded coordinates of the 27 neighbour cells are always in range,
+        # thanks to the ghost ring
+        ncell = coords[lo:lo + batch_size, None, :] + offs + 1   # (B, 27, 3)
+        base = ((ncell[..., 2] * (ny + 2) + ncell[..., 1]) * row_len
+                + ncell[..., 0] * m_c)                            # (B, 27)
+        idx = (base[..., None] + slot).flatten(1)                 # (B, 27*m_c)
+        sx, sy, sz, sid = (f[idx] for f in flat)
+        pos = positions[lo:lo + batch_size]
+        mask = (sid >= 0) & (sid != pid[lo:lo + batch_size, None])
+        out = pair_contribution(kernel, pos[:, 0:1] - sx, pos[:, 1:2] - sy,
+                                pos[:, 2:3] - sz, mask, domain.cutoff ** 2)
+        outs.append(tuple(o.sum(-1) for o in out))
+    return tuple(torch.cat(o) for o in zip(*outs))
+
+
+# --------------------------------------------------------------------------
+# Par-Cell: parallel over cells, 27 one-cell slabs
+# --------------------------------------------------------------------------
+
+def _scatter_pencils(domain: Domain, m_c: int, occ: Occupancy,
+                     out) -> ForceOut:
+    """Compact ``(max_active, nx*m_c)`` pencil rows -> dense (nz, ny, nx,
+    m_c) planes, 0 where no active pencil lands."""
+    nx, ny, nz = domain.ncells
+    idx = occ.scatter_indices()
+    return tuple(scatter_rows(o, idx, occ.n_units).reshape(nz, ny, nx, m_c)
+                 for o in out)
+
+
+def _cell_dense_pencils(x, y, z, slot_id, active_zy, *, nx: int, ny: int,
+                        m_c: int, kernel: PairKernel, cutoff2: float,
+                        batch_size: int = 64) -> ForceOut:
+    """Par-Cell over the listed (z, y) pencils -> 4 x (len(active_zy),
+    nx*m_c). Within a pencil every target cell meets its 27 neighbour cells
+    as 27 separate m_c-slot slabs (the Par-Cell staging granularity),
+    accumulated in the order dz, dy, dx."""
+    fields = (x, y, z, slot_id)
+    outs = []
+    for start in range(0, active_zy.shape[0], batch_size):
+        zy = active_zy[start:start + batch_size]
+        tx, ty, tz, tid = (gather_pencil_rows(f, zy, ny)[:, m_c:(nx + 1) * m_c]
+                           .reshape(-1, nx, m_c) for f in fields)
+        acc = None
+        for dz in (-1, 0, 1):
+            for dy in (-1, 0, 1):
+                rows = [gather_pencil_rows(f, zy, ny, dz, dy) for f in fields]
+                for dx in (-1, 0, 1):
+                    sl = slice((1 + dx) * m_c, (1 + dx + nx) * m_c)
+                    sx, sy, sz, sid = (r[:, sl].reshape(-1, nx, m_c)
+                                       for r in rows)
+                    out = _pair_reduce(kernel, cutoff2, tx, ty, tz, tid,
+                                       sx, sy, sz, sid)
+                    acc = out if acc is None else tuple(
+                        a + o for a, o in zip(acc, out))
+        outs.append(acc)
+    return tuple(torch.cat(o).reshape(-1, nx * m_c) for o in zip(*outs))
+
+
+def cell_dense(domain: Domain, bins: CellBins, kernel: PairKernel,
+               batch_size: int = 64) -> ForceOut:
+    """Par-Cell over every pencil -> 4 x (nz, ny, nx, m_c)."""
+    nx, ny, nz = domain.ncells
+    every = torch.arange(nz * ny, dtype=torch.int32,
+                         device=bins.slot_id.device)
+    out = _cell_dense_pencils(
+        bins.planes["x"], bins.planes["y"], bins.planes["z"], bins.slot_id,
+        every, nx=nx, ny=ny, m_c=bins.m_c, kernel=kernel,
+        cutoff2=domain.cutoff ** 2, batch_size=batch_size)
+    return tuple(o.reshape(nz, ny, nx, bins.m_c) for o in out)
+
+
+def cell_dense_sparse(domain: Domain, bins: CellBins, kernel: PairKernel,
+                      occ: Occupancy, batch_size: int = 64) -> ForceOut:
+    """Occupancy-compacted Par-Cell: only the active pencils are visited;
+    within a pencil the staging stays the one-cell slab. Same dense planes
+    as :func:`cell_dense` (empty pencils are 0)."""
+    nx, ny, _ = domain.ncells
+    out = _cell_dense_pencils(
+        bins.planes["x"], bins.planes["y"], bins.planes["z"], bins.slot_id,
+        occ.active, nx=nx, ny=ny, m_c=bins.m_c, kernel=kernel,
+        cutoff2=domain.cutoff ** 2, batch_size=batch_size)
+    return _scatter_pencils(domain, bins.m_c, occ, out)
 
 
 def xpencil(domain: Domain, bins: CellBins, kernel: PairKernel,
@@ -136,15 +253,182 @@ def xpencil_sparse(domain: Domain, bins: CellBins, kernel: PairKernel,
     """Occupancy-compacted X-pencil: only active (z, y) pencils are staged;
     results land in the same dense (nz, ny, nx, m_c) planes as
     :func:`xpencil`'s (empty pencils are 0)."""
-    nx, ny, nz = domain.ncells
-    m_c = bins.m_c
+    nx, ny, _ = domain.ncells
     out = xpencil_sparse_planes(
         bins.planes["x"], bins.planes["y"], bins.planes["z"], bins.slot_id,
-        occ.active, nx=nx, ny=ny, m_c=m_c, kernel=kernel,
+        occ.active, nx=nx, ny=ny, m_c=bins.m_c, kernel=kernel,
+        cutoff2=domain.cutoff ** 2, batch_size=batch_size)
+    return _scatter_pencils(domain, bins.m_c, occ, out)
+
+
+# --------------------------------------------------------------------------
+# All-in-SM: stage a whole sub-box and its halo
+# --------------------------------------------------------------------------
+
+# Shared memory one block of an H100 may opt in to, and its SM count: the
+# defaults of the All-in-SM sub-box sizing (the JAX package sizes it from an
+# 8 MiB VMEM budget and at least 8 sub-boxes).
+SMEM_BUDGET_BYTES = 232448
+MIN_BLOCKS = 132
+
+
+def subbox_dims(domain: Domain, m_c: int, fields: int = 4,
+                smem_budget_bytes: int = SMEM_BUDGET_BYTES,
+                min_blocks: int = MIN_BLOCKS) -> Tuple[int, int, int]:
+    """The paper's sub-box sizing (Section 5.1), with a block's shared
+    memory as the budget.
+
+    max cells = budget / (m_c * fields * 4 B); find the largest
+    (bx+2)(by+2)(bz+2) <= max cells with the paper's p3 search, then shrink
+    (paper: "reduce the size of the sub-box to ensure enough parallelism")
+    until there are at least ``min_blocks`` sub-boxes. Below 27 cells the
+    box stays (1, 1, 1), whose halo may then exceed the budget.
+    """
+    per_cell = m_c * fields * 4
+    max_cells = max(27, smem_budget_bytes // per_cell)
+    p3 = 3
+    while (p3 + 1) ** 3 <= max_cells:
+        p3 += 1
+    candidates = [(p3, p3, p3), (p3 + 1, p3, p3), (p3 + 1, p3 + 1, p3),
+                  (p3 + 2, p3, p3)]
+    best = max((c for c in candidates if c[0] * c[1] * c[2] <= max_cells),
+               key=lambda c: c[0] * c[1] * c[2], default=(3, 3, 3))
+    bx, by, bz = (max(1, b - 2) for b in best)   # interior target cells
+    bx, by, bz = (min(b, n) for b, n in zip((bx, by, bz), domain.ncells))
+
+    def n_blocks(b):
+        return (-(-domain.nx // b[0]) * -(-domain.ny // b[1])
+                * -(-domain.nz // b[2]))
+
+    while n_blocks((bx, by, bz)) < min_blocks and max(bx, by, bz) > 1:
+        if bz >= by and bz >= bx:
+            bz = max(1, bz // 2)
+        elif by >= bx:
+            by = max(1, by // 2)
+        else:
+            bx = max(1, bx // 2)
+    return bx, by, bz
+
+
+def shrink_to_divisors(domain: Domain,
+                       box: Tuple[int, int, int]) -> Tuple[int, int, int]:
+    """Shrink a sub-box to a divisor of each grid axis (exact tiling)."""
+    def divisor_leq(n, b):
+        b = min(b, n)
+        while n % b:
+            b -= 1
+        return b
+
+    return tuple(divisor_leq(n, b) for n, b in zip(domain.ncells, box))
+
+
+def _allin_boxes(x, y, z, slot_id, box_ids, *, box: Tuple[int, int, int],
+                 m_c: int, kernel: PairKernel, cutoff2: float,
+                 batch_size: int = 8) -> ForceOut:
+    """The All-in-SM body over the listed sub-boxes -> 4 x (len(box_ids),
+    bz, by, bx*m_c).
+
+    Sub-box ``b = iz*(gy*gx) + iy*gx + ix`` stages the overlapping halo
+    block ``(bz+2, by+2, (bx+2)*m_c)`` of the padded planes at ``(iz*bz,
+    iy*by, ix*bx*m_c)`` (the ghost ring supplies the out-of-domain reads);
+    each interior target then meets the 9 (dz, dy) rows of the block in the
+    order k = 3*(dz+1) + (dy+1), its sources the contiguous 3*m_c window of
+    each row. ``box`` must divide the grid.
+    """
+    nz, ny = x.shape[0] - 2, x.shape[1] - 2
+    nx = x.shape[2] // m_c - 2
+    bx, by, bz = box
+    gx, gy = nx // bx, ny // by
+    dev = x.device
+    hz = torch.arange(bz + 2, device=dev)[:, None, None]
+    hy = torch.arange(by + 2, device=dev)[None, :, None]
+    hc = torch.arange((bx + 2) * m_c, device=dev)[None, None, :]
+    widx = _window_indices(bx, m_c, dev)
+    outs = []
+    for start in range(0, box_ids.shape[0], batch_size):
+        bid = box_ids[start:start + batch_size].long()[:, None, None, None]
+        iz, iy, ix = bid // (gy * gx), (bid // gx) % gy, bid % gx
+        halo = [f[iz * bz + hz, iy * by + hy, ix * (bx * m_c) + hc]
+                for f in (x, y, z, slot_id)]    # (B, bz+2, by+2, (bx+2)*m_c)
+        tx, ty, tz, tid = (h[:, 1:bz + 1, 1:by + 1, m_c:(bx + 1) * m_c]
+                           .reshape(-1, bz, by, bx, m_c) for h in halo)
+        acc = None
+        for dz in (-1, 0, 1):
+            for dy in (-1, 0, 1):
+                sx, sy, sz, sid = (h[:, 1 + dz:1 + dz + bz,
+                                     1 + dy:1 + dy + by][..., widx]
+                                   for h in halo)  # (B, bz, by, bx, 3*m_c)
+                out = _pair_reduce(kernel, cutoff2, tx, ty, tz, tid,
+                                   sx, sy, sz, sid)
+                acc = out if acc is None else tuple(
+                    a + o for a, o in zip(acc, out))
+        outs.append(acc)
+    return tuple(torch.cat(o).reshape(-1, bz, by, bx * m_c)
+                 for o in zip(*outs))
+
+
+def _assemble_boxes(blocks: torch.Tensor, grid: Tuple[int, int, int],
+                    box: Tuple[int, int, int], m_c: int) -> torch.Tensor:
+    """(gz*gy*gx, ...) per-sub-box blocks -> (nz, ny, nx*m_c) planes."""
+    gx, gy, gz = grid
+    bx, by, bz = box
+    b = blocks.reshape(gz, gy, gx, bz, by, bx * m_c)
+    return b.permute(0, 3, 1, 4, 2, 5).reshape(gz * bz, gy * by,
+                                               gx * bx * m_c)
+
+
+def allin_planes(x, y, z, slot_id, *, box: Tuple[int, int, int], m_c: int,
+                 kernel: PairKernel, cutoff2: float,
+                 batch_size: int = 8) -> ForceOut:
+    """All-in-SM over every sub-box on padded ``(nz+2, ny+2, (nx+2)*m_c)``
+    planes -> 4 x (nz, ny, nx*m_c): the plain version of CUDA kernel E, with
+    its signature. ``box`` must divide the grid."""
+    nz, ny = x.shape[0] - 2, x.shape[1] - 2
+    nx = x.shape[2] // m_c - 2
+    bx, by, bz = box
+    grid = (nx // bx, ny // by, nz // bz)
+    every = torch.arange(grid[0] * grid[1] * grid[2], dtype=torch.int32,
+                         device=x.device)
+    out = _allin_boxes(x, y, z, slot_id, every, box=box, m_c=m_c,
+                           kernel=kernel, cutoff2=cutoff2,
+                           batch_size=batch_size)
+    return tuple(_assemble_boxes(o, grid, box, m_c) for o in out)
+
+
+def allin(domain: Domain, bins: CellBins, kernel: PairKernel,
+          box: Optional[Tuple[int, int, int]] = None,
+          batch_size: int = 8) -> ForceOut:
+    """All-in-SM schedule -> 4 x (nz, ny, nx, m_c). The sub-box defaults to
+    :func:`subbox_dims` and is shrunk to a divisor of each axis, so the
+    sub-boxes tile the grid exactly."""
+    nx, ny, nz = domain.ncells
+    m_c = bins.m_c
+    box = shrink_to_divisors(domain, box or subbox_dims(domain, m_c))
+    out = allin_planes(bins.planes["x"], bins.planes["y"], bins.planes["z"],
+                       bins.slot_id, box=box, m_c=m_c, kernel=kernel,
+                       cutoff2=domain.cutoff ** 2, batch_size=batch_size)
+    return tuple(o.reshape(nz, ny, nx, m_c) for o in out)
+
+
+def allin_sparse(domain: Domain, bins: CellBins, kernel: PairKernel,
+                 occ: Occupancy, box: Tuple[int, int, int],
+                 batch_size: int = 8) -> ForceOut:
+    """Occupancy-compacted All-in-SM: empty sub-boxes are skipped. ``box``
+    must divide the grid and be the tiling ``occ`` was built with
+    (``binning.subbox_occupancy``); the per-box body is the dense one."""
+    nx, ny, nz = domain.ncells
+    m_c = bins.m_c
+    bx, by, bz = box
+    out = _allin_boxes(
+        bins.planes["x"], bins.planes["y"], bins.planes["z"], bins.slot_id,
+        occ.active, box=box, m_c=m_c, kernel=kernel,
         cutoff2=domain.cutoff ** 2, batch_size=batch_size)
     idx = occ.scatter_indices()
-    return tuple(scatter_rows(o, idx, occ.n_units).reshape(nz, ny, nx, m_c)
-                 for o in out)
+    grid = (nx // bx, ny // by, nz // bz)
+    return tuple(
+        _assemble_boxes(scatter_rows(o.flatten(1), idx, occ.n_units), grid,
+                        box, m_c).reshape(nz, ny, nx, m_c)
+        for o in out)
 
 
 # --------------------------------------------------------------------------
@@ -248,3 +532,9 @@ def xpencil_packed(domain: Domain, packed: PackedRows, kernel: PairKernel,
         cutoff2=domain.cutoff ** 2, batch_size=batch_size)
     idx = occ.scatter_indices()
     return tuple(scatter_rows(o, idx, nz * ny) for o in out)
+
+
+STRATEGIES = {"par_part": par_part, "cell_dense": cell_dense,
+              "xpencil": xpencil, "allin": allin}
+SPARSE_STRATEGIES = {"cell_dense": cell_dense_sparse,
+                     "xpencil": xpencil_sparse, "allin": allin_sparse}

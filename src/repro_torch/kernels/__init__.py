@@ -2,20 +2,23 @@
 
 xpencil      the paper's X-pencil schedule, dense (kernel B), compacted
              (kernel C) and packed-row (kernel D) (csrc/xpencil.cu)
+allin        the paper's All-in-SM schedule (kernel E, csrc/allin.cu)
 prefix_sum   the paper's §6 scan (kernel A, csrc/prefix_sum.cu)
 
 Each kernel has a wrapper that runs its plain PyTorch version on CPU
 tensors and launches the kernel on CUDA tensors. Importing this package
-registers the X-pencil kernels as the ``"cuda"`` backend of the port's own
-registry, so ``plan(domain, kernel, positions=pos)`` runs them.
+registers the force kernels as the ``"cuda"`` backend of the port's own
+registry, so ``plan(domain, kernel, positions=pos)`` runs them. As the JAX
+package's ``"pallas"`` backend, it has ``xpencil`` (dense, compacted,
+packed) and dense ``allin``; the other strategies run on ``"reference"``.
 """
 
 from ..core.api import InteractionPlan, ParticleState, register_backend
 from ..core.binning import CellBins, PackedRows
-from .ops import (prefix_sum, xpencil_interactions,
+from .ops import (allin_interactions, prefix_sum, xpencil_interactions,
                   xpencil_packed_interactions, xpencil_sparse_interactions)
 
-__all__ = ["prefix_sum", "xpencil_interactions",
+__all__ = ["allin_interactions", "prefix_sum", "xpencil_interactions",
            "xpencil_packed_interactions", "xpencil_sparse_interactions"]
 
 
@@ -26,6 +29,11 @@ def _cuda_xpencil(plan: InteractionPlan, bins: CellBins,
         return xpencil_sparse_interactions(plan.domain, bins, plan.kernel,
                                            plan.max_active)
     return xpencil_interactions(plan.domain, bins, plan.kernel)
+
+
+@register_backend("cuda", "allin")
+def _cuda_allin(plan: InteractionPlan, bins: CellBins, state: ParticleState):
+    return allin_interactions(plan.domain, bins, plan.kernel, plan.box)
 
 
 @register_backend("cuda", "xpencil", compact=True, layout="packed")

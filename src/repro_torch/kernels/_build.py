@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` file has a plain ``extern "C"`` interface and no PyTorch
 headers, so ``nvcc`` builds it in seconds. The library goes to
 ``build/repro_torch/`` at the repository root; its name carries a hash of
-the source and the flags, so an edited source is rebuilt. A failed build
-raises with ``nvcc``'s stderr.
+the source, of every shared header ``csrc/*.cuh`` and of the flags, so an
+edited source or header is rebuilt. A failed build raises with ``nvcc``'s
+stderr.
 
 ``SIGNATURES`` declares every C entry point: pointers and the stream are
 ``c_void_p`` (a default ctypes int would cut a 64-bit pointer), and every
@@ -31,6 +32,12 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 
 # source file -> {C symbol: argtypes}; every restype is c_int (cudaError_t)
 SIGNATURES: Dict[str, Dict[str, Tuple]] = {
+    "allin.cu": {
+        # x, y, z, slot_id, fx, fy, fz, pot, nx, ny, nz, m_c, bx, by, bz,
+        # cutoff2, kind, p0, p1, p2, p3, n_extra, stream
+        "allin_forces_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _I, _I, _F, _I, _F, _F, _F, _F, _I, _P),
+    },
     "prefix_sum.cu": {
         # in, out, scratch, n, scratch_elems, stream
         "paper_scan_i32": (_P, _P, _P, _LL, _LL, _P),
@@ -63,9 +70,14 @@ def nvcc_path() -> str:
 
 
 def library_path(source: str) -> pathlib.Path:
-    digest = hashlib.sha256((CSRC / source).read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{pathlib.Path(source).stem}_{digest}.so"
+    """Where the library of ``csrc/<source>`` goes: named by a hash of the
+    source, every ``csrc/*.cuh`` header (any source may include any of
+    them) and the flags."""
+    h = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{pathlib.Path(source).stem}_{h.hexdigest()[:16]}.so"
 
 
 def _start_build(source: str):

@@ -1,0 +1,51 @@
+"""What every kernel wrapper shares: argument checks, the pair kernel's
+CUDA form, output allocation and the launch through ``_build``."""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from ..core.interactions import PairKernel
+from ..core.strategies import SMEM_BUDGET_BYTES
+from . import _build
+
+MAX_SMEM = SMEM_BUDGET_BYTES   # bytes of shared memory a block may opt in to
+
+
+def check_tensors(device: torch.device, tensors, what: str) -> None:
+    """Raise unless every (name, tensor, dtype, shape) is a contiguous
+    tensor of that dtype and shape on ``device``."""
+    for name, t, dtype, shape in tensors:
+        if (t.device != device or t.dtype != dtype
+                or tuple(t.shape) != tuple(shape) or not t.is_contiguous()):
+            raise ValueError(
+                f"{what}: {name} must be a contiguous {dtype} tensor of "
+                f"shape {tuple(shape)} on {device}, got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}")
+
+
+def cuda_form(kernel: PairKernel):
+    """(kind, p0, p1, p2, p3, n_extra) of the kernel's CUDA form."""
+    form = kernel.cuda
+    if form is None:
+        raise ValueError(f"pair kernel {kernel.name!r} has no CUDA form; use "
+                         "backend='reference'")
+    return (form.kind, *(tuple(form.params) + (0.0,) * 4)[:4], form.n_extra)
+
+
+def new_outputs(shape, device) -> Tuple[torch.Tensor, ...]:
+    """fx, fy, fz, pot: four uninitialised float32 tensors."""
+    return tuple(torch.empty(shape, dtype=torch.float32, device=device)
+                 for _ in range(4))
+
+
+def launch(source: str, entry: str, x: torch.Tensor, *args) -> None:
+    """Call C entry point ``entry`` of ``csrc/<source>`` on the current
+    stream of ``x``'s device; raise if it returns a CUDA error."""
+    lib = _build.load(source)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, entry)(*args, stream)
+    _build.check(rc, entry)

@@ -1,10 +1,10 @@
 """Entry points of the CUDA kernels at the port's level of abstraction.
 
 ``xpencil_interactions`` (kernel B), ``xpencil_sparse_interactions``
-(kernel C) and ``xpencil_packed_interactions`` (kernel D) run an X-pencil
-kernel and scatter its result back to particle order; ``prefix_sum`` is
-the paper's §6 scan. Each wrapper runs its plain PyTorch version on CPU
-tensors.
+(kernel C), ``xpencil_packed_interactions`` (kernel D) and
+``allin_interactions`` (kernel E) run a force kernel and scatter its result
+back to particle order; ``prefix_sum`` is the paper's §6 scan. Each wrapper
+runs its plain PyTorch version on CPU tensors.
 """
 
 from __future__ import annotations
@@ -18,11 +18,12 @@ from ..core.binning import (CellBins, PackedRows, dense_to_particles,
                             scatter_rows)
 from ..core.domain import Domain
 from ..core.interactions import PairKernel
+from .allin import allin_forces
 from .prefix_sum import prefix_sum
 from .xpencil import (xpencil_forces, xpencil_packed_forces,
                       xpencil_sparse_forces)
 
-__all__ = ["prefix_sum", "xpencil_interactions",
+__all__ = ["allin_interactions", "prefix_sum", "xpencil_interactions",
            "xpencil_packed_interactions", "xpencil_sparse_interactions"]
 
 
@@ -79,3 +80,14 @@ def xpencil_packed_interactions(domain: Domain, packed: PackedRows,
         idx = occ.scatter_indices()
         rows = tuple(scatter_rows(r, idx, nz * ny) for r in rows)
     return packed_to_particles(domain, packed, *rows)
+
+
+def allin_interactions(domain: Domain, bins: CellBins, kernel: PairKernel,
+                       box: Tuple[int, int, int]
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """All-in-SM kernel over sub-boxes ``box`` (dividing the grid) ->
+    per-particle (forces (N,3), potential (N,))."""
+    fx, fy, fz, pot = allin_forces(
+        bins.planes, bins.slot_id, box=box, m_c=bins.m_c, kernel=kernel,
+        cutoff2=float(domain.cutoff) ** 2)
+    return dense_to_particles(domain, bins, fx, fy, fz, pot)

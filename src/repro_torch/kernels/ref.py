@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the CUDA kernels (the allclose targets).
 
-The X-pencil kernels are held against the X-pencil strategies of ``core``
-(the same schedules); the scan against ``torch.cumsum``, independent of the
+The force kernels are held against the strategies of ``core`` (the same
+schedules); the scan against ``torch.cumsum``, independent of the
 paper's own schedule.
 """
 
@@ -39,6 +39,14 @@ def xpencil_packed_ref(domain: Domain, packed: PackedRows,
                        ) -> Tuple[torch.Tensor, ...]:
     """(nz * ny, row_cap) packed planes of the packed-row schedule."""
     return S.xpencil_packed(domain, packed, kernel, occ)
+
+
+def allin_ref(domain: Domain, bins: CellBins, kernel: PairKernel,
+              box: Tuple[int, int, int]) -> Tuple[torch.Tensor, ...]:
+    """(nz, ny, nx*m_c) interior force/potential planes of All-in-SM."""
+    nx, ny, nz = domain.ncells
+    out = S.allin(domain, bins, kernel, box=box)
+    return tuple(o.reshape(nz, ny, nx * bins.m_c) for o in out)
 
 
 def prefix_sum_ref(x: torch.Tensor) -> torch.Tensor:

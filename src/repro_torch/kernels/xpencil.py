@@ -24,44 +24,9 @@ import torch
 from ..core.interactions import PairKernel
 from ..core.strategies import (xpencil_packed_planes, xpencil_planes,
                                xpencil_sparse_planes)
-from . import _build
+from ._common import MAX_SMEM, check_tensors, cuda_form, launch, new_outputs
 
 MAX_M_C = 1024         # kernels B, C: one thread per target slot of a block
-MAX_SMEM = 232448      # bytes of shared memory a block may opt in to
-
-
-def _check(device: torch.device, tensors, what: str) -> None:
-    """Raise unless every (name, tensor, dtype, shape) is a contiguous
-    tensor of that dtype and shape on ``device``."""
-    for name, t, dtype, shape in tensors:
-        if (t.device != device or t.dtype != dtype
-                or tuple(t.shape) != tuple(shape) or not t.is_contiguous()):
-            raise ValueError(
-                f"{what}: {name} must be a contiguous {dtype} tensor of "
-                f"shape {tuple(shape)} on {device}, got {t.dtype} "
-                f"{tuple(t.shape)} on {t.device}")
-
-
-def _cuda_form(kernel: PairKernel):
-    """(kind, p0, p1, p2, p3, n_extra) of the kernel's CUDA form."""
-    form = kernel.cuda
-    if form is None:
-        raise ValueError(f"pair kernel {kernel.name!r} has no CUDA form; use "
-                         "backend='reference'")
-    return (form.kind, *(tuple(form.params) + (0.0,) * 4)[:4], form.n_extra)
-
-
-def _outputs(shape, device) -> Tuple[torch.Tensor, ...]:
-    return tuple(torch.empty(shape, dtype=torch.float32, device=device)
-                 for _ in range(4))
-
-
-def _launch(entry: str, x: torch.Tensor, *args) -> None:
-    lib = _build.load("xpencil.cu")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, entry)(*args, stream)
-    _build.check(rc, entry)
 
 
 def _dense_planes(x, y, z, slot_id, nx: int, m_c: int, what: str):
@@ -73,7 +38,7 @@ def _dense_planes(x, y, z, slot_id, nx: int, m_c: int, what: str):
     if width != (nx + 2) * m_c or nzp < 3 or nyp < 3:
         raise ValueError(f"planes of shape {tuple(x.shape)} do not match "
                          f"nx={nx}, m_c={m_c}")
-    _check(x.device, [(n, t, d, x.shape) for n, t, d in (
+    check_tensors(x.device, [(n, t, d, x.shape) for n, t, d in (
         ("x", x, torch.float32), ("y", y, torch.float32),
         ("z", z, torch.float32), ("slot_id", slot_id, torch.int32))], what)
     return nzp - 2, nyp - 2
@@ -96,12 +61,12 @@ def xpencil_forces(planes: Dict[str, torch.Tensor], slot_id: torch.Tensor, *,
                               kernel=kernel, cutoff2=cutoff2)
     if x.device.type != "cuda":
         raise ValueError(f"xpencil_forces runs on cpu or cuda, not {x.device}")
-    form = _cuda_form(kernel)
+    form = cuda_form(kernel)
     nz, ny = _dense_planes(x, y, z, slot_id, nx, m_c, "xpencil_forces")
-    outs = _outputs((nz, ny, nx * m_c), x.device)
-    _launch("xpencil_forces_f32", x, x.data_ptr(), y.data_ptr(), z.data_ptr(),
-            slot_id.data_ptr(), *(o.data_ptr() for o in outs), nx, ny, nz,
-            m_c, float(cutoff2), *form)
+    outs = new_outputs((nz, ny, nx * m_c), x.device)
+    launch("xpencil.cu", "xpencil_forces_f32", x, x.data_ptr(), y.data_ptr(),
+           z.data_ptr(), slot_id.data_ptr(), *(o.data_ptr() for o in outs),
+           nx, ny, nz, m_c, float(cutoff2), *form)
     xpencil_forces.launches += 1
     return outs
 
@@ -129,20 +94,21 @@ def xpencil_sparse_forces(planes: Dict[str, torch.Tensor],
     if x.device.type != "cuda":
         raise ValueError(
             f"xpencil_sparse_forces runs on cpu or cuda, not {x.device}")
-    form = _cuda_form(kernel)
+    form = cuda_form(kernel)
     nz, nyy = _dense_planes(x, y, z, slot_id, nx, m_c,
                             "xpencil_sparse_forces")
     if nyy != ny:
         raise ValueError(f"planes of shape {tuple(x.shape)} do not match "
                          f"ny={ny}")
     n_rows = active_zy.shape[0]
-    _check(x.device, [("active_zy", active_zy, torch.int32, (n_rows,))],
-           "xpencil_sparse_forces")
-    outs = _outputs((n_rows, nx * m_c), x.device)
-    _launch("xpencil_sparse_f32", x, x.data_ptr(), y.data_ptr(), z.data_ptr(),
-            slot_id.data_ptr(), active_zy.data_ptr(),
-            *(o.data_ptr() for o in outs), n_rows, nx, ny, nz, m_c,
-            float(cutoff2), *form)
+    check_tensors(x.device,
+                  [("active_zy", active_zy, torch.int32, (n_rows,))],
+                  "xpencil_sparse_forces")
+    outs = new_outputs((n_rows, nx * m_c), x.device)
+    launch("xpencil.cu", "xpencil_sparse_f32", x, x.data_ptr(), y.data_ptr(),
+           z.data_ptr(), slot_id.data_ptr(), active_zy.data_ptr(),
+           *(o.data_ptr() for o in outs), n_rows, nx, ny, nz, m_c,
+           float(cutoff2), *form)
     xpencil_sparse_forces.launches += 1
     return outs
 
@@ -178,7 +144,7 @@ def xpencil_packed_forces(planes: Dict[str, torch.Tensor],
     if x.device.type != "cuda":
         raise ValueError(
             f"xpencil_packed_forces runs on cpu or cuda, not {x.device}")
-    form = _cuda_form(kernel)
+    form = cuda_form(kernel)
     if nyp != ny + 2 or nzp < 3 or row_cap < 1:
         raise ValueError(f"packed planes of shape {tuple(x.shape)} do not "
                          f"match ny={ny}")
@@ -198,12 +164,12 @@ def xpencil_packed_forces(planes: Dict[str, torch.Tensor],
     else:
         n_rows, act_ptr = active_zy.shape[0], active_zy.data_ptr()
         tensors.append(("active_zy", active_zy, torch.int32, (n_rows,)))
-    _check(x.device, tensors, "xpencil_packed_forces")
-    outs = _outputs((n_rows, row_cap), x.device)
-    _launch("xpencil_packed_f32", x, x.data_ptr(), y.data_ptr(), z.data_ptr(),
-            slot_id.data_ptr(), slot_cell.data_ptr(), cell_offsets.data_ptr(),
-            act_ptr, *(o.data_ptr() for o in outs), n_rows, nx,
-            ny, nzp - 2, row_cap, float(cutoff2), *form)
+    check_tensors(x.device, tensors, "xpencil_packed_forces")
+    outs = new_outputs((n_rows, row_cap), x.device)
+    launch("xpencil.cu", "xpencil_packed_f32", x, x.data_ptr(), y.data_ptr(),
+           z.data_ptr(), slot_id.data_ptr(), slot_cell.data_ptr(),
+           cell_offsets.data_ptr(), act_ptr, *(o.data_ptr() for o in outs),
+           n_rows, nx, ny, nzp - 2, row_cap, float(cutoff2), *form)
     xpencil_packed_forces.launches += 1
     return outs
 

@@ -9,12 +9,14 @@ import pytest
 import torch
 
 from repro_torch.core import (Domain, ParticleState, full_pencil_occupancy,
-                              make_lennard_jones, make_low_flop, pack_rows,
+                              make_gravity, make_lennard_jones,
+                              make_low_flop, pack_rows,
                               pencil_occupancy, plan, scenarios,
                               suggest_m_c, suggest_row_cap)
 from repro_torch.core import prefix as plain_prefix
 from repro_torch.core import strategies as S
 from repro_torch.core.binning import bin_particles
+from repro_torch.kernels.allin import allin_forces, halo_bytes
 from repro_torch.kernels.prefix_sum import prefix_sum
 from repro_torch.kernels.xpencil import (xpencil_forces,
                                          xpencil_packed_forces,
@@ -146,3 +148,57 @@ def test_dense_compact_packed_equal_and_launch(gen, periodic):
     assert bool(f_d.isfinite().all())
     for key, (f, u) in runs.items():
         assert torch.equal(f, f_d) and torch.equal(u, u_d), key
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("m_c", [8, 24])
+@pytest.mark.parametrize("box", [(1, 1, 1), (3, 2, 1), (2, 4, 3), (6, 4, 3)])
+def test_allin_kernel_matches_plain_and_kernel_b(gen, periodic, m_c, box):
+    """Kernel E against its plain version, and E == B bit for bit whatever
+    the box; (6, 4, 3) at m_c 24 stages 92,160 B, past the 48 KB default."""
+    dom = Domain(box=(6.0, 4.0, 3.0), ncells=(6, 4, 3), cutoff=1.0,
+                 periodic=periodic)
+    pos = dom.sample_uniform(300, generator=gen, device="cuda")
+    bins = bin_particles(dom, pos, m_c=m_c)
+    for kern in (make_low_flop(), make_lennard_jones(), make_gravity()):
+        got = allin_forces(bins.planes, bins.slot_id, box=box, m_c=m_c,
+                           kernel=kern, cutoff2=1.0)
+        want = S.allin_planes(bins.planes["x"], bins.planes["y"],
+                              bins.planes["z"], bins.slot_id, box=box,
+                              m_c=m_c, kernel=kern, cutoff2=1.0)
+        b = xpencil_forces(bins.planes, bins.slot_id, nx=6, m_c=m_c,
+                           kernel=kern, cutoff2=1.0)
+        for g, w, bb in zip(got, want, b):
+            assert g.shape == (3, 4, 6 * m_c)
+            if kern.name == "low_flop":
+                torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+            assert torch.equal(g, bb), kern.name
+
+
+def test_allin_wrapper_raises_above_shared_memory(gen):
+    dom = Domain.cubic(3)
+    pos = dom.sample_uniform(30, generator=gen, device="cuda")
+    bins = bin_particles(dom, pos, m_c=540)
+    assert halo_bytes((1, 1, 1), 538) <= 232448 < halo_bytes((1, 1, 1), 539)
+    allin_forces.launches = 0
+    with pytest.raises(ValueError, match="232448"):
+        allin_forces(bins.planes, bins.slot_id, box=(1, 1, 1), m_c=540,
+                     kernel=make_lennard_jones(), cutoff2=1.0)
+    with pytest.raises(ValueError, match="must divide the grid"):
+        allin_forces(bins.planes, bins.slot_id, box=(2, 1, 1), m_c=540,
+                     kernel=make_lennard_jones(), cutoff2=1.0)
+    assert allin_forces.launches == 0
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+def test_allin_main_path_launches_kernel_e(gen, periodic):
+    dom, pos = _blob(gen, 8, 3000, periodic)
+    state = ParticleState(pos)
+    p = plan(dom, positions=pos, strategy="allin")
+    prefix_sum.launches = allin_forces.launches = xpencil_forces.launches = 0
+    f, u = p.execute(state)
+    torch.cuda.synchronize()
+    assert (prefix_sum.launches, allin_forces.launches,
+            xpencil_forces.launches) == (1, 1, 0)
+    f_b, u_b = plan(dom, positions=pos).execute(state)
+    assert torch.equal(f, f_b) and torch.equal(u, u_b)

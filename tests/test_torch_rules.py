@@ -22,8 +22,10 @@ import pytest
 import torch
 
 from repro_torch.core import (Domain, PairKernel, ParticleState,
-                              make_lennard_jones, plan, scenarios)
+                              make_lennard_jones, plan, scenarios,
+                              supports_compact)
 from repro_torch.kernels import _build
+from repro_torch.kernels.allin import allin_forces
 from repro_torch.kernels.prefix_sum import prefix_sum
 from repro_torch.kernels.xpencil import (xpencil_forces,
                                          xpencil_packed_forces,
@@ -98,6 +100,22 @@ def test_library_name_tracks_source_hash():
     assert _build.library_path("prefix_sum.cu") != a
 
 
+def test_library_name_tracks_shared_headers(tmp_path, monkeypatch):
+    """An edit to a shared ``csrc/*.cuh`` header renames every library,
+    so no stale build of a source that includes it is loaded."""
+    for f in _build.CSRC.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = {s: _build.library_path(s) for s in _build.SIGNATURES}
+    assert (tmp_path / "pair.cuh").exists()
+    with open(tmp_path / "pair.cuh", "ab") as f:
+        f.write(b"// edited\n")
+    after = {s: _build.library_path(s) for s in _build.SIGNATURES}
+    assert all(before[s] != after[s] for s in before)
+    assert {p.stem.rsplit("_", 1)[0] for p in after.values()} == \
+        {pathlib.Path(s).stem for s in _build.SIGNATURES}
+
+
 def test_plan_defaults_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a card is visible; the default runs there")
@@ -122,15 +140,42 @@ def test_samplers_default_to_the_card():
 
 @pytest.mark.parametrize("kwargs,item", [
     (dict(strategy="auto"), 8), (dict(strategy="autotune"), 8),
-    (dict(strategy="par_part"), 2), (dict(strategy="cell_dense"), 2),
-    (dict(strategy="allin"), 7),
-    (dict(strategy="cell_dense", compact=True), 2),
-    (dict(strategy="allin", compact=True), 7), (dict(layout="sfc"), 6),
+    (dict(strategy="cell_dense", layout="sfc"), 6),
+    (dict(strategy="cell_dense", layout="sfc", backend="reference"), 6),
+    (dict(strategy="auto", compact=True), 8),
+    (dict(strategy="autotune", backend="reference"), 8),
+    (dict(strategy="allin", backend="halo"), 11), (dict(layout="sfc"), 6),
     (dict(backend="halo"), 11),
 ])
 def test_unported_options_raise_with_roadmap_item(kwargs, item):
     with pytest.raises(ValueError, match=f"Queue 1 item {item}\\b"):
         plan(Domain.cubic(3), m_c=8, device="cpu", **kwargs)
+
+
+def test_backend_matrix_mirrors_jax():
+    """``"cuda"`` has what JAX's ``"pallas"`` has: xpencil (dense,
+    compacted, packed) and dense allin. ``"reference"`` has every
+    strategy, compacted for the cell schedules. Asking the cuda backend for
+    the rest raises at plan time."""
+    dom = Domain.cubic(3)
+    assert not supports_compact("cuda", "allin")
+    assert supports_compact("cuda", "xpencil")
+    for name in ("cell_dense", "xpencil", "allin"):
+        assert supports_compact("reference", name)
+    assert not supports_compact("reference", "par_part")
+    with pytest.raises(ValueError, match="no compacted path.*'allin'"):
+        plan(dom, m_c=8, device="cpu", strategy="allin", compact=True,
+             max_active=4)
+    for name in ("cell_dense", "par_part"):
+        with pytest.raises(ValueError, match=f"no backend 'cuda' for "
+                                             f"strategy '{name}'"):
+            plan(dom, m_c=8, device="cpu", strategy=name)
+        assert plan(dom, m_c=8, device="cpu", strategy=name,
+                    backend="reference")
+    assert plan(dom, m_c=8, device="cpu", strategy="allin").box == (1, 1, 1)
+    with pytest.raises(ValueError, match='layout="packed" is not defined'):
+        plan(dom, m_c=8, device="cpu", strategy="allin", layout="packed",
+             row_cap=8)
 
 
 def test_unknown_backend_and_user_kernel_raise():
@@ -175,6 +220,11 @@ def test_wrappers_refuse_other_devices():
                                                 device="meta"), ids, nx=1,
                               ny=1, m_c=8, kernel=make_lennard_jones(),
                               cutoff2=1.0)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        allin_forces({"x": plane, "y": plane, "z": plane},
+                     plane.to(torch.int32), box=(1, 1, 1), m_c=8,
+                     kernel=make_lennard_jones(), cutoff2=1.0)
     assert prefix_sum.launches == 0 and xpencil_forces.launches == 0
     assert xpencil_sparse_forces.launches == 0
     assert xpencil_packed_forces.launches == 0
+    assert allin_forces.launches == 0

@@ -115,8 +115,14 @@ def test_bound_probes_match_jax():
                 j_suggest_max_active(jdom, jpos, slack=slack)
         # huge slack clips to the total pencil count, never beyond
         assert suggest_max_active(dom, tpos, slack=100.0) == n_units(dom)
-    with pytest.raises(ValueError, match="Queue 1 item 7"):
-        active_unit_count(dom, tpos, "allin")
+        # the sub-box units of allin, on tilings given to both packages
+        for box in ((2, 3, 1), (3, 3, 3), (4, 1, 2)):
+            assert active_unit_count(dom, tpos, "allin", box=box) == \
+                j_active_unit_count(jdom, jpos, "allin", box=box)
+            assert n_units(dom, "allin", box=box) == \
+                j_n_units(jdom, "allin", box=box)
+            assert suggest_max_active(dom, tpos, "allin", box=box) == \
+                j_suggest_max_active(jdom, jpos, "allin", box=box)
 
 
 # ---------------------------------------------------------------------------
