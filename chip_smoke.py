@@ -19,10 +19,16 @@ the main paths through ``plan(...).execute()`` and checks and times them:
     ``execute_or_replan``, for the packed+compacted X-pencil and for
     All-in-SM (whose sub-box follows the grown ``m_c``);
   * the reference strategies (Par-Part, Par-Cell, All-in-SM, compacted and
-    not) at division 12 and 8 against the O(N^2) oracle.
+    not) at division 12 and 8 against the O(N^2) oracle;
+  * the SFC cluster layout (kernels A and F, ``strategy="cell_dense",
+    layout="sfc"``) on both dense scenes and on the blob, and a plan sized
+    on the blob, run on the uniform scene through ``execute_or_replan``,
+    whose ``pair_cap`` grows.
 
 Per particle, the compacted and packed paths and kernel E must equal the
-dense X-pencil path (kernel B) bit for bit. Any failed check raises, so the
+dense X-pencil path (kernel B) bit for bit; kernel F sums in another order
+than B, so it is held to B by the per-element tolerance, and to itself bit
+for bit whatever the clustering. Any failed check raises, so the
 exit code is non-zero. Without a CUDA device it exits 2 and prints no
 result.
 
@@ -64,6 +70,8 @@ DENSE_CASES = ((64, 4, False), (32, 10, True))   # division, per cell, periodic
 PACKED_CASE = (64, 4)                             # division, per cell
 BLOB_CASE = (64, 131_072, 0.1)                    # division, N, sigma_frac
 CHECK_DIVISION = 16
+SFC_CLUSTERINGS = ((4, "morton"), (8, "hilbert"))   # csize, curve
+SFC_PLAIN_BATCH = 2048           # clusters per chunk of F's plain version
 
 
 def log(*args):
@@ -161,6 +169,30 @@ def dense_read_bytes(bins, rows=None) -> int:
     return 4 * sid.numel() + 12 * int((sid >= 0).sum())
 
 
+def kernel_f_bytes(dom, bins, sfc) -> int:
+    """Bytes kernel F must move for this pair list: the slots of every
+    padded cell its kept codes read, as targets or sources (4 B of slot_id
+    each, 12 B of x, y, z for a particle), the kept codes with their
+    csize source bases, every cluster's target bases, and the tiles
+    written once (16 B a slot)."""
+    from repro_torch.core.binning import sfc_device_tables
+    tables = sfc_device_tables(dom, sfc.csize, sfc.curve, bins.slot_id.device)
+    n_pcells = bins.slot_id.numel() // bins.m_c
+    n_clusters = tables["tgt_pcell"].shape[0]
+    codes = sfc.codes[:min(int(sfc.n_pairs), sfc.pair_cap)].long()
+    a, k = codes >> 5, codes & 31
+    touched = torch.zeros(n_pcells + 1, dtype=torch.bool,
+                          device=codes.device)
+    touched[tables["src_pcell"][a, k].long().reshape(-1)] = True
+    touched[tables["tgt_pcell"][a].long().reshape(-1)] = True
+    touched = touched[:n_pcells]
+    occupied = (bins.slot_id.view(n_pcells, bins.m_c) >= 0).sum(-1)
+    return (4 * bins.m_c * int(touched.sum())
+            + 12 * int(occupied[touched].sum())
+            + 4 * (1 + sfc.csize) * codes.numel() + 4 * sfc.csize * n_clusters
+            + 16 * n_clusters * sfc.csize * bins.m_c)
+
+
 def shapes(d: int, width: str, out: str, **sizes) -> str:
     """The planes a kernel reads and the outputs it writes at division
     ``d``, for the kernels line."""
@@ -193,8 +225,12 @@ def main(argv=None) -> int:
                                   scenarios, suggest_m_c, suggest_row_cap)
     from repro_torch.core import prefix as plain_prefix
     from repro_torch.core import strategies as S
-    from repro_torch.core.binning import (bin_particles, dense_to_particles,
-                                          packed_to_particles, scatter_rows)
+    from repro_torch.core.binning import (bin_particles, build_sfc_clusters,
+                                          dense_to_particles,
+                                          packed_to_particles, scatter_rows,
+                                          sfc_device_slot_tables,
+                                          sfc_n_clusters, sfc_pair_count,
+                                          sfc_to_particles)
     from repro_torch.core.interactions import PairKernel
     from repro_torch.kernels import _build
     from repro_torch.kernels.allin import allin_forces, halo_bytes
@@ -202,6 +238,7 @@ def main(argv=None) -> int:
                                          xpencil_packed_interactions,
                                          xpencil_sparse_interactions)
     from repro_torch.kernels.prefix_sum import prefix_sum
+    from repro_torch.kernels.sfc import cell_sfc_forces
     from repro_torch.kernels.xpencil import (xpencil_forces,
                                              xpencil_packed_forces,
                                              xpencil_sparse_forces)
@@ -209,7 +246,8 @@ def main(argv=None) -> int:
     wrappers = {"prefix_sum": prefix_sum, "xpencil_forces": xpencil_forces,
                 "xpencil_sparse_forces": xpencil_sparse_forces,
                 "xpencil_packed_forces": xpencil_packed_forces,
-                "allin_forces": allin_forces}
+                "allin_forces": allin_forces,
+                "cell_sfc_forces": cell_sfc_forces}
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -325,6 +363,24 @@ def main(argv=None) -> int:
                 *args[1:], rows, nx=nx, ny=ny, m_c=packed.m_c, kernel=k,
                 cutoff2=1.0))
 
+    def sfc_tiles(dom, bins, sfc, kern, plain=False):
+        """Kernel F, or its plain version, over the pair list ``sfc``."""
+        tgt, src = sfc_device_slot_tables(dom, bins.m_c, sfc.csize, sfc.curve,
+                                          dev)
+        if plain:
+            return S.cell_sfc_tiles(
+                bins.planes["x"], bins.planes["y"], bins.planes["z"],
+                bins.slot_id, sfc.codes, tgt, src, m_c=bins.m_c, kernel=kern,
+                cutoff2=1.0, batch_size=SFC_PLAIN_BATCH)
+        return cell_sfc_forces(bins.planes, bins.slot_id, sfc.codes, tgt, src,
+                               m_c=bins.m_c, kernel=kern, cutoff2=1.0)
+
+    def check_kernel_f(dom, bins, sfc, name, kern, label):
+        return check_kernel(
+            f"cell_sfc csize {sfc.csize} {sfc.curve} {label}", name, kern,
+            lambda k: sfc_tiles(dom, bins, sfc, k),
+            lambda k: sfc_tiles(dom, bins, sfc, k, plain=True))
+
     def reset_launches():
         for w in wrappers.values():
             w.launches = 0
@@ -374,6 +430,7 @@ def main(argv=None) -> int:
                "low_flop": make_low_flop(), "high_flop": make_high_flop(),
                "gravity": make_gravity(), "sph_density": make_sph_density(1.0)}
     xp_checks = sp_checks = pk_checks = ident_checks = al_checks = 0
+    sfc_checks = sfc_ident_checks = 0
     div = CHECK_DIVISION
     for periodic in (False, True):
         dom = Domain.cubic(div, cutoff=1.0, periodic=periodic)
@@ -419,6 +476,25 @@ def main(argv=None) -> int:
             check_kernel_d(dom, hpacked, hocc.active, name, kern,
                            f"{label} half-empty")
             pk_checks += 8
+            # kernel F at two clusterings; per particle its bits do not
+            # depend on the curve, csize or pair_cap
+            f_runs = []
+            for csize, curve in (*SFC_CLUSTERINGS, (1, "morton")):
+                n_pairs = sfc_pair_count(dom, counts=bins.counts, csize=csize,
+                                         curve=curve)
+                for cap in (n_pairs, sfc_n_clusters(dom, csize) * 27):
+                    sfc = build_sfc_clusters(dom, bins, cap, csize, curve)
+                    if (csize, curve) in SFC_CLUSTERINGS and cap == n_pairs:
+                        tiles = check_kernel_f(dom, bins, sfc, name, kern,
+                                               label)[0]
+                        sfc_checks += 4
+                    else:
+                        tiles = sfc_tiles(dom, bins, sfc, kern)
+                    f_runs.append(sfc_to_particles(dom, sfc, *tiles))
+            for run in f_runs[1:]:
+                assert_equal_results(run, f_runs[0], f"kernel F clusterings, "
+                                     f"{name} {label}")
+                sfc_ident_checks += 1
             # per particle, on the card: B = C = D = D over active rows
             for b_, p_, occ_max in ((bins, packed, div * div),
                                     (hbins, hpacked, div * div)):
@@ -437,6 +513,11 @@ def main(argv=None) -> int:
         f"{sp_checks} + {pk_checks} + {al_checks} checks; E at boxes "
         f"{list(boxes)}); C and D per particle (every row and active rows) "
         f"and E per slot equal B bit for bit ({ident_checks} checks)")
+    log(f"kernel F: 5 pair kernels x open/periodic at division {div}, "
+        f"(csize, curve) {list(SFC_CLUSTERINGS)}, within tolerance of its "
+        f"plain version ({sfc_checks} checks); per particle the same bits at "
+        f"csize 1, 4, 8, Morton and Hilbert, pair_cap n_pairs and "
+        f"n_clusters * 27 ({sfc_ident_checks} checks)")
 
     # -- plan/execute against the O(N^2) oracle on the card ------------------
     for periodic in (False, True):
@@ -492,9 +573,10 @@ def main(argv=None) -> int:
     log("strategy matrix vs naive_n2 (scale-relative 3e-4; compact = dense "
         "bit for bit for cell_dense and allin): " + json.dumps(matrix))
 
-    def reference_checks(p, state, f, u, what, periodic):
+    def reference_checks(p, state, f, u, what, periodic, also=()):
         """The result of plan ``p`` against the ``"reference"`` backend of
-        the same plan, per particle within 1e-4 of its own term sizes and
+        the same plan, and against each ``(label, (forces, potential))`` of
+        ``also``, per particle within 1e-4 of its own term sizes and
         scale-relative 3e-4; net force ~ 0 in an open box. -> (scale errors,
         term errors, pairs within the cutoff)."""
         ref = dataclasses.replace(p, backend="reference")
@@ -507,6 +589,13 @@ def main(argv=None) -> int:
                                    f"{what} forces vs reference", 1e-4)
         term_u = assert_term_close(u, ru, usize,
                                    f"{what} potential vs reference", 1e-4)
+        for label, (af, au) in also:
+            assert_scale_close(f, af, f"{what} forces vs {label}")
+            assert_scale_close(u, au, f"{what} potential vs {label}")
+            assert_term_close(f, af, fsize[:, None],
+                              f"{what} forces vs {label}", 1e-4)
+            assert_term_close(u, au, usize, f"{what} potential vs {label}",
+                              1e-4)
         within = int(dataclasses.replace(ref, kernel=PairKernel(
             "pairs_in_cutoff", torch.zeros_like, torch.ones_like,
             flops=0)).execute(state)[1].sum(dtype=torch.float64))
@@ -533,8 +622,62 @@ def main(argv=None) -> int:
             raise AssertionError(f"{what}: non-finite output")
         return f, u, launches
 
+    def sfc_case(dom, kern, pos, state, bins, dense_out, label, periodic,
+                 reps=10):
+        """Main case (d): ``layout="sfc"`` on a scene whose bins and dense
+        X-pencil result ``dense_out`` are given; kernel F against its plain
+        version, and F and B timed in turns on the same bins. -> record."""
+        ps = plan(dom, kern, positions=pos, strategy="cell_dense",
+                  layout="sfc")
+        fs, us, launches = run_main(ps, state, f"sfc {label}",
+                                    ("prefix_sum", "cell_sfc_forces"))
+        if launches["cell_sfc_forces"] != 1 or ps.m_c != bins.m_c:
+            raise AssertionError(f"sfc {label}: {launches}, m_c {ps.m_c} vs "
+                                 f"{bins.m_c}")
+        errs, terms, within = reference_checks(
+            dataclasses.replace(ps, batch_size=SFC_PLAIN_BATCH), state, fs, us,
+            f"sfc {label}", periodic, also=[("dense X-pencil path",
+                                             dense_out)])
+        sfc = ps.clusters(bins)
+        if bool(sfc.overflowed):
+            raise AssertionError(f"sfc {label}: pair list overflowed")
+        kf, _, plain_ms, _, abs_err, term_err = check_kernel_f(
+            dom, bins, sfc, "lennard_jones", kern, label)
+        turns = {"B": [], "F": []}
+        for which in ("B", "F", "F", "B"):        # in turns on the same bins
+            turns[which].append(cuda_ms(
+                (lambda: xpencil_forces(bins.planes, bins.slot_id, nx=dom.nx,
+                                        m_c=bins.m_c, kernel=kern,
+                                        cutoff2=1.0)) if which == "B" else
+                (lambda: sfc_tiles(dom, bins, sfc, kern)), reps))
+        b_ms, f_ms = (statistics.mean(turns[k]) for k in ("B", "F"))
+        f_bound_ms, f_bound_by = bound(
+            kernel_f_bytes(dom, bins, sfc),
+            candidate_pairs(dom, bins.counts) * DIST_FLOPS
+            + within * kern.flops)
+        return dict(
+            case=f"sfc {label}", n=pos.shape[0], m_c=ps.m_c, csize=sfc.csize,
+            curve=sfc.curve, n_clusters=sfc_n_clusters(dom, sfc.csize),
+            pair_cap=ps.pair_cap, n_pairs=int(sfc.n_pairs),
+            launches=launches,
+            execute_ms=cuda_ms(lambda: ps.execute(state), reps),
+            pair_list_ms=cuda_ms(lambda: ps.clusters(bins), reps),
+            kernel_f_ms=f_ms, kernel_f_ms_turns=turns["F"],
+            kernel_b_ms=b_ms, kernel_b_ms_turns=turns["B"],
+            f_over_b=f_ms / b_ms,
+            to_particles_ms=cuda_ms(lambda: sfc_to_particles(dom, sfc, *kf),
+                                    reps),
+            kernel_f_plain_ms=plain_ms, kernel_f_bound_ms=f_bound_ms,
+            kernel_f_bound_by=f_bound_by,
+            candidate_pairs=candidate_pairs(dom, bins.counts),
+            pairs_in_cutoff=within, kernel_f_max_abs_err=abs_err,
+            kernel_f_term_rel_err=term_err, forces_vs_reference=errs[0],
+            potential_vs_reference=errs[1], forces_term_rel_err=terms[0],
+            potential_term_rel_err=terms[1])
+
     # -- the dense main path at full size -------------------------------------
     results = []
+    sfc_results = []
     for division, ppc, periodic in DENSE_CASES:
         dom = Domain.cubic(division, cutoff=1.0, periodic=periodic)
         n = division ** 3 * ppc
@@ -622,6 +765,12 @@ def main(argv=None) -> int:
                    allin_term_rel_err=e_term_err)
         results.append(res)
         log("main path: " + json.dumps(res))
+
+        # main case (d): the SFC cluster layout on the same particles
+        sfc_results.append(sfc_case(dom, kern, pos, state, bins, (f, u),
+                                    label, periodic))
+        sfc_checks += 4
+        log("main path (d): " + json.dumps(sfc_results[-1]))
     dense_main = results[0]
 
     # -- the packed and compacted main paths at full size ----------------------
@@ -775,6 +924,10 @@ def main(argv=None) -> int:
         packed_forces_term_rel_err=terms_d[0],
         packed_potential_term_rel_err=terms_d[1])
     log("main path: " + json.dumps(new_cases["b"]))
+    sfc_results.append(sfc_case(dom, kern, pos_b, state_b, bins_b, dense_b,
+                                f"blob div {division}", False))
+    sfc_checks += 4
+    log("main path (d): " + json.dumps(sfc_results[-1]))
 
     # -- replan on the card: a plan sized on the uniform scene, run on the blob
     pu = plan(dom, kern, positions=pos_u, layout="packed", compact=True)
@@ -816,7 +969,30 @@ def main(argv=None) -> int:
         f"{halo_bytes(pe1.box, pe1.m_c)} B of shared memory), launches "
         f"{launches_r}; result equals the dense X-pencil path's")
 
+    # an sfc plan sized on the blob, run on the uniform scene: pair_cap grows
+    ps0 = plan(dom, kern, positions=pos_b, strategy="cell_dense",
+               layout="sfc")
+    reset_launches()
+    (f, u), ps1 = ps0.execute_or_replan(state_u)
+    torch.cuda.synchronize()
+    launches_r = launch_counts()
+    if not (int(cell_counts(dom, pos_u).max()) <= ps0.m_c == ps1.m_c
+            and ps1.pair_cap > ps0.pair_cap
+            and ps1.pair_cap >= sfc_pair_count(dom, pos_u)
+            and launches_r.get("cell_sfc_forces") == 1):
+        raise AssertionError(f"sfc replan: m_c {ps0.m_c} -> {ps1.m_c}, "
+                             f"pair_cap {ps0.pair_cap} -> {ps1.pair_cap}, "
+                             f"launches {launches_r}")
+    assert_equal_results((f, u), plan(dom, kern, m_c=ps1.m_c,
+                                      strategy="cell_dense", layout="sfc",
+                                      pair_cap=ps1.pair_cap).execute(state_u),
+                         "replanned sfc vs a fresh plan, uniform")
+    log(f"sfc replan: a plan sized on the blob, on the uniform scene: "
+        f"pair_cap {ps0.pair_cap} -> {ps1.pair_cap}, m_c {ps0.m_c} kept, "
+        f"launches {launches_r}; result equals a fresh plan's")
+
     a, b = new_cases["a"], new_cases["b"]
+    sfc_main = sfc_results[0]
     report = {"kernels": [
         {"name": "prefix_sum", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/prefix_sum.cu",
@@ -880,6 +1056,24 @@ def main(argv=None) -> int:
                           smem_bytes=dense_main["allin_smem_bytes"]),
          "max_term_rel_err": dense_main["allin_term_rel_err"],
          "checks_passed": al_checks},
+        {"name": "cell_sfc_forces", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/sfc.cu",
+         "replaces": "src/repro/kernels/sfc.py:139",
+         "launches": sfc_main["launches"]["cell_sfc_forces"],
+         "main_case": sfc_main["case"],
+         "max_abs_err": sfc_main["kernel_f_max_abs_err"],
+         "ms": sfc_main["kernel_f_ms"],
+         "plain_ms": sfc_main["kernel_f_plain_ms"],
+         "bound_ms": sfc_main["kernel_f_bound_ms"],
+         "bound_by": sfc_main["kernel_f_bound_by"], "library_ms": None,
+         "shapes": shapes(dense_main["division"], "(d+2)*m_c",
+                          "(n_clusters, csize*m_c)", m_c=sfc_main["m_c"],
+                          csize=sfc_main["csize"],
+                          n_clusters=sfc_main["n_clusters"],
+                          pair_cap=sfc_main["pair_cap"],
+                          n_pairs=sfc_main["n_pairs"]),
+         "max_term_rel_err": sfc_main["kernel_f_term_rel_err"],
+         "checks_passed": sfc_checks},
     ]}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(report))

@@ -1,5 +1,6 @@
-"""PyTorch/CUDA port of ``repro``: the X-pencil force evaluation, dense,
-occupancy-compacted and packed-row.
+"""PyTorch/CUDA port of ``repro``: the cutoff force evaluation by the
+paper's schedules (X-pencil dense, occupancy-compacted and packed-row,
+All-in-SM, Par-Part, Par-Cell) and Par-Cell over SFC cell clusters.
 
     from repro_torch.core import Domain, ParticleState, plan
     p = plan(domain, kernel, positions=pos)          # runs on the CUDA card

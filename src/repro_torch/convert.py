@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from .core.api import ParticleState
-from .core.binning import CellBins, Occupancy, PackedRows
+from .core.binning import CellBins, Occupancy, PackedRows, SfcClusters
 from .core.domain import Domain
 from .core.interactions import (PairKernel, make_gravity, make_high_flop,
                                 make_lennard_jones, make_low_flop,
@@ -86,3 +86,10 @@ def occupancy_to_numpy(occ: Occupancy) -> Dict[str, np.ndarray]:
             "active": occ.active.cpu().numpy(),
             "n_active": occ.n_active.cpu().numpy(),
             "scatter_indices": occ.scatter_indices().cpu().numpy()}
+
+
+def sfc_to_numpy(sfc: SfcClusters) -> Dict[str, np.ndarray]:
+    """The pair list's arrays as numpy (the bins: :func:`bins_to_numpy`)."""
+    return {"codes": sfc.codes.cpu().numpy(),
+            "n_pairs": sfc.n_pairs.cpu().numpy(),
+            "cluster_counts": sfc.cluster_counts.cpu().numpy()}

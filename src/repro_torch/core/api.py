@@ -6,8 +6,9 @@
 
 Strategies: ``par_part``, ``cell_dense``, ``xpencil``, ``allin`` and the
 ``naive_n2`` oracle. The ``"cuda"`` backend runs ``xpencil`` (dense,
-compacted, packed) and ``allin`` (dense only), as the JAX package's
-``"pallas"`` backend does; ``"reference"`` runs every strategy.
+compacted, packed), ``allin`` (dense only) and ``cell_dense`` in the SFC
+cluster layout (``layout="sfc"``), as the JAX package's ``"pallas"``
+backend does; ``"reference"`` runs every strategy.
 
 ``plan`` runs on the CUDA device unless the caller passes ``device="cpu"``;
 with no visible card it raises instead of falling back. On the CPU the
@@ -16,14 +17,15 @@ because the tensors they are given lie on the CPU.
 
 The backend registry maps ``(backend, strategy, layout)`` to one normalized
 signature ``(plan, layout_data, state) -> (forces (N,3), pot (N,))``, where
-the layout data is a ``CellBins`` ("dense") or a ``PackedRows``
-("packed"). It is the port's own registry: the JAX package's registry is
-never touched. This module registers the ``"reference"`` backends;
-``repro_torch.kernels`` registers the ``"cuda"`` ones.
+the layout data is a ``CellBins`` ("dense"), a ``PackedRows`` ("packed")
+or an ``SfcClusters`` ("sfc"). It is the port's own registry: the JAX
+package's registry is never touched. This module registers the
+``"reference"`` backends; ``repro_torch.kernels`` registers the ``"cuda"``
+ones.
 
-Every static bound (``m_c``, ``max_active``, ``row_cap``) follows one
-replan contract, stated on :meth:`InteractionPlan.replan`; the ``allin``
-sub-box ``box`` follows ``m_c``.
+Every static bound (``m_c``, ``max_active``, ``row_cap``, ``pair_cap``)
+follows one replan contract, stated on :meth:`InteractionPlan.replan`; the
+``allin`` sub-box ``box`` follows ``m_c``.
 """
 
 from __future__ import annotations
@@ -35,31 +37,34 @@ import torch
 
 from . import strategies as S
 from ._device import resolve_device
-from .binning import (CellBins, PackedRows, bin_particles, cell_counts,
-                      dense_to_particles, full_pencil_occupancy, pack_rows,
-                      packed_to_particles, padded_row_counts, pencil_counts,
-                      pencil_occupancy, subbox_counts, subbox_occupancy)
+from .binning import (CellBins, PackedRows, SfcClusters, bin_particles,
+                      build_sfc_clusters, cell_counts, dense_to_particles,
+                      full_pencil_occupancy, pack_rows, packed_to_particles,
+                      padded_row_counts, pencil_counts, pencil_occupancy,
+                      sfc_n_clusters, sfc_pair_count, sfc_to_particles,
+                      subbox_counts, subbox_occupancy)
 from .domain import Domain
 from .interactions import PairKernel, make_lennard_jones
 
 STRATEGY_NAMES = ("par_part", "cell_dense", "xpencil", "allin")
 CELL_SCHEDULES = ("cell_dense", "xpencil", "allin")   # have compact=True
-LAYOUT_NAMES = ("dense", "packed")
+LAYOUT_NAMES = ("dense", "packed", "sfc")
 
 # What the JAX package has and this port does not yet, with the ROADMAP.md
 # Queue 1 item that ports it. Asking for one raises; nothing runs instead.
 _NOT_PORTED = {
     "strategy": {"auto": 8, "autotune": 8},
     "backend": {"halo": 11},
-    "layout": {"sfc": 6},
 }
 
 
-def _not_ported(option: str, value) -> ValueError:
-    item = _NOT_PORTED[option][value]
-    return ValueError(
-        f"{option}={value!r} is not ported to repro_torch yet "
-        f"(ROADMAP.md Queue 1 item {item})")
+def _check_ported(strategy: str, backend: str) -> None:
+    for option, value in (("strategy", strategy), ("backend", backend)):
+        item = _NOT_PORTED[option].get(value)
+        if item is not None:
+            raise ValueError(
+                f"{option}={value!r} is not ported to repro_torch yet "
+                f"(ROADMAP.md Queue 1 item {item})")
 
 
 # --------------------------------------------------------------------------
@@ -164,18 +169,16 @@ class InteractionPlan:
     device: torch.device = torch.device("cuda")
     compact: bool = False             # occupancy-compacted path
     max_active: Optional[int] = None  # static active-unit bound
-    layout: str = "dense"             # dense | packed
+    layout: str = "dense"             # dense | packed | sfc
     row_cap: Optional[int] = None     # static packed-row bound
     box: Optional[Tuple[int, int, int]] = None   # allin sub-box (bx, by, bz)
+    pair_cap: Optional[int] = None    # static sfc pair-list bound
 
     def __post_init__(self):
-        if self.strategy in _NOT_PORTED["strategy"]:
-            raise _not_ported("strategy", self.strategy)
+        _check_ported(self.strategy, self.backend)
         if self.strategy not in ("naive_n2", *STRATEGY_NAMES):
             raise ValueError(f"unknown strategy {self.strategy!r}; have "
                              f"{list(STRATEGY_NAMES)} + ['naive_n2']")
-        if self.backend in _NOT_PORTED["backend"]:
-            raise _not_ported("backend", self.backend)
         if self.backend == "cuda" and self.kernel.cuda is None:
             raise ValueError(
                 f"pair kernel {self.kernel.name!r} has no CUDA form; use "
@@ -191,8 +194,6 @@ class InteractionPlan:
                 raise ValueError(
                     "compact=True needs a positive static max_active bound "
                     "(plan(..., positions=...) measures one)")
-        if self.layout in _NOT_PORTED["layout"]:
-            raise _not_ported("layout", self.layout)
         if self.layout not in LAYOUT_NAMES:
             raise ValueError(
                 f"unknown layout {self.layout!r}; have {LAYOUT_NAMES}")
@@ -204,6 +205,16 @@ class InteractionPlan:
             if not self.row_cap or self.row_cap < 1:
                 raise ValueError(
                     'layout="packed" needs a positive static row_cap bound '
+                    "(plan(..., positions=...) measures one)")
+        if self.layout == "sfc":
+            if self.strategy not in S.SFC_STRATEGIES:
+                raise ValueError(
+                    f'layout="sfc" is not defined for '
+                    f"{self.strategy!r}; sfc strategies: "
+                    f"{sorted(S.SFC_STRATEGIES)}")
+            if not self.pair_cap or self.pair_cap < 1:
+                raise ValueError(
+                    'layout="sfc" needs a positive static pair_cap bound '
                     "(plan(..., positions=...) measures one)")
         object.__setattr__(self, "device", resolve_device(self.device))
 
@@ -228,6 +239,9 @@ class InteractionPlan:
         if self.layout == "packed":
             return get_backend(self.backend, self.strategy, "packed")(
                 self, self.pack(bins), state)
+        if self.layout == "sfc":
+            return get_backend(self.backend, self.strategy, "sfc")(
+                self, self.clusters(bins), state)
         return get_backend(self.backend, self.strategy)(self, bins, state)
 
     __call__ = execute
@@ -238,6 +252,9 @@ class InteractionPlan:
 
     def pack(self, bins: CellBins) -> PackedRows:
         return pack_rows(self.domain, bins, row_cap=self.row_cap)
+
+    def clusters(self, bins: CellBins) -> SfcClusters:
+        return build_sfc_clusters(self.domain, bins, pair_cap=self.pair_cap)
 
     # -- the replan contract -------------------------------------------------
 
@@ -250,8 +267,9 @@ class InteractionPlan:
 
     def overflow_class(self, state: ParticleState) -> Optional[str]:
         """Which static bound these positions breach, ``"m_c"``,
-        ``"row_cap"`` or ``"max_active"`` (checked in that order), or None
-        when every bound holds. One binning pass; waits for the device."""
+        ``"row_cap"``, ``"pair_cap"`` or ``"max_active"`` (checked in that
+        order), or None when every bound holds. One binning pass; waits for
+        the device."""
         counts = cell_counts(self.domain, state.positions, state.valid)
         if int(counts.max()) > self.m_c:
             return "m_c"
@@ -259,6 +277,9 @@ class InteractionPlan:
             if int(padded_row_counts(self.domain, counts).max()) > \
                     self.row_cap:
                 return "row_cap"
+        if self.layout == "sfc":
+            if sfc_pair_count(self.domain, counts=counts) > self.pair_cap:
+                return "pair_cap"
         if self.compact:
             if active_unit_count(self.domain, state.positions, self.strategy,
                                  box=self.box, counts=counts) > \
@@ -278,7 +299,9 @@ class InteractionPlan:
         * ``max_active``: active work units (pencils, or ``allin``
           sub-boxes) of a compacted plan (``suggest_max_active``),
         * ``row_cap``: particles per padded pencil row of a
-          ``layout="packed"`` plan (``suggest_row_cap``).
+          ``layout="packed"`` plan (``suggest_row_cap``),
+        * ``pair_cap``: length of the compressed cluster-pair list of a
+          ``layout="sfc"`` plan (``suggest_pair_cap``).
 
         An exceeded bound makes results silently drop interactions, so
         ``check_overflow`` detects it from one binning pass, and this method
@@ -286,9 +309,9 @@ class InteractionPlan:
         strictly past its old value. Derived statics follow their inputs:
         the ``allin`` sub-box is recomputed whenever ``m_c`` changes, and a
         compacted ``allin`` plan re-measures ``max_active`` against the new
-        tiling. ``row_cap`` depends only on the positions, so it never moves
-        when ``m_c`` does. Padding rows (``state.valid`` False) are excluded
-        from every measure."""
+        tiling. ``row_cap`` and ``pair_cap`` depend only on the positions,
+        so they never move when ``m_c`` does. Padding rows (``state.valid``
+        False) are excluded from every measure."""
         counts = cell_counts(self.domain, state.positions, state.valid)
         m_c = self.m_c
         mx_cell = int(counts.max())
@@ -306,6 +329,13 @@ class InteractionPlan:
                 row_cap = max(suggest_row_cap(self.domain, state.positions,
                                               align=align, counts=counts),
                               grow)
+        pair_cap = self.pair_cap
+        if self.layout == "sfc":
+            n_pairs = sfc_pair_count(self.domain, counts=counts)
+            if n_pairs > pair_cap:
+                grow = -(-(pair_cap + 1) // align) * align
+                pair_cap = max(suggest_pair_cap(self.domain, align=align,
+                                                counts=counts), grow, n_pairs)
         max_active = self.max_active
         if self.compact:
             if self.strategy == "allin" and box is None:
@@ -319,7 +349,8 @@ class InteractionPlan:
                     self.domain, state.positions, self.strategy, box=box,
                     align=align, counts=counts), n_act)
         return dataclasses.replace(self, m_c=m_c, box=box,
-                                   max_active=max_active, row_cap=row_cap)
+                                   max_active=max_active, row_cap=row_cap,
+                                   pair_cap=pair_cap)
 
     def execute_or_replan(self, state: ParticleState
                           ) -> Tuple[Tuple[torch.Tensor, torch.Tensor],
@@ -339,11 +370,13 @@ def plan(domain: Domain, kernel: Optional[PairKernel] = None, *,
          batch_size: int = 64, device=None, compact: bool = False,
          max_active: Optional[int] = None, layout: str = "dense",
          row_cap: Optional[int] = None,
-         box: Optional[Tuple[int, int, int]] = None) -> InteractionPlan:
+         box: Optional[Tuple[int, int, int]] = None,
+         pair_cap: Optional[int] = None) -> InteractionPlan:
     """Build an :class:`InteractionPlan`.
 
     Every bound taken or measured here (``m_c``, ``max_active``,
-    ``row_cap``) obeys the replan contract of :meth:`InteractionPlan.replan`.
+    ``row_cap``, ``pair_cap``) obeys the replan contract of
+    :meth:`InteractionPlan.replan`.
 
     Args:
       domain: the cell grid.
@@ -353,9 +386,10 @@ def plan(domain: Domain, kernel: Optional[PairKernel] = None, *,
         with slack and rounded up to a multiple of 8 when omitted.
       strategy: ``"par_part"``, ``"cell_dense"``, ``"xpencil"``, ``"allin"``
         or the ``"naive_n2"`` oracle.
-      backend: ``"cuda"`` (hand-written kernels, for ``xpencil`` and
-        ``allin``; their plain PyTorch versions on CPU tensors) or
-        ``"reference"`` (plain PyTorch, every strategy).
+      backend: ``"cuda"`` (hand-written kernels, for ``xpencil``,
+        ``allin`` and ``cell_dense`` with ``layout="sfc"``; their plain
+        PyTorch versions on CPU tensors) or ``"reference"`` (plain PyTorch,
+        every strategy).
       device: ``None`` means the CUDA device, and raises when none is
         visible; ``"cpu"`` runs on the CPU.
       compact: occupancy-compacted execution: only the work units that
@@ -363,15 +397,23 @@ def plan(domain: Domain, kernel: Optional[PairKernel] = None, *,
         over active rows; ``allin`` sub-boxes on the reference backend).
       max_active: static active-unit bound for ``compact=True``; measured
         from ``positions`` with slack when omitted.
-      layout: ``"dense"`` (every cell owns ``m_c`` slots) or ``"packed"``
-        (CSR pencil rows under ``row_cap``, kernel D). Composes with
-        ``compact``; per-particle results equal the dense layout's.
+      layout: ``"dense"`` (every cell owns ``m_c`` slots), ``"packed"``
+        (CSR pencil rows under ``row_cap``, ``xpencil`` only, kernel D) or
+        ``"sfc"`` (cells in Morton order grouped into clusters of 4, and
+        only the (cluster, stencil slot) pairs that hold particles on both
+        sides, under ``pair_cap``; ``cell_dense`` only, kernel F). Packed
+        composes with ``compact``, which sfc accepts and ignores (its pair
+        list is already the compaction); per-particle results equal the
+        dense layout's.
       row_cap: static particles-per-packed-row bound for
         ``layout="packed"``; measured from ``positions`` with slack when
         omitted.
       box: ``allin`` sub-box (bx, by, bz); sized from a block's shared
         memory (``strategies.subbox_dims``) when omitted.
+      pair_cap: static compressed-pair-list bound for ``layout="sfc"``;
+        measured from ``positions`` with slack when omitted.
     """
+    _check_ported(strategy, backend)
     device = resolve_device(device)
     kernel = kernel or make_lennard_jones()
     if m_c is None:
@@ -385,6 +427,11 @@ def plan(domain: Domain, kernel: Optional[PairKernel] = None, *,
             raise ValueError('layout="packed" needs either row_cap or '
                              "positions (to measure the packed-row bound)")
         row_cap = suggest_row_cap(domain, positions)
+    if layout == "sfc" and strategy in S.SFC_STRATEGIES and pair_cap is None:
+        if positions is None:
+            raise ValueError('layout="sfc" needs either pair_cap or '
+                             "positions (to measure the pair-list bound)")
+        pair_cap = suggest_pair_cap(domain, positions)
     if compact and strategy in CELL_SCHEDULES:
         if not supports_compact(backend, strategy, layout):
             raise ValueError(f"backend {backend!r} has no compacted path for "
@@ -403,7 +450,8 @@ def plan(domain: Domain, kernel: Optional[PairKernel] = None, *,
                         strategy=strategy, backend=backend,
                         batch_size=batch_size, device=device,
                         compact=compact, max_active=max_active,
-                        layout=layout, row_cap=row_cap, box=box)
+                        layout=layout, row_cap=row_cap, box=box,
+                        pair_cap=pair_cap)
     if strategy != "naive_n2":
         get_backend(backend, strategy, layout)        # fail at plan time
     return p
@@ -479,6 +527,19 @@ def suggest_row_cap(domain: Domain, positions: torch.Tensor,
     return -(-cap // align) * align
 
 
+def suggest_pair_cap(domain: Domain, positions: Optional[torch.Tensor] = None,
+                     slack: float = 1.25, align: int = 8,
+                     counts: Optional[torch.Tensor] = None) -> int:
+    """Static ``pair_cap`` bound for ``layout="sfc"``: the compressed
+    cluster-pair list length (``binning.sfc_pair_count``) with slack,
+    rounded up to ``align``, clipped to the all-pairs total ``n_clusters *
+    27`` but never below the measured length."""
+    n_pairs = sfc_pair_count(domain, positions, counts=counts)
+    cap = max(1, int(n_pairs * slack + 0.999))
+    cap = -(-cap // align) * align
+    return max(min(cap, sfc_n_clusters(domain) * 27), n_pairs)
+
+
 # --------------------------------------------------------------------------
 # reference backend: the plain PyTorch schedules of core.strategies
 # --------------------------------------------------------------------------
@@ -530,3 +591,13 @@ def _ref_xpencil_packed(p: InteractionPlan, packed: PackedRows,
     out = S.xpencil_packed(p.domain, packed, p.kernel, occ,
                            batch_size=p.batch_size)
     return packed_to_particles(p.domain, packed, *out)
+
+
+@register_backend("reference", "cell_dense", compact=True, layout="sfc")
+def _ref_cell_sfc(p: InteractionPlan, sfc: SfcClusters,
+                  state: ParticleState):
+    """SFC clusters; ``compact=True`` changes nothing: the pair list is
+    already the occupancy compaction (empty neighbourhoods never enter
+    ``codes``)."""
+    out = S.cell_sfc(p.domain, sfc, p.kernel, batch_size=p.batch_size)
+    return sfc_to_particles(p.domain, sfc, *out)

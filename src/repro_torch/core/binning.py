@@ -29,8 +29,10 @@ package's. Where JAX's semantics do not carry over by themselves:
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .domain import Domain
@@ -297,17 +299,26 @@ class Occupancy:
         return self.n_active / max(self.n_units, 1)
 
 
+def _compact(flag: torch.Tensor, values: torch.Tensor, cap: int,
+             fill: int) -> torch.Tensor:
+    """(cap,) the ``values`` whose ``flag`` is set, in order, then ``fill``;
+    no host sync. A running count gives each flagged value its place, and
+    unflagged or overflowing values go to a dump slot that is cut off."""
+    place = torch.cumsum(flag.to(torch.int32), 0, dtype=torch.int32) - 1
+    dest = torch.where(flag & (place < cap), place,
+                       torch.full_like(place, cap)).long()
+    buf = torch.full((cap + 1,), fill, dtype=values.dtype,
+                     device=values.device)
+    buf[dest] = values
+    return buf[:cap]
+
+
 def _compact_active(unit_counts: torch.Tensor, max_active: int,
                     n_units: int) -> Occupancy:
     flag = unit_counts > 0
-    place = torch.cumsum(flag.to(torch.int32), 0, dtype=torch.int32) - 1
-    dest = torch.where(flag & (place < max_active), place,
-                       torch.full_like(place, max_active)).long()
-    buf = torch.zeros((max_active + 1,), dtype=torch.int32,
-                      device=unit_counts.device)
-    buf[dest] = torch.arange(n_units, dtype=torch.int32,
-                             device=unit_counts.device)
-    return Occupancy(unit_counts=unit_counts, active=buf[:max_active],
+    ids = torch.arange(n_units, dtype=torch.int32, device=unit_counts.device)
+    return Occupancy(unit_counts=unit_counts,
+                     active=_compact(flag, ids, max_active, 0),
                      n_active=flag.sum(dtype=torch.int32),
                      max_active=max_active, n_units=n_units)
 
@@ -529,4 +540,411 @@ def packed_to_particles(domain: Domain, packed: PackedRows, fx, fy, fz, pot
     (forces (N, 3), potential (N,)), the same contract as
     :func:`dense_to_particles`."""
     out = [unpack_scatter(domain, packed, p) for p in (fx, fy, fz, pot)]
+    return torch.stack(out[:3], dim=-1), out[3]
+
+
+# --------------------------------------------------------------------------
+# SFC cluster layout: curve-ordered cell clusters + compressed pair list
+# --------------------------------------------------------------------------
+#
+# Cells are ordered along a space-filling curve (Morton or Hilbert) and
+# grouped into clusters of ``csize`` consecutive cells; the per-step work
+# list is a compressed cluster-pair list: the kept (cluster, stencil slot k)
+# pairs as sorted ``cluster * 32 + k`` codes under a static ``pair_cap``
+# bound that follows the replan contract. The curve and cluster tables are
+# host numpy, as in JAX (the codecs are carried over verbatim); their
+# tensors are cached per device, so an ``execute()`` copies nothing from the
+# host. The pair list is built on the device with no host sync: the
+# candidates are enumerated cluster-major, k-minor, which is already their
+# sorted order, so the running-count compaction gives JAX's sorted codes.
+#
+# Bit identity with the dense Par-Cell schedule: each kept (cluster, k) pair
+# evaluates the per-cell m_c x m_c reduction ``cell_dense`` evaluates for
+# stencil slot k, accumulated in the same ascending-k order, and a dropped
+# pair's slab is empty. Dropping a pair is only possible through
+# ``pair_cap`` overflow, which ``SfcClusters.overflowed`` detects.
+
+DEFAULT_CSIZE = 4
+DEFAULT_CURVE = "morton"
+SFC_CURVES = ("morton", "hilbert")
+
+
+def morton_encode(ix, iy, iz, bits: int) -> np.ndarray:
+    """Interleave 3 coordinate arrays into Morton (Z-order) codes (host)."""
+    ix = np.asarray(ix, np.int64)
+    iy = np.asarray(iy, np.int64)
+    iz = np.asarray(iz, np.int64)
+    code = np.zeros(np.broadcast(ix, iy, iz).shape, np.int64)
+    for b in range(bits):
+        code |= ((ix >> b) & 1) << (3 * b)
+        code |= ((iy >> b) & 1) << (3 * b + 1)
+        code |= ((iz >> b) & 1) << (3 * b + 2)
+    return code
+
+
+def morton_decode(codes, bits: int) -> Tuple[np.ndarray, np.ndarray,
+                                             np.ndarray]:
+    """Inverse of :func:`morton_encode` (host)."""
+    codes = np.asarray(codes, np.int64)
+    ix = np.zeros(codes.shape, np.int64)
+    iy = np.zeros(codes.shape, np.int64)
+    iz = np.zeros(codes.shape, np.int64)
+    for b in range(bits):
+        ix |= ((codes >> (3 * b)) & 1) << b
+        iy |= ((codes >> (3 * b + 1)) & 1) << b
+        iz |= ((codes >> (3 * b + 2)) & 1) << b
+    return ix, iy, iz
+
+
+def _hilbert_axes_to_transpose(ix, iy, iz, bits: int):
+    """Skilling's AxesToTranspose, vectorized over numpy arrays."""
+    X = [np.array(ix, np.int64), np.array(iy, np.int64),
+         np.array(iz, np.int64)]
+    M = 1 << (bits - 1)
+    Q = M
+    while Q > 1:                       # inverse undo
+        P = Q - 1
+        for i in range(3):
+            cond = (X[i] & Q) != 0
+            t = (X[0] ^ X[i]) & P
+            x0 = np.where(cond, X[0] ^ P, X[0] ^ t)
+            X[i] = np.where(cond, X[i], X[i] ^ t)
+            X[0] = x0
+        Q >>= 1
+    for i in range(1, 3):              # Gray encode
+        X[i] = X[i] ^ X[i - 1]
+    t = np.zeros_like(X[0])
+    Q = M
+    while Q > 1:
+        t = np.where((X[2] & Q) != 0, t ^ (Q - 1), t)
+        Q >>= 1
+    return [x ^ t for x in X]
+
+
+def _hilbert_transpose_to_axes(X, bits: int):
+    """Skilling's TransposeToAxes (inverse of the above), vectorized."""
+    X = [np.array(x, np.int64) for x in X]
+    N = 2 << (bits - 1)
+    t = X[2] >> 1                      # Gray decode by H ^ (H/2)
+    for i in range(2, 0, -1):
+        X[i] = X[i] ^ X[i - 1]
+    X[0] = X[0] ^ t
+    Q = 2
+    while Q != N:                      # undo excess work
+        P = Q - 1
+        for i in range(2, -1, -1):
+            cond = (X[i] & Q) != 0
+            t = (X[0] ^ X[i]) & P
+            x0 = np.where(cond, X[0] ^ P, X[0] ^ t)
+            X[i] = np.where(cond, X[i], X[i] ^ t)
+            X[0] = x0
+        Q <<= 1
+    return X
+
+
+def hilbert_encode(ix, iy, iz, bits: int) -> np.ndarray:
+    """Hilbert-curve codes for 3-D coordinates (host, Skilling 2004)."""
+    X = _hilbert_axes_to_transpose(ix, iy, iz, bits)
+    code = np.zeros_like(X[0])
+    for b in range(bits - 1, -1, -1):  # X[0] most significant per bit-plane
+        for i in range(3):
+            code = (code << 1) | ((X[i] >> b) & 1)
+    return code
+
+
+def hilbert_decode(codes, bits: int) -> Tuple[np.ndarray, np.ndarray,
+                                              np.ndarray]:
+    """Inverse of :func:`hilbert_encode` (host)."""
+    codes = np.asarray(codes, np.int64)
+    X = [np.zeros(codes.shape, np.int64) for _ in range(3)]
+    for b in range(bits):
+        for i in range(3):
+            shift = 3 * b + (2 - i)
+            X[i] |= ((codes >> shift) & 1) << b
+    ix, iy, iz = _hilbert_transpose_to_axes(X, bits)
+    return ix, iy, iz
+
+
+def _curve_bits(nx: int, ny: int, nz: int) -> int:
+    return max(int(max(nx, ny, nz) - 1).bit_length(), 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class SfcTables:
+    """Static (host, geometry-only) cluster tables of an SFC layout.
+
+    ``order`` lists the cell ids along the curve; cluster ``a`` owns cells
+    ``order[a*csize:(a+1)*csize]`` (the last cluster is padded with the
+    sentinel cell -1). ``tgt_pcell``/``src_pcell`` hold *padded-grid* flat
+    cell indices: ``src_pcell[a, k, j]`` is cell j of cluster a shifted by
+    stencil offset k (``domain.neighbor_offsets()`` order, k = 13 is self);
+    sentinel cells map to ``n_pcells``, one past the padded grid, an
+    always-empty cell.
+    """
+
+    order: np.ndarray           # (n_cells,) cell ids in curve order
+    cell_cluster: np.ndarray    # (n_cells,) cluster id per cell
+    cell_pos: np.ndarray        # (n_cells,) position of cell in its cluster
+    cluster_cells: np.ndarray   # (n_clusters, csize) cell ids, -1 pad
+    tgt_pcell: np.ndarray       # (n_clusters, csize) padded flat cell
+    src_pcell: np.ndarray       # (n_clusters, 27, csize) padded flat cell
+    n_clusters: int
+    n_pcells: int
+
+
+@functools.lru_cache(maxsize=None)
+def sfc_cluster_tables(domain: Domain, csize: int = DEFAULT_CSIZE,
+                       curve: str = DEFAULT_CURVE) -> SfcTables:
+    """Build the static SFC cluster tables (cached per geometry)."""
+    if curve not in SFC_CURVES:
+        raise ValueError(f"unknown curve {curve!r}; have {SFC_CURVES}")
+    if csize < 1:
+        raise ValueError(f"csize must be >= 1, got {csize}")
+    nx, ny, nz = domain.ncells
+    n_cells = domain.n_cells
+    cid = np.arange(n_cells, dtype=np.int64)
+    ix, iy, iz = cid % nx, (cid // nx) % ny, cid // (nx * ny)
+    bits = _curve_bits(nx, ny, nz)
+    enc = morton_encode if curve == "morton" else hilbert_encode
+    codes = enc(ix, iy, iz, bits)
+    order = np.argsort(codes, kind="stable").astype(np.int32)
+
+    n_clusters = -(-n_cells // csize)
+    pos = np.arange(n_cells, dtype=np.int64)
+    cell_cluster = np.empty(n_cells, np.int32)
+    cell_pos = np.empty(n_cells, np.int32)
+    cell_cluster[order] = (pos // csize).astype(np.int32)
+    cell_pos[order] = (pos % csize).astype(np.int32)
+    cluster_cells = np.full((n_clusters * csize,), -1, np.int32)
+    cluster_cells[:n_cells] = order
+    cluster_cells = cluster_cells.reshape(n_clusters, csize)
+
+    n_pcells = (nz + 2) * (ny + 2) * (nx + 2)
+    pad = cluster_cells < 0
+    safe = np.where(pad, 0, cluster_cells).astype(np.int64)
+    cx, cy, cz = safe % nx, (safe // nx) % ny, safe // (nx * ny)
+
+    def pcell(jx, jy, jz):
+        return ((jz + 1) * (ny + 2) + (jy + 1)) * (nx + 2) + (jx + 1)
+
+    tgt_pcell = np.where(pad, n_pcells, pcell(cx, cy, cz)).astype(np.int32)
+    offs = domain.neighbor_offsets()                      # (27, 3) (dx,dy,dz)
+    src_pcell = np.empty((n_clusters, 27, csize), np.int64)
+    for k, (dx, dy, dz) in enumerate(offs):
+        src_pcell[:, k, :] = pcell(cx + dx, cy + dy, cz + dz)
+    src_pcell = np.where(pad[:, None, :], n_pcells,
+                         src_pcell).astype(np.int32)
+    return SfcTables(order=order, cell_cluster=cell_cluster,
+                     cell_pos=cell_pos, cluster_cells=cluster_cells,
+                     tgt_pcell=tgt_pcell, src_pcell=src_pcell,
+                     n_clusters=n_clusters, n_pcells=n_pcells)
+
+
+def sfc_n_clusters(domain: Domain, csize: int = DEFAULT_CSIZE) -> int:
+    return -(-domain.n_cells // csize)
+
+
+@functools.lru_cache(maxsize=None)
+def sfc_slot_tables(domain: Domain, m_c: int, csize: int = DEFAULT_CSIZE,
+                    curve: str = DEFAULT_CURVE
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """Flat *slot* base offsets of the cluster tables for a given ``m_c``:
+    ``(tgt_base (n_clusters, csize), src_base (n_clusters, 27, csize))``,
+    each ``pcell * m_c``, indexing the flattened padded planes; sentinel
+    cells land at ``n_pcells * m_c``, one past the planes."""
+    t = sfc_cluster_tables(domain, csize, curve)
+    tgt = (t.tgt_pcell.astype(np.int64) * m_c).astype(np.int32)
+    src = (t.src_pcell.astype(np.int64) * m_c).astype(np.int32)
+    return tgt, src
+
+
+@functools.lru_cache(maxsize=16)
+def sfc_device_tables(domain: Domain, csize: int, curve: str,
+                      device: torch.device) -> Dict[str, torch.Tensor]:
+    """The cluster tables as int32 tensors on ``device`` (cached): the
+    per-execute pair-list build and scatter-back read them from there."""
+    t = sfc_cluster_tables(domain, csize, curve)
+    return {name: torch.from_numpy(getattr(t, name)).to(device)
+            for name in ("tgt_pcell", "src_pcell", "cell_cluster",
+                         "cell_pos")}
+
+
+@functools.lru_cache(maxsize=16)
+def sfc_device_slot_tables(domain: Domain, m_c: int, csize: int, curve: str,
+                           device: torch.device
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`sfc_slot_tables` as int32 tensors on ``device`` (cached per
+    ``(domain, m_c, csize, curve, device)``). At division 64 ``src_base``
+    is 28 MB: a host-to-device copy of it in every ``execute()`` would cost
+    more than the force kernel and wait on the host."""
+    tgt, src = sfc_slot_tables(domain, m_c, csize, curve)
+    return torch.from_numpy(tgt).to(device), torch.from_numpy(src).to(device)
+
+
+def encode_pair_masks(masks: np.ndarray, pair_cap: int) -> np.ndarray:
+    """(n_clusters, 27) bool stencil bitmask -> sorted compressed codes.
+
+    Each kept pair becomes ``cluster * 32 + k`` (5 bits for the stencil
+    slot); codes are sorted ascending (cluster-major, k-minor, the
+    accumulation order of the dense Par-Cell sweep), padded to ``pair_cap``
+    with the sentinel ``n_clusters * 32`` and truncated on overflow (host
+    twin of the device encoder inside :func:`build_sfc_clusters`)."""
+    masks = np.asarray(masks, bool)
+    n_clusters = masks.shape[0]
+    a, k = np.nonzero(masks)
+    codes = np.sort(a.astype(np.int64) * 32 + k)
+    out = np.full((pair_cap,), n_clusters * 32, np.int32)
+    m = min(pair_cap, codes.size)
+    out[:m] = codes[:m]
+    return out
+
+
+def decode_pair_codes(codes: np.ndarray, n_clusters: int) -> np.ndarray:
+    """Sorted compressed codes -> (n_clusters, 27) bool bitmask (inverse
+    of :func:`encode_pair_masks` whenever no pair was truncated)."""
+    codes = np.asarray(codes, np.int64)
+    masks = np.zeros((n_clusters, 27), bool)
+    valid = (codes >= 0) & (codes < n_clusters * 32)
+    masks[codes[valid] >> 5, codes[valid] & 31] = True
+    return masks
+
+
+@dataclasses.dataclass
+class SfcClusters:
+    """SFC cluster layout state: dense bins + the compressed pair list.
+
+    ``codes`` is the sorted compressed cluster-pair list (see
+    :func:`encode_pair_masks`) under the static ``pair_cap`` bound;
+    ``n_pairs`` is the true pair count, and above ``pair_cap`` pairs were
+    truncated (:attr:`overflowed`; replan grows ``pair_cap``). The slot
+    data stays the dense ``CellBins`` planes: the pair list compresses the
+    schedule, so a cluster with no occupied stencil neighbourhood costs
+    nothing.
+    """
+
+    bins: CellBins                # dense slot planes the tiles are read from
+    codes: torch.Tensor           # (pair_cap,) int32 sorted pair codes
+    n_pairs: torch.Tensor         # () int32 true (untruncated) pair count
+    cluster_counts: torch.Tensor  # (n_clusters,) int32 particles per cluster
+    pair_cap: int
+    csize: int
+    curve: str
+
+    @property
+    def overflowed(self) -> torch.Tensor:
+        """True when pairs were truncated from ``codes`` (replan)."""
+        return self.n_pairs > self.pair_cap
+
+
+def build_sfc_clusters(domain: Domain, bins: CellBins, pair_cap: int,
+                       csize: int = DEFAULT_CSIZE,
+                       curve: str = DEFAULT_CURVE) -> SfcClusters:
+    """Build the compressed cluster-pair list from binned occupancy, on the
+    bins' device, with no host sync.
+
+    The bitmask is driven by *padded-cell slot occupancy* (``slot_id >=
+    0``), so periodic ghost copies and open (always-empty) ghosts follow
+    one rule: a (cluster, k) pair is kept iff the cluster holds a particle
+    and its k-shifted cells hold one.
+    """
+    dev = bins.slot_id.device
+    tables = sfc_device_tables(domain, csize, curve, dev)
+    n_clusters = tables["tgt_pcell"].shape[0]
+    nx, ny, nz = domain.ncells
+    occ = (bins.slot_id.view(nz + 2, ny + 2, nx + 2, bins.m_c) >= 0).sum(
+        -1, dtype=torch.int32).reshape(-1)
+    occ_ext = torch.cat([occ, occ.new_zeros(1)])
+    cluster_counts = occ_ext[tables["tgt_pcell"].long()].sum(
+        -1, dtype=torch.int32)
+    src_counts = occ_ext[tables["src_pcell"].long()].sum(-1, dtype=torch.int32)
+    bits = ((cluster_counts[:, None] > 0) & (src_counts > 0)).reshape(-1)
+    a = torch.arange(n_clusters, dtype=torch.int32, device=dev)
+    k = torch.arange(27, dtype=torch.int32, device=dev)
+    candidates = (a[:, None] * 32 + k).reshape(-1)
+    codes = _compact(bits, candidates, pair_cap, n_clusters * 32)
+    return SfcClusters(bins=bins, codes=codes,
+                       n_pairs=bits.sum(dtype=torch.int32),
+                       cluster_counts=cluster_counts, pair_cap=pair_cap,
+                       csize=csize, curve=curve)
+
+
+def _host(a) -> np.ndarray:
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def sfc_pair_count(domain: Domain, positions: Optional[torch.Tensor] = None,
+                   *, counts=None, csize: int = DEFAULT_CSIZE,
+                   curve: str = DEFAULT_CURVE, ghost_z=None) -> int:
+    """Host-side pair-list length probe (the ``pair_cap`` counterpart of
+    ``padded_row_counts``; waits for the device): padded-cell occupancy
+    rebuilt from interior cell counts (periodic ghosts copied in the x ->
+    y -> z order of the binning's ghost fill, so corners compose the same
+    way), then the bitmask rule of :func:`build_sfc_clusters`. It reads
+    counts, not slots, so it bounds the built ``n_pairs`` from above and
+    equals it whenever no cell overflows ``m_c``.
+
+    ``ghost_z``: optional ``(below, above)`` interior cell counts, each
+    ``(ny, nx)``, that override the Z ghost planes: the halo engine's
+    per-shard probe, where the Z ghosts come from neighbouring shards
+    instead of this domain's own periodic wrap. Their X/Y ghost columns
+    get the same periodic copies the exchanged planes carry."""
+    if counts is None:
+        if positions is None:
+            raise ValueError("sfc_pair_count needs positions or counts")
+        counts = cell_counts(domain, positions)
+    nx, ny, nz = domain.ncells
+    grid = _host(counts).reshape(nz, ny, nx)
+    occ = np.zeros((nz + 2, ny + 2, nx + 2), np.int64)
+    occ[1:nz + 1, 1:ny + 1, 1:nx + 1] = grid
+    px, py, pz = domain.periodic_axes
+    if ghost_z is not None:
+        below, above = ghost_z
+        occ[0, 1:ny + 1, 1:nx + 1] = _host(below).reshape(ny, nx)
+        occ[nz + 1, 1:ny + 1, 1:nx + 1] = _host(above).reshape(ny, nx)
+    if px:
+        occ[:, :, 0] = occ[:, :, nx]
+        occ[:, :, nx + 1] = occ[:, :, 1]
+    if py:
+        occ[:, 0, :] = occ[:, ny, :]
+        occ[:, ny + 1, :] = occ[:, 1, :]
+    if pz and ghost_z is None:
+        occ[0] = occ[nz]
+        occ[nz + 1] = occ[1]
+    t = sfc_cluster_tables(domain, csize, curve)
+    occ_ext = np.concatenate([occ.reshape(-1), np.zeros((1,), np.int64)])
+    cc = occ_ext[t.tgt_pcell].sum(-1)
+    sc = occ_ext[t.src_pcell].sum(-1)
+    return int(((cc[:, None] > 0) & (sc > 0)).sum())
+
+
+def sfc_to_particles(domain: Domain, sfc: SfcClusters, fx, fy, fz, pot
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SFC cluster-tile outputs ``(n_clusters, csize * m_c)`` -> per-particle
+    (forces (N, 3), potential (N,)), the same contract as
+    :func:`dense_to_particles`. A particle the binning dropped
+    (``particle_slot == total``) gets exactly 0."""
+    bins = sfc.bins
+    nx, ny, nz = domain.ncells
+    m_c, csize = bins.m_c, sfc.csize
+    tables = sfc_device_tables(domain, csize, sfc.curve, bins.slot_id.device)
+
+    # dense flat slot -> (z, y, cell x, rank) -> cluster-tile flat slot
+    row_len = (nx + 2) * m_c
+    ds = bins.particle_slot.long()
+    zp = ds // ((ny + 2) * row_len)
+    rem = ds % ((ny + 2) * row_len)
+    yp = rem // row_len
+    col = rem % row_len
+    cx = col // m_c - 1
+    r = col % m_c
+    iz, iy = zp - 1, yp - 1
+    # dropped particles (slot ``total``) fall outside the interior
+    valid = ((iz >= 0) & (iz < nz) & (iy >= 0) & (iy < ny)
+             & (cx >= 0) & (cx < nx))
+    cid = torch.where(valid, (iz * ny + iy) * nx + cx, 0)
+    cc = tables["cell_cluster"][cid].long()
+    cp = tables["cell_pos"][cid].long()
+    flat = torch.where(valid, cc * (csize * m_c) + cp * m_c + r, 0)
+    out = [torch.where(valid, plane.reshape(-1)[flat], 0.0)
+           for plane in (fx, fy, fz, pot)]
     return torch.stack(out[:3], dim=-1), out[3]

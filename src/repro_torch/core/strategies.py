@@ -18,16 +18,19 @@
                   scattered back into the dense planes.
   xpencil_packed  the X-pencil pair terms over packed (CSR) rows: each
                   target's window is re-expanded to the dense 3*m_c shape.
+  cell_sfc        Par-Cell over curve-ordered cell clusters, visiting only
+                  the kept (cluster, stencil slot) pairs of the compressed
+                  pair list (layout="sfc").
 
-``xpencil_planes``, ``xpencil_sparse_planes``, ``xpencil_packed_planes`` and
-``allin_planes`` are the plain versions of the CUDA kernels B, C, D and E
-(``repro_torch.kernels``), with their signatures. JAX's ``lax.map`` over
-units becomes a Python loop over chunks of ``batch_size`` units, which
-bounds peak memory; the last chunk is ragged, so JAX's padding of the
-active list to whole chunks (``_chunked_active``) is not needed. Every
-compacted or packed variant shares the per-unit body and the order of its
-sums with its dense schedule, so compaction and packing change no computed
-value.
+``xpencil_planes``, ``xpencil_sparse_planes``, ``xpencil_packed_planes``,
+``allin_planes`` and ``cell_sfc_tiles`` are the plain versions of the CUDA
+kernels B, C, D, E and F (``repro_torch.kernels``), with their signatures.
+JAX's ``lax.map`` over units becomes a Python loop over chunks of
+``batch_size`` units, which bounds peak memory; the last chunk is ragged,
+so JAX's padding of the active list to whole chunks (``_chunked_active``)
+is not needed. Every compacted, packed or clustered variant shares the
+per-unit body and the order of its sums with its dense schedule, so
+compaction, packing and clustering change no computed value.
 """
 
 from __future__ import annotations
@@ -37,7 +40,8 @@ from typing import Optional, Tuple
 import torch
 
 from .binning import (EMPTY_POS, CellBins, Occupancy, PackedRows,
-                      gather_pencil_rows, scatter_rows)
+                      SfcClusters, gather_pencil_rows, scatter_rows,
+                      sfc_device_slot_tables)
 from .domain import Domain
 from .interactions import PairKernel, pair_contribution
 
@@ -534,7 +538,76 @@ def xpencil_packed(domain: Domain, packed: PackedRows, kernel: PairKernel,
     return tuple(scatter_rows(o, idx, nz * ny) for o in out)
 
 
+# --------------------------------------------------------------------------
+# SFC cluster schedule: the compressed cluster-pair list (layout="sfc")
+# --------------------------------------------------------------------------
+
+def cell_sfc_tiles(x, y, z, slot_id, codes, tgt_base, src_base, *, m_c: int,
+                   kernel: PairKernel, cutoff2: float,
+                   batch_size: int = 64) -> ForceOut:
+    """Par-Cell over SFC clusters on padded ``(nz+2, ny+2, (nx+2)*m_c)``
+    planes -> 4 x (n_clusters, csize*m_c) tiles: the plain version of CUDA
+    kernel F, with its signature.
+
+    ``tgt_base`` (n_clusters, csize) and ``src_base`` (n_clusters, 27,
+    csize) are the flat slot bases of ``binning.sfc_slot_tables``, a base
+    past the planes (``total``) meaning the always-empty sentinel cell.
+    Target slot (cell j of cluster a, rank r) meets the m_c sources of cell
+    j shifted by stencil slot k, for k = 0..26 in ascending order, each
+    slab reduced to a partial and added to the accumulator: ``cell_dense``'s
+    order, so per particle the tiles hold ``cell_dense``'s bits. A slab
+    whose (cluster, k) code is not in ``codes`` is masked out (it is empty
+    unless ``pair_cap`` truncated the list). Clusters are taken
+    ``batch_size`` at a time; that changes no bit.
+    """
+    n_clusters, csize = tgt_base.shape
+    dev = x.device
+
+    def ext(plane: torch.Tensor, fill) -> torch.Tensor:  # + sentinel cell
+        flat = plane.reshape(-1)
+        return torch.cat([flat, flat.new_full((m_c,), fill)])
+
+    xs, ys, zs = (ext(p, EMPTY_POS) for p in (x, y, z))
+    ids = ext(slot_id, -1)
+    # kept (cluster, k) pairs; sentinel codes land in the dump row
+    kept = torch.zeros(((n_clusters + 1) * 32,), dtype=torch.bool, device=dev)
+    kept[codes.long()] = True
+    kept = kept.view(n_clusters + 1, 32)[:n_clusters, :27]
+    rank = torch.arange(m_c, device=dev)
+    outs = []
+    for start in range(0, n_clusters, batch_size):
+        stop = min(start + batch_size, n_clusters)
+        tidx = tgt_base[start:stop].long()[..., None] + rank  # (B, csize, m_c)
+        tx, ty, tz, tid = (f[tidx] for f in (xs, ys, zs, ids))
+        acc = None
+        for k in range(27):
+            sidx = src_base[start:stop, k].long()[..., None] + rank
+            sid = torch.where(kept[start:stop, k, None, None], ids[sidx], -1)
+            out = _pair_reduce(kernel, cutoff2, tx, ty, tz, tid, xs[sidx],
+                               ys[sidx], zs[sidx], sid)
+            acc = out if acc is None else tuple(
+                a + o for a, o in zip(acc, out))
+        outs.append(acc)
+    return tuple(torch.cat(o).reshape(n_clusters, csize * m_c)
+                 for o in zip(*outs))
+
+
+def cell_sfc(domain: Domain, sfc: SfcClusters, kernel: PairKernel,
+             batch_size: int = 64) -> ForceOut:
+    """The SFC cluster schedule over the compressed pair list -> 4 x
+    (n_clusters, csize*m_c) tiles, for :func:`binning.sfc_to_particles`.
+    ``batch_size`` counts clusters per chunk."""
+    bins = sfc.bins
+    tgt_base, src_base = sfc_device_slot_tables(
+        domain, bins.m_c, sfc.csize, sfc.curve, bins.slot_id.device)
+    return cell_sfc_tiles(bins.planes["x"], bins.planes["y"],
+                          bins.planes["z"], bins.slot_id, sfc.codes, tgt_base,
+                          src_base, m_c=bins.m_c, kernel=kernel,
+                          cutoff2=domain.cutoff ** 2, batch_size=batch_size)
+
+
 STRATEGIES = {"par_part": par_part, "cell_dense": cell_dense,
               "xpencil": xpencil, "allin": allin}
 SPARSE_STRATEGIES = {"cell_dense": cell_dense_sparse,
                      "xpencil": xpencil_sparse, "allin": allin_sparse}
+SFC_STRATEGIES = {"cell_dense": cell_sfc}

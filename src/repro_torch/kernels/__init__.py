@@ -3,6 +3,8 @@
 xpencil      the paper's X-pencil schedule, dense (kernel B), compacted
              (kernel C) and packed-row (kernel D) (csrc/xpencil.cu)
 allin        the paper's All-in-SM schedule (kernel E, csrc/allin.cu)
+sfc          Par-Cell over the SFC cluster-pair list (kernel F,
+             csrc/sfc.cu)
 prefix_sum   the paper's §6 scan (kernel A, csrc/prefix_sum.cu)
 
 Each kernel has a wrapper that runs its plain PyTorch version on CPU
@@ -10,16 +12,21 @@ tensors and launches the kernel on CUDA tensors. Importing this package
 registers the force kernels as the ``"cuda"`` backend of the port's own
 registry, so ``plan(domain, kernel, positions=pos)`` runs them. As the JAX
 package's ``"pallas"`` backend, it has ``xpencil`` (dense, compacted,
-packed) and dense ``allin``; the other strategies run on ``"reference"``.
+packed), dense ``allin`` and ``cell_dense`` in the SFC cluster layout only
+(``layout="sfc"``, where ``compact=True`` changes nothing); the other
+strategies, and ``cell_dense`` in the dense layout, run on
+``"reference"``.
 """
 
 from ..core.api import InteractionPlan, ParticleState, register_backend
-from ..core.binning import CellBins, PackedRows
-from .ops import (allin_interactions, prefix_sum, xpencil_interactions,
-                  xpencil_packed_interactions, xpencil_sparse_interactions)
+from ..core.binning import CellBins, PackedRows, SfcClusters
+from .ops import (allin_interactions, cell_sfc_interactions, prefix_sum,
+                  xpencil_interactions, xpencil_packed_interactions,
+                  xpencil_sparse_interactions)
 
-__all__ = ["allin_interactions", "prefix_sum", "xpencil_interactions",
-           "xpencil_packed_interactions", "xpencil_sparse_interactions"]
+__all__ = ["allin_interactions", "cell_sfc_interactions", "prefix_sum",
+           "xpencil_interactions", "xpencil_packed_interactions",
+           "xpencil_sparse_interactions"]
 
 
 @register_backend("cuda", "xpencil", compact=True)
@@ -42,3 +49,9 @@ def _cuda_xpencil_packed(plan: InteractionPlan, packed: PackedRows,
     return xpencil_packed_interactions(
         plan.domain, packed, plan.kernel,
         max_active=plan.max_active if plan.compact else None)
+
+
+@register_backend("cuda", "cell_dense", compact=True, layout="sfc")
+def _cuda_cell_sfc(plan: InteractionPlan, sfc: SfcClusters,
+                   state: ParticleState):
+    return cell_sfc_interactions(plan.domain, sfc, plan.kernel)

@@ -42,6 +42,14 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         # in, out, scratch, n, scratch_elems, stream
         "paper_scan_i32": (_P, _P, _P, _LL, _LL, _P),
     },
+    "sfc.cu": {
+        # x, y, z, slot_id, codes, tgt_base, src_base, fx, fy, fz, pot,
+        # n_codes, n_clusters, csize, m_c, total, cutoff2, kind, p0, p1, p2,
+        # p3, n_extra, stream
+        "cell_sfc_forces_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _I, _F, _I, _F, _F, _F, _F,
+                                _I, _P),
+    },
     "xpencil.cu": {
         # x, y, z, slot_id, fx, fy, fz, pot, nx, ny, nz, m_c, cutoff2,
         # kind, p0, p1, p2, p3, n_extra, stream

@@ -1,10 +1,11 @@
 """Entry points of the CUDA kernels at the port's level of abstraction.
 
 ``xpencil_interactions`` (kernel B), ``xpencil_sparse_interactions``
-(kernel C), ``xpencil_packed_interactions`` (kernel D) and
-``allin_interactions`` (kernel E) run a force kernel and scatter its result
-back to particle order; ``prefix_sum`` is the paper's §6 scan. Each wrapper
-runs its plain PyTorch version on CPU tensors.
+(kernel C), ``xpencil_packed_interactions`` (kernel D),
+``allin_interactions`` (kernel E) and ``cell_sfc_interactions`` (kernel F)
+run a force kernel and scatter its result back to particle order;
+``prefix_sum`` is the paper's §6 scan. Each wrapper runs its plain PyTorch
+version on CPU tensors.
 """
 
 from __future__ import annotations
@@ -13,18 +14,21 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..core.binning import (CellBins, PackedRows, dense_to_particles,
-                            packed_to_particles, pencil_occupancy,
-                            scatter_rows)
+from ..core.binning import (CellBins, PackedRows, SfcClusters,
+                            dense_to_particles, packed_to_particles,
+                            pencil_occupancy, scatter_rows,
+                            sfc_device_slot_tables, sfc_to_particles)
 from ..core.domain import Domain
 from ..core.interactions import PairKernel
 from .allin import allin_forces
 from .prefix_sum import prefix_sum
+from .sfc import cell_sfc_forces
 from .xpencil import (xpencil_forces, xpencil_packed_forces,
                       xpencil_sparse_forces)
 
-__all__ = ["allin_interactions", "prefix_sum", "xpencil_interactions",
-           "xpencil_packed_interactions", "xpencil_sparse_interactions"]
+__all__ = ["allin_interactions", "cell_sfc_interactions", "prefix_sum",
+           "xpencil_interactions", "xpencil_packed_interactions",
+           "xpencil_sparse_interactions"]
 
 
 def xpencil_interactions(domain: Domain, bins: CellBins, kernel: PairKernel
@@ -91,3 +95,18 @@ def allin_interactions(domain: Domain, bins: CellBins, kernel: PairKernel,
         bins.planes, bins.slot_id, box=box, m_c=bins.m_c, kernel=kernel,
         cutoff2=float(domain.cutoff) ** 2)
     return dense_to_particles(domain, bins, fx, fy, fz, pot)
+
+
+def cell_sfc_interactions(domain: Domain, sfc: SfcClusters,
+                          kernel: PairKernel
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SFC cluster-pair kernel over the compressed pair list -> per-particle
+    (forces (N,3), potential (N,)). The slot-base tables come from the
+    per-device cache; clusters with no kept pair come back as zeros."""
+    bins = sfc.bins
+    tgt_base, src_base = sfc_device_slot_tables(
+        domain, bins.m_c, sfc.csize, sfc.curve, bins.slot_id.device)
+    fx, fy, fz, pot = cell_sfc_forces(
+        bins.planes, bins.slot_id, sfc.codes, tgt_base, src_base,
+        m_c=bins.m_c, kernel=kernel, cutoff2=float(domain.cutoff) ** 2)
+    return sfc_to_particles(domain, sfc, fx, fy, fz, pot)

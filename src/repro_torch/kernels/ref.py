@@ -12,7 +12,7 @@ from typing import Tuple
 import torch
 
 from ..core import strategies as S
-from ..core.binning import CellBins, Occupancy, PackedRows
+from ..core.binning import CellBins, Occupancy, PackedRows, SfcClusters
 from ..core.domain import Domain
 from ..core.interactions import PairKernel
 
@@ -47,6 +47,12 @@ def allin_ref(domain: Domain, bins: CellBins, kernel: PairKernel,
     nx, ny, nz = domain.ncells
     out = S.allin(domain, bins, kernel, box=box)
     return tuple(o.reshape(nz, ny, nx * bins.m_c) for o in out)
+
+
+def cell_sfc_ref(domain: Domain, sfc: SfcClusters, kernel: PairKernel
+                 ) -> Tuple[torch.Tensor, ...]:
+    """(n_clusters, csize*m_c) cluster tiles of the SFC schedule."""
+    return S.cell_sfc(domain, sfc, kernel)
 
 
 def prefix_sum_ref(x: torch.Tensor) -> torch.Tensor:

@@ -15,9 +15,12 @@ from repro_torch.core import (Domain, ParticleState, full_pencil_occupancy,
                               suggest_m_c, suggest_row_cap)
 from repro_torch.core import prefix as plain_prefix
 from repro_torch.core import strategies as S
-from repro_torch.core.binning import bin_particles
+from repro_torch.core.binning import (bin_particles, build_sfc_clusters,
+                                      sfc_device_slot_tables, sfc_n_clusters,
+                                      sfc_pair_count, sfc_to_particles)
 from repro_torch.kernels.allin import allin_forces, halo_bytes
 from repro_torch.kernels.prefix_sum import prefix_sum
+from repro_torch.kernels.sfc import cell_sfc_forces
 from repro_torch.kernels.xpencil import (xpencil_forces,
                                          xpencil_packed_forces,
                                          xpencil_sparse_forces)
@@ -202,3 +205,87 @@ def test_allin_main_path_launches_kernel_e(gen, periodic):
             xpencil_forces.launches) == (1, 1, 0)
     f_b, u_b = plan(dom, positions=pos).execute(state)
     assert torch.equal(f, f_b) and torch.equal(u, u_b)
+
+
+def _sfc_tiles(dom, bins, kern, csize, curve, pair_cap=None, plain=False):
+    """Kernel F (or its plain version) over the pair list of ``bins``."""
+    if pair_cap is None:
+        pair_cap = sfc_pair_count(dom, counts=bins.counts, csize=csize,
+                                  curve=curve)
+    sfc = build_sfc_clusters(dom, bins, pair_cap, csize, curve)
+    tgt, src = sfc_device_slot_tables(dom, bins.m_c, csize, curve,
+                                      bins.slot_id.device)
+    if plain:
+        return sfc, S.cell_sfc_tiles(
+            bins.planes["x"], bins.planes["y"], bins.planes["z"],
+            bins.slot_id, sfc.codes, tgt, src, m_c=bins.m_c, kernel=kern,
+            cutoff2=1.0)
+    return sfc, cell_sfc_forces(bins.planes, bins.slot_id, sfc.codes, tgt,
+                                src, m_c=bins.m_c, kernel=kern, cutoff2=1.0)
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("csize,curve", [(4, "morton"), (8, "hilbert")])
+def test_sfc_kernel_matches_plain(gen, periodic, csize, curve):
+    """Kernel F against its plain version at two clusterings; a 5 x 4 x 3
+    grid leaves the last cluster padded with sentinel cells."""
+    dom = Domain(box=(5.0, 4.0, 3.0), ncells=(5, 4, 3), cutoff=1.0,
+                 periodic=periodic)
+    pos = dom.sample_uniform(240, generator=gen, device="cuda")
+    bins = bin_particles(dom, pos, m_c=24)
+    for kern in (make_low_flop(), make_lennard_jones(), make_gravity()):
+        _, got = _sfc_tiles(dom, bins, kern, csize, curve)
+        _, want = _sfc_tiles(dom, bins, kern, csize, curve, plain=True)
+        for g, w in zip(got, want):
+            assert g.shape == (sfc_n_clusters(dom, csize), csize * 24)
+            assert bool(g.isfinite().all())
+            if kern.name == "low_flop":
+                torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+def test_sfc_kernel_bits_do_not_depend_on_clustering(gen, periodic):
+    """Per particle, kernel F gives the same bits for Morton and Hilbert,
+    csize 1, 4 and 8, and pair_cap n_pairs or n_clusters * 27."""
+    dom, pos = _blob(gen, 8, 3000, periodic)
+    bins = bin_particles(dom, pos, m_c=suggest_m_c(dom, pos))
+    kern = make_lennard_jones()
+    runs = []
+    for curve in ("morton", "hilbert"):
+        for csize in (1, 4, 8):
+            for full in (False, True):
+                cap = sfc_n_clusters(dom, csize) * 27 if full else None
+                sfc, tiles = _sfc_tiles(dom, bins, kern, csize, curve, cap)
+                assert not bool(sfc.overflowed)
+                runs.append(sfc_to_particles(dom, sfc, *tiles))
+    for f, u in runs[1:]:
+        assert torch.equal(f, runs[0][0]) and torch.equal(u, runs[0][1])
+
+
+def test_sfc_wrapper_raises_past_1024_threads(gen):
+    dom = Domain.cubic(3)
+    pos = dom.sample_uniform(30, generator=gen, device="cuda")
+    bins = bin_particles(dom, pos, m_c=129)
+    cell_sfc_forces.launches = 0
+    with pytest.raises(ValueError, match="csize \\* m_c <= 1024"):
+        _sfc_tiles(dom, bins, make_lennard_jones(), 8, "morton")
+    sfc, tiles = _sfc_tiles(dom, bins, make_lennard_jones(), 7, "morton")
+    assert tiles[0].shape == (4, 7 * 129) and cell_sfc_forces.launches == 1
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+def test_sfc_main_path_launches_kernel_f(gen, periodic):
+    dom, pos = _blob(gen, 8, 3000, periodic)
+    state = ParticleState(pos)
+    kern = make_low_flop()
+    p = plan(dom, kern, positions=pos, strategy="cell_dense", layout="sfc")
+    counters = (prefix_sum, cell_sfc_forces, xpencil_forces)
+    for c in counters:
+        c.launches = 0
+    f, u = p.execute(state)
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == [1, 1, 0]
+    f_r, u_r = plan(dom, kern, positions=pos, strategy="cell_dense",
+                    layout="sfc", backend="reference").execute(state)
+    torch.testing.assert_close(f, f_r, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(u, u_r, rtol=1e-4, atol=1e-4)

@@ -23,10 +23,11 @@ import torch
 
 from repro_torch.core import (Domain, PairKernel, ParticleState,
                               make_lennard_jones, plan, scenarios,
-                              supports_compact)
+                              supports_compact, supports_layout)
 from repro_torch.kernels import _build
 from repro_torch.kernels.allin import allin_forces
 from repro_torch.kernels.prefix_sum import prefix_sum
+from repro_torch.kernels.sfc import cell_sfc_forces
 from repro_torch.kernels.xpencil import (xpencil_forces,
                                          xpencil_packed_forces,
                                          xpencil_sparse_forces)
@@ -140,11 +141,12 @@ def test_samplers_default_to_the_card():
 
 @pytest.mark.parametrize("kwargs,item", [
     (dict(strategy="auto"), 8), (dict(strategy="autotune"), 8),
-    (dict(strategy="cell_dense", layout="sfc"), 6),
-    (dict(strategy="cell_dense", layout="sfc", backend="reference"), 6),
+    (dict(strategy="cell_dense", layout="sfc", backend="halo"), 11),
+    (dict(strategy="auto", layout="sfc"), 8),
     (dict(strategy="auto", compact=True), 8),
     (dict(strategy="autotune", backend="reference"), 8),
-    (dict(strategy="allin", backend="halo"), 11), (dict(layout="sfc"), 6),
+    (dict(strategy="allin", backend="halo"), 11),
+    (dict(strategy="autotune", layout="sfc", backend="reference"), 8),
     (dict(backend="halo"), 11),
 ])
 def test_unported_options_raise_with_roadmap_item(kwargs, item):
@@ -154,14 +156,22 @@ def test_unported_options_raise_with_roadmap_item(kwargs, item):
 
 def test_backend_matrix_mirrors_jax():
     """``"cuda"`` has what JAX's ``"pallas"`` has: xpencil (dense,
-    compacted, packed) and dense allin. ``"reference"`` has every
-    strategy, compacted for the cell schedules. Asking the cuda backend for
-    the rest raises at plan time."""
+    compacted, packed), dense allin and cell_dense in the sfc layout only.
+    ``"reference"`` has every strategy, compacted for the cell schedules.
+    Asking the cuda backend for the rest raises at plan time."""
     dom = Domain.cubic(3)
     assert not supports_compact("cuda", "allin")
     assert supports_compact("cuda", "xpencil")
     for name in ("cell_dense", "xpencil", "allin"):
         assert supports_compact("reference", name)
+    for backend in ("cuda", "reference"):
+        assert supports_layout(backend, "cell_dense", "sfc")
+        assert supports_compact(backend, "cell_dense", "sfc")
+        assert not supports_layout(backend, "xpencil", "sfc")
+    assert not supports_layout("cuda", "cell_dense", "dense")
+    assert not supports_layout("cuda", "cell_dense", "packed")
+    assert plan(dom, m_c=8, device="cpu", strategy="cell_dense",
+                layout="sfc", pair_cap=8).backend == "cuda"
     assert not supports_compact("reference", "par_part")
     with pytest.raises(ValueError, match="no compacted path.*'allin'"):
         plan(dom, m_c=8, device="cpu", strategy="allin", compact=True,
@@ -224,7 +234,12 @@ def test_wrappers_refuse_other_devices():
         allin_forces({"x": plane, "y": plane, "z": plane},
                      plane.to(torch.int32), box=(1, 1, 1), m_c=8,
                      kernel=make_lennard_jones(), cutoff2=1.0)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        cell_sfc_forces({"x": plane, "y": plane, "z": plane},
+                        plane.to(torch.int32), ids, ids.view(1, 1),
+                        ids.view(1, 1, 1).expand(1, 27, 1), m_c=8,
+                        kernel=make_lennard_jones(), cutoff2=1.0)
     assert prefix_sum.launches == 0 and xpencil_forces.launches == 0
     assert xpencil_sparse_forces.launches == 0
     assert xpencil_packed_forces.launches == 0
-    assert allin_forces.launches == 0
+    assert allin_forces.launches == 0 and cell_sfc_forces.launches == 0
