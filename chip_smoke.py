@@ -24,6 +24,17 @@ the main paths through ``plan(...).execute()`` and checks and times them:
     layout="sfc"``) on both dense scenes and on the blob, and a plan sized
     on the blob, run on the uniform scene through ``execute_or_replan``,
     whose ``pair_cap`` grows.
+  * kernel G (sliding-window attention) against its plain version over a
+    sweep of batch, GQA ratio, head_dim, window, softcap and dtype, and at
+    the gemma2-2b shape;
+  * gemma2-2b serving at full width and depth (bf16 weights from the seed):
+    ``generate`` on 2 prompts of 8192 tokens plus 16 greedy tokens, whose
+    prefill runs kernel G in each of its 13 local layers; prefill and
+    decode timed (and the card's busy share under ``torch.profiler``); G
+    on the first local layer's q, k, v against its plain version, timed
+    beside ``scaled_dot_product_attention`` (the yardstick, never called by
+    the port); the prefill's logits against a prefill that runs G's plain
+    version instead.
 
 Per particle, the compacted and packed paths and kernel E must equal the
 dense X-pencil path (kernel B) bit for bit; kernel F sums in another order
@@ -72,6 +83,23 @@ BLOB_CASE = (64, 131_072, 0.1)                    # division, N, sigma_frac
 CHECK_DIVISION = 16
 SFC_CLUSTERINGS = ((4, "morton"), (8, "hilbert"))   # csize, curve
 SFC_PLAIN_BATCH = 2048           # clusters per chunk of F's plain version
+
+# bf16 dense tensor-core peak of the H100 SXM at 700 W (NVIDIA data sheet):
+# kernel G's operations bound on bf16 inputs
+BF16_OPS_PER_S = 989e12
+
+# gemma2-2b serving: 2 requests of 8192 prompt tokens (two windows of 4096,
+# so every local layer takes kernel G), then 16 greedy tokens
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_NEW = "gemma2-2b", 2, 8192, 16
+# kernel G against its plain version: tests/test_kernels.py's tolerances
+G_TOL = {torch.float32: 3e-4, torch.bfloat16: 2e-2}
+G_SWEEP_S, G_RAGGED_S = 256, 200
+# prefill logits with kernel G against the prefill with G's plain version,
+# both bf16: ||diff|| / ||plain|| over all logits. The two differ only in
+# how G's fp32 sums round to bf16 (one flip is 2^-8 relative); a flip at a
+# local layer's output passes through up to 26 bf16 residual layers, and
+# sqrt(26) * 2^-8 = 0.020 is that accumulation taken as a random walk.
+LOGITS_REL_TOL = 2e-2
 
 
 def log(*args):
@@ -207,6 +235,337 @@ def bound(n_bytes: float, n_ops: float):
                                        else "operations")
 
 
+def window_pairs(s: int, window: int) -> int:
+    """In-window (q, k) pairs of one head: the sum over q of min(q+1,
+    window)."""
+    w = min(window, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def kernel_g_bound(b, h, kh, s, d, window, itemsize):
+    """(bound ms, what sets it, FLOP, bytes) of one call of kernel G: 4 D
+    FLOP per in-window pair against the inputs' peak (bf16 tensor cores, or
+    fp32 outside them), q, k, v read and o written once."""
+    flops = 4 * d * b * h * window_pairs(s, window)
+    n_bytes = itemsize * b * s * d * (2 * h + 2 * kh)
+    peak = BF16_OPS_PER_S if itemsize == 2 else F32_OPS_PER_S
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes > t_ops else "operations", flops, n_bytes)
+
+
+def check_kernel_g(gen, dev):
+    """Kernel G against its plain version over the sweep; -> (checks, max
+    abs error). Each element within tol * (1 + |plain|)."""
+    from repro_torch.kernels.window_attn import (window_attention,
+                                                 window_attention_plain)
+    cases = [(b, h, kh, G_SWEEP_S, d, window, softcap, dtype, 128)
+             for b in (1, 2) for h, kh in ((4, 4), (8, 2), (6, 1), (8, 4))
+             for d in (16, 64, 256)
+             for window in (5, 100, G_SWEEP_S + 44)   # < tile, ragged, > S
+             for softcap in (0.0, 50.0)
+             for dtype in (torch.float32, torch.bfloat16)]
+    cases += [(1, 8, 2, G_RAGGED_S, d, window, 50.0, dtype, 8)  # S % 32 != 0
+              for d in (16, 64, 256) for window in (5, 77, G_RAGGED_S)
+              for dtype in (torch.float32, torch.bfloat16)]
+    cases += [(1, 8, 4, LM_PROMPT, 256, 4096, 50.0, torch.bfloat16, 128)]
+    max_err = 0.0
+    for b, h, kh, s, d, window, softcap, dtype, blk in cases:
+        amp = 4.0 if softcap else 1.0            # scores past the cap
+        q = (torch.randn((b, h, s, d), generator=gen, device=dev) * amp)
+        k = (torch.randn((b, kh, s, d), generator=gen, device=dev) * amp)
+        v = torch.randn((b, kh, s, d), generator=gen, device=dev)
+        q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+        got = window_attention(q, k, v, window=window, blk=blk,
+                               softcap=softcap)
+        torch.cuda.synchronize()
+        want = window_attention_plain(q, k, v, window=window, blk=blk,
+                                      softcap=softcap).float()
+        err = (got.float() - want).abs()
+        tol = G_TOL[dtype]
+        if got.dtype != dtype or not bool(got.isfinite().all()) or \
+                bool((err > tol * (1 + want.abs())).any()):
+            raise AssertionError(
+                f"kernel G vs plain, B={b} H={h} KH={kh} S={s} D={d} "
+                f"window={window} softcap={softcap} {dtype}: max |diff| "
+                f"{float(err.max()):.3e} > {tol} (1 + |want|)")
+        max_err = max(max_err, float(err.max()))
+    return len(cases), max_err
+
+
+def logits_diff(got, want, chunk: int = 1024):
+    """(||got - want|| / ||want||, max |got - want|) over (B, S, V) logits,
+    a chunk of positions at a time."""
+    num = den = 0.0
+    worst = 0.0
+    for i in range(0, want.shape[1], chunk):
+        g, w = got[:, i:i + chunk].float(), want[:, i:i + chunk].float()
+        d = g - w
+        num += float((d * d).sum())
+        den += float((w * w).sum())
+        worst = max(worst, float(d.abs().max()))
+    return (num / den) ** 0.5, worst
+
+
+def lm_serving(seed: int, dev, reset_launches, launch_counts):
+    """gemma2-2b at full width and depth: the main path (``generate``), its
+    timing by layer, kernel G on the captured q, k, v against its plain
+    version and the SDPA yardstick, and the prefill's logits against a
+    prefill with G's plain version."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.window_attn import (window_attention,
+                                                 window_attention_plain)
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models.serving import generate
+
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                          (LM_BATCH, LM_PROMPT)), device=dev)
+    max_len = LM_PROMPT + LM_NEW
+    torch.cuda.reset_peak_memory_stats()
+
+    # -- the main path: counts to 0, generate, counts read ---------------------
+    reset_launches()
+    t0 = time.perf_counter()
+    tokens, logits = generate(cfg, params, prompt, LM_NEW, max_len=max_len)
+    torch.cuda.synchronize()
+    generate_s = time.perf_counter() - t0
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_local = cfg.n_layers // 2
+    if launches != {"window_attention": n_local}:
+        raise AssertionError(f"generate launched {launches}, want "
+                             f"window_attention {n_local} (one prefill)")
+    if tuple(tokens.shape) != (LM_BATCH, LM_NEW) or \
+            int(tokens.min()) < 0 or int(tokens.max()) >= cfg.vocab_size:
+        raise AssertionError(f"generated tokens {tuple(tokens.shape)} out "
+                             f"of range")
+    if tuple(logits.shape) != (LM_BATCH, LM_PROMPT, cfg.vocab_size) or \
+            not all(bool(logits[b].isfinite().all())
+                    for b in range(LM_BATCH)):
+        raise AssertionError("prefill logits: wrong shape or non-finite")
+    first = tokens[:, 0]
+    if not torch.equal(first, logits[:, -1].argmax(-1)):
+        raise AssertionError("first generated token is not the prefill's "
+                             "greedy token")
+    del logits
+    log(f"gemma2-2b main path: {n_params} parameters ({cfg.dtype}, seed "
+        f"{seed}, "
+        f"{init_s:.1f} s), generate {LM_BATCH} x {LM_PROMPT} prompt tokens "
+        f"+ {LM_NEW} new in {generate_s:.2f} s, launches {launches}, peak "
+        f"{peak_gb:.2f} GB allocated; tokens {tokens.tolist()}")
+
+    # -- prefill timed, q, k, v of the first local layer captured --------------
+    captured = {}
+
+    def capture(q, k, v, **kw):
+        if not captured:
+            captured.update(q=q, k=k, v=v, kw=kw)
+        return window_attention(q, k, v, **kw)
+
+    def timed_prefill():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = M.prefill(cfg, params, prompt, max_len=max_len)
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    M.window_attention = capture
+    (lg, cache), p_ms1 = timed_prefill()
+    M.window_attention = window_attention
+    del lg
+    (logits_g, cache), p_ms2 = timed_prefill()
+    if not torch.equal(logits_g[:, -1].argmax(-1), first):
+        raise AssertionError("the timed prefill's greedy token differs from "
+                             "generate's")
+
+    # decode per token on the prefill's cache, as generate runs it
+    tok = logits_g[:, -1:].argmax(-1)
+    dec_ms = []
+    for idx in range(LM_PROMPT, max_len - 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        lg, cache = M.decode_step(cfg, params, cache, tok, idx)
+        end.record()
+        end.synchronize()
+        dec_ms.append(start.elapsed_time(end))
+        tok = lg.argmax(-1)
+    decode_ms = statistics.median(dec_ms)
+    # the card's busy share: kernel time under the profiler over the
+    # unprofiled time (the last slot of the cache rewritten each step)
+    decode_dev_ms, decode_launches, decode_kernels = device_time(
+        lambda: M.decode_step(cfg, params, cache, tok, max_len - 1), reps=3)
+    del cache
+    prefill_dev_ms, prefill_launches, prefill_kernels = device_time(
+        lambda: M.prefill(cfg, params, prompt, max_len=max_len))
+    if decode_dev_ms <= 0 or prefill_dev_ms <= 0:
+        log("torch.profiler saw no device time; busy shares not measured")
+
+    # -- kernel G on the captured gemma q, k, v --------------------------------
+    q, k, v, kw = (captured[n] for n in ("q", "k", "v", "kw"))
+    got = window_attention(q, k, v, **kw)
+    want = window_attention_plain(q, k, v, **kw).float()
+    torch.cuda.synchronize()
+    cap_err = (got.float() - want).abs()
+    if bool((cap_err > G_TOL[q.dtype] * (1 + want.abs())).any()):
+        raise AssertionError(f"kernel G vs plain on the captured gemma q, k, "
+                             f"v: max |diff| {float(cap_err.max()):.3e}")
+    b, h, s, d = q.shape
+    kh = k.shape[1]
+    g_ms = cuda_ms(lambda: window_attention(q, k, v, **kw), reps=10)
+    g_plain_ms = cuda_ms(lambda: window_attention_plain(q, k, v, **kw),
+                         reps=3)
+    kw0 = dict(kw, softcap=0.0)
+    g0_ms = cuda_ms(lambda: window_attention(q, k, v, **kw0), reps=10)
+    pos = torch.arange(s, device=dev)
+    band = (pos[None, :] <= pos[:, None]) & \
+        (pos[:, None] - pos[None, :] < kw["window"])
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, attn_mask=band, enable_gqa=True)
+    sdpa_err = float((sdpa().float() - window_attention(q, k, v, **kw0)
+                      .float()).abs().max())
+    sdpa_ms = cuda_ms(sdpa, reps=5)
+    g_bound_ms, g_bound_by, g_flops, g_bytes = kernel_g_bound(
+        b, h, kh, s, d, kw["window"], q.element_size())
+
+    # -- where the prefill's time goes: the layers on the same shapes ----------
+    x = torch.randn((b, s, cfg.d_model), generator=torch.Generator(
+        device=dev).manual_seed(seed), device=dev).to(q.dtype)
+    lp = M._index(params["layers"], 1)
+    flash_ms = cuda_ms(lambda: A.attention(q, k, v, True, cfg.attn_softcap,
+                                           cfg.attn_q_chunk,
+                                           cfg.attn_k_chunk), reps=3)
+    mlp_ms = cuda_ms(lambda: L.mlp(L.apply_norm(x, lp["norm2"], cfg.norm),
+                                   lp["mlp"], cfg.act), reps=5)
+    proj_ms = cuda_ms(lambda: (L.qkv_project(x, lp["attn"], cfg.n_heads,
+                                             cfg.n_kv_heads, cfg.head_dim),
+                               L.out_project(q, lp["attn"])), reps=5)
+    layer_ms = {kind: cuda_ms(lambda i=i, loc=loc: M._decoder_layer(
+        cfg, M._index(params["layers"], i), x, pos, loc), reps=3)
+        for kind, i, loc in (("local", 0, True), ("global", 1, False))}
+    logits_ms = cuda_ms(lambda: M._logits(cfg, params, x), reps=3)
+
+    # -- end to end: the prefill with G's plain version --------------------------
+    reset_launches()
+    M.window_attention = window_attention_plain
+    (logits_p, cache), plain_prefill_ms = timed_prefill()
+    M.window_attention = window_attention
+    if launch_counts():
+        raise AssertionError(f"plain prefill launched {launch_counts()}")
+    del cache
+    rel, worst = logits_diff(logits_g, logits_p)
+    last_g, last_p = logits_g[:, -1].float(), logits_p[:, -1].float()
+    top2 = last_p.topk(2, dim=-1).values
+    margin = float((top2[:, 0] - top2[:, 1]).min())
+    same_greedy = torch.equal(last_g.argmax(-1), last_p.argmax(-1))
+    if rel > LOGITS_REL_TOL or not bool(logits_g[:, -1].isfinite().all()) \
+            or (margin > 2 * worst and not same_greedy):
+        raise AssertionError(f"prefill with kernel G vs with its plain "
+                             f"version: relative L2 {rel:.3e} (tol "
+                             f"{LOGITS_REL_TOL}), max |diff| {worst:.3e}, "
+                             f"greedy equal {same_greedy} (margin "
+                             f"{margin:.3e})")
+    del logits_g, logits_p
+    res = {
+        "case": f"{LM_ARCH} {cfg.dtype}, B={LM_BATCH}, prompt {LM_PROMPT}, "
+                f"{LM_NEW} new tokens, max_len {max_len}",
+        "n_params": n_params, "init_s": init_s, "generate_s": generate_s,
+        "launches": launches, "peak_allocated_gb": peak_gb,
+        "prefill_ms": [p_ms1, p_ms2], "decode_ms_per_token": decode_ms,
+        "decode_ms_all": dec_ms,
+        "prefill_device_ms": prefill_dev_ms,
+        "prefill_busy_share": prefill_dev_ms / min(p_ms1, p_ms2),
+        "prefill_device_ms_by_group": group_kernel_times(prefill_kernels),
+        "prefill_top_kernels": [(k[:72], ms) for k, ms in
+                                prefill_kernels[:8]],
+        "decode_device_ms": decode_dev_ms,
+        "decode_busy_share": decode_dev_ms / decode_ms,
+        "decode_device_ms_by_group": group_kernel_times(decode_kernels),
+        "decode_top_kernels": [(k[:72], ms) for k, ms in decode_kernels[:5]],
+        "decode_launches_per_token": decode_launches,
+        "prefill_launches": prefill_launches,
+        "kernel_g_ms": g_ms, "kernel_g_softcap0_ms": g0_ms,
+        "kernel_g_plain_ms": g_plain_ms, "sdpa_ms": sdpa_ms,
+        "sdpa_vs_g_softcap0_max_abs": sdpa_err,
+        "kernel_g_bound_ms": g_bound_ms, "kernel_g_bound_by": g_bound_by,
+        "kernel_g_gflop": g_flops / 1e9, "kernel_g_mbytes": g_bytes / 1e6,
+        "kernel_g_captured_max_abs_err": float(cap_err.max()),
+        "global_flash_ms": flash_ms, "mlp_ms": mlp_ms,
+        "qkv_out_proj_ms": proj_ms, "local_layer_ms": layer_ms["local"],
+        "global_layer_ms": layer_ms["global"], "logits_ms": logits_ms,
+        "plain_prefill_ms": plain_prefill_ms,
+        "logits_rel_l2": rel, "logits_max_abs_diff": worst,
+        "last_top2_margin": margin, "greedy_equal": same_greedy,
+        "shapes": f"q ({b}, {h}, {s}, {d}), k, v ({b}, {kh}, {s}, {d}) "
+                  f"{q.dtype}, window {kw['window']}, softcap "
+                  f"{kw['softcap']}",
+    }
+    log("gemma2-2b: " + json.dumps(res))
+    return res
+
+
+def device_time(fn, reps: int = 1):
+    """(device ms per call, kernel launches per call, [(kernel, ms per
+    call), ...] largest first) of ``fn()`` under ``torch.profiler``: the sum
+    of the CUDA kernels' own times, which excludes the gaps in which the
+    card waits for the host."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3 / reps)
+                      for e in events), key=lambda kv: -kv[1])
+    return (sum(ms for _, ms in kernels),
+            sum(e.count for e in events) / reps, kernels)
+
+
+# kernel-name groups of the LM's device time, tried in order
+KERNEL_GROUPS = (
+    ("kernel G", ("window_attn",)),
+    ("fp32 GEMM (flash and decode attention)", ("f32f32", "gemmSN", "sgemm",
+                                                 "<float")),
+    ("bf16 GEMM (projections, MLP, logits)", ("nvjet", "bf16")),
+)
+
+
+def group_kernel_times(kernels):
+    """{group: device ms} of (kernel name, ms) pairs; the rest (elementwise,
+    reductions, copies) under "other"."""
+    out = dict.fromkeys([g for g, _ in KERNEL_GROUPS] + ["other"], 0.0)
+    for name, ms in kernels:
+        group = next((g for g, keys in KERNEL_GROUPS
+                      if any(k in name for k in keys)), "other")
+        out[group] += ms
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -239,6 +598,7 @@ def main(argv=None) -> int:
                                          xpencil_sparse_interactions)
     from repro_torch.kernels.prefix_sum import prefix_sum
     from repro_torch.kernels.sfc import cell_sfc_forces
+    from repro_torch.kernels.window_attn import window_attention
     from repro_torch.kernels.xpencil import (xpencil_forces,
                                              xpencil_packed_forces,
                                              xpencil_sparse_forces)
@@ -247,7 +607,8 @@ def main(argv=None) -> int:
                 "xpencil_sparse_forces": xpencil_sparse_forces,
                 "xpencil_packed_forces": xpencil_packed_forces,
                 "allin_forces": allin_forces,
-                "cell_sfc_forces": cell_sfc_forces}
+                "cell_sfc_forces": cell_sfc_forces,
+                "window_attention": window_attention}
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -259,6 +620,14 @@ def main(argv=None) -> int:
     log(f"device: {kind}, count {torch.cuda.device_count()}, torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     log(f"nvidia-smi: {smi[0]}")
+    # every plain version and reference on the card: fp32 matmuls in full
+    # fp32 (no TF32) and bf16 GEMMs without reduced-precision reductions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("matmul: allow_tf32=False, "
+        "allow_bf16_reduced_precision_reduction=False, cudnn.allow_tf32="
+        "False")
 
     # -- build ---------------------------------------------------------------
     nvcc = subprocess.run([_build.nvcc_path(), "--version"], check=True,
@@ -991,6 +1360,16 @@ def main(argv=None) -> int:
         f"pair_cap {ps0.pair_cap} -> {ps1.pair_cap}, m_c {ps0.m_c} kept, "
         f"launches {launches_r}; result equals a fresh plan's")
 
+    # -- kernel G against its plain version; gemma2-2b serving ---------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    g_checks, g_sweep_err = check_kernel_g(gen, dev)
+    log(f"kernel G: {g_checks} cases (B, H/KH, D, window, softcap, fp32 and "
+        f"bf16, ragged S, the gemma shape) within {G_TOL[torch.float32]} "
+        f"(fp32) / {G_TOL[torch.bfloat16]} (bf16) of (1 + |plain|); max "
+        f"|diff| {g_sweep_err:.3e}; {time.perf_counter() - t0:.1f} s")
+    lm = lm_serving(args.seed, dev, reset_launches, launch_counts)
+
     a, b = new_cases["a"], new_cases["b"]
     sfc_main = sfc_results[0]
     report = {"kernels": [
@@ -1074,6 +1453,18 @@ def main(argv=None) -> int:
                           n_pairs=sfc_main["n_pairs"]),
          "max_term_rel_err": sfc_main["kernel_f_term_rel_err"],
          "checks_passed": sfc_checks},
+        {"name": "window_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/window_attn.cu",
+         "replaces": "src/repro/kernels/window_attn.py:104",
+         "launches": lm["launches"]["window_attention"],
+         "main_case": lm["case"],
+         "max_abs_err": max(g_sweep_err, lm["kernel_g_captured_max_abs_err"]),
+         "ms": lm["kernel_g_ms"], "plain_ms": lm["kernel_g_plain_ms"],
+         "bound_ms": lm["kernel_g_bound_ms"],
+         "bound_by": lm["kernel_g_bound_by"], "library_ms": lm["sdpa_ms"],
+         "library_call": "scaled_dot_product_attention(attn_mask=band, "
+                         "enable_gqa=True), softcap 0",
+         "shapes": lm["shapes"], "checks_passed": g_checks + 1},
     ]}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(report))

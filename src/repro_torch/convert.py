@@ -1,8 +1,9 @@
 """Carry state between the JAX package and the port.
 
-There are no weights: the state is a domain, a pair kernel, particles and
-bins. The JAX objects are read by attribute (duck typing), so this module
-imports neither JAX nor ``repro``.
+On the particle side the state is a domain, a pair kernel, particles and
+bins; on the LM side it is the params tree (nested dicts of arrays). The
+JAX objects are read by attribute (duck typing) or handed over as numpy
+arrays, so this module imports neither JAX nor ``repro``.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from .core.domain import Domain
 from .core.interactions import (PairKernel, make_gravity, make_high_flop,
                                 make_lennard_jones, make_low_flop,
                                 make_sph_density)
+from .models.model import check_ported
 
 _FACTORIES = {
     "lennard_jones": make_lennard_jones,
@@ -93,3 +95,30 @@ def sfc_to_numpy(sfc: SfcClusters) -> Dict[str, np.ndarray]:
     return {"codes": sfc.codes.cpu().numpy(),
             "n_pairs": sfc.n_pairs.cpu().numpy(),
             "cluster_counts": sfc.cluster_counts.cpu().numpy()}
+
+
+def _tensor_from_numpy(a, device) -> torch.Tensor:
+    """A numpy array (bfloat16 from ml_dtypes included) as a tensor."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+
+
+def params_from_jax(cfg, tree, device) -> dict:
+    """The port's params from JAX's ``init_params`` output after
+    ``np.asarray`` (a nested dict of numpy arrays), leaf by leaf on
+    ``device``; the dict layout is the same on both sides."""
+    check_ported(cfg)
+    want = {"embed", "final_norm", "layers"} | (
+        set() if cfg.tie_embeddings else {"lm_head"})
+    if set(tree) != want:
+        raise ValueError(f"params of {cfg.name} have keys {sorted(want)}, "
+                         f"got {sorted(tree)}")
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return _tensor_from_numpy(node, device)
+    return walk(tree)

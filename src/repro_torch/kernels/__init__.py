@@ -6,6 +6,8 @@ allin        the paper's All-in-SM schedule (kernel E, csrc/allin.cu)
 sfc          Par-Cell over the SFC cluster-pair list (kernel F,
              csrc/sfc.cu)
 prefix_sum   the paper's §6 scan (kernel A, csrc/prefix_sum.cu)
+window_attn  causal sliding-window attention of the LM's local layers
+             (kernel G, csrc/window_attn.cu)
 
 Each kernel has a wrapper that runs its plain PyTorch version on CPU
 tensors and launches the kernel on CUDA tensors. Importing this package
@@ -21,12 +23,12 @@ strategies, and ``cell_dense`` in the dense layout, run on
 from ..core.api import InteractionPlan, ParticleState, register_backend
 from ..core.binning import CellBins, PackedRows, SfcClusters
 from .ops import (allin_interactions, cell_sfc_interactions, prefix_sum,
-                  xpencil_interactions, xpencil_packed_interactions,
-                  xpencil_sparse_interactions)
+                  window_attention, xpencil_interactions,
+                  xpencil_packed_interactions, xpencil_sparse_interactions)
 
 __all__ = ["allin_interactions", "cell_sfc_interactions", "prefix_sum",
-           "xpencil_interactions", "xpencil_packed_interactions",
-           "xpencil_sparse_interactions"]
+           "window_attention", "xpencil_interactions",
+           "xpencil_packed_interactions", "xpencil_sparse_interactions"]
 
 
 @register_backend("cuda", "xpencil", compact=True)

@@ -66,6 +66,11 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
                                _I, _I, _I, _I, _I, _F, _I, _F, _F, _F, _F,
                                _I, _P),
     },
+    "window_attn.cu": {
+        # q, k, v, o, B, H, KH, S, D, window, softcap, scale, bf16, stream
+        "window_attention_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                                 _F, _I, _P),
+    },
 }
 
 

@@ -4,8 +4,9 @@
 (kernel C), ``xpencil_packed_interactions`` (kernel D),
 ``allin_interactions`` (kernel E) and ``cell_sfc_interactions`` (kernel F)
 run a force kernel and scatter its result back to particle order;
-``prefix_sum`` is the paper's §6 scan. Each wrapper runs its plain PyTorch
-version on CPU tensors.
+``prefix_sum`` is the paper's §6 scan; ``window_attention`` (kernel G) is
+the sliding-window attention of the LM's local layers. Each wrapper runs
+its plain PyTorch version on CPU tensors.
 """
 
 from __future__ import annotations
@@ -23,12 +24,13 @@ from ..core.interactions import PairKernel
 from .allin import allin_forces
 from .prefix_sum import prefix_sum
 from .sfc import cell_sfc_forces
+from .window_attn import window_attention as _window_attention
 from .xpencil import (xpencil_forces, xpencil_packed_forces,
                       xpencil_sparse_forces)
 
 __all__ = ["allin_interactions", "cell_sfc_interactions", "prefix_sum",
-           "xpencil_interactions", "xpencil_packed_interactions",
-           "xpencil_sparse_interactions"]
+           "window_attention", "xpencil_interactions",
+           "xpencil_packed_interactions", "xpencil_sparse_interactions"]
 
 
 def xpencil_interactions(domain: Domain, bins: CellBins, kernel: PairKernel
@@ -110,3 +112,12 @@ def cell_sfc_interactions(domain: Domain, sfc: SfcClusters,
         bins.planes, bins.slot_id, sfc.codes, tgt_base, src_base,
         m_c=bins.m_c, kernel=kernel, cutoff2=float(domain.cutoff) ** 2)
     return sfc_to_particles(domain, sfc, fx, fy, fz, pot)
+
+
+def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     window: int, blk: int = 128,
+                     softcap: float = 0.0) -> torch.Tensor:
+    """Pencil-pattern sliding-window attention (kernel G, see
+    ``window_attn.py``)."""
+    return _window_attention(q, k, v, window=window, blk=blk,
+                             softcap=softcap)

@@ -2,7 +2,8 @@
 
 The force kernels are held against the strategies of ``core`` (the same
 schedules); the scan against ``torch.cumsum``, independent of the
-paper's own schedule.
+paper's own schedule; the window attention against a dense masked
+softmax over the whole sequence.
 """
 
 from __future__ import annotations
@@ -57,3 +58,24 @@ def cell_sfc_ref(domain: Domain, sfc: SfcClusters, kernel: PairKernel
 
 def prefix_sum_ref(x: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(x, dim=-1, dtype=x.dtype)
+
+
+def window_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, window: int, softcap: float = 0.0
+                         ) -> torch.Tensor:
+    """Dense masked local attention, fp32 throughout (the counterpart of
+    ``repro/kernels/ref.py::window_attention_ref``)."""
+    b, h, s, d = q.shape
+    group = h // k.shape[1]
+    kf = torch.repeat_interleave(k.float(), group, dim=1)
+    vf = torch.repeat_interleave(v.float(), group, dim=1)
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) / (d ** 0.5)
+    if softcap > 0.0:
+        scores = softcap * torch.tanh(scores / softcap)
+    pos = torch.arange(s, device=q.device)
+    qpos, kpos = pos[:, None], pos[None, :]
+    mask = (kpos <= qpos) & (qpos - kpos < window)
+    scores = torch.where(mask, scores, -1e30)
+    p = torch.exp(scores - scores.amax(-1, keepdim=True))
+    p = p / p.sum(-1, keepdim=True)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)

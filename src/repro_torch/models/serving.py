@@ -1,0 +1,53 @@
+"""LM serving: batched prefill, then a KV-cache greedy decode loop.
+
+The port of ``repro/models/serving.py``. It runs eagerly (JAX jits the
+decode step); the prompt and every generated token stay on the params'
+device, so the loop never waits on the host between steps.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+from ..configs.base import ModelConfig
+from . import model as M
+
+Tensor = torch.Tensor
+
+
+def make_prefill_step(cfg: ModelConfig, max_len: Optional[int] = None
+                      ) -> Callable:
+    def prefill_step(params, batch: Dict[str, Tensor]):
+        extras = {k: v for k, v in batch.items() if k != "tokens"}
+        logits, cache = M.prefill(cfg, params, batch["tokens"],
+                                  max_len=max_len, **extras)
+        return logits[:, -1:], cache
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig) -> Callable:
+    def step(params, cache, tokens: Tensor, cache_index: int):
+        return M.decode_step(cfg, params, cache, tokens, cache_index)
+    return step
+
+
+def generate(cfg: ModelConfig, params, prompt, n_tokens: int,
+             max_len: Optional[int] = None, **extras
+             ) -> Tuple[Tensor, Tensor]:
+    """Greedy generation on the params' device. prompt (B, S) ->
+    (tokens (B, n_tokens), prefill logits (B, S, V))."""
+    M.check_ported(cfg)
+    prompt = torch.as_tensor(prompt, device=params["embed"].device).long()
+    s = prompt.shape[1]
+    max_len = max_len or (s + n_tokens)
+    logits, cache = M.prefill(cfg, params, prompt, max_len=max_len, **extras)
+    tok = logits[:, -1:].argmax(-1)
+    decode = make_decode_step(cfg)
+    outs = [tok]
+    for idx in range(s, s + n_tokens - 1):
+        lg, cache = decode(params, cache, tok, idx)
+        tok = lg.argmax(-1)
+        outs.append(tok)
+    return torch.cat(outs, dim=1), logits

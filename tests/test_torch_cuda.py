@@ -21,6 +21,8 @@ from repro_torch.core.binning import (bin_particles, build_sfc_clusters,
 from repro_torch.kernels.allin import allin_forces, halo_bytes
 from repro_torch.kernels.prefix_sum import prefix_sum
 from repro_torch.kernels.sfc import cell_sfc_forces
+from repro_torch.kernels.window_attn import (window_attention,
+                                             window_attention_plain)
 from repro_torch.kernels.xpencil import (xpencil_forces,
                                          xpencil_packed_forces,
                                          xpencil_sparse_forces)
@@ -289,3 +291,59 @@ def test_sfc_main_path_launches_kernel_f(gen, periodic):
                     layout="sfc", backend="reference").execute(state)
     torch.testing.assert_close(f, f_r, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(u, u_r, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-4),
+                                       (torch.bfloat16, 2e-2)],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,h,kh,s,d,window,softcap", [
+    (1, 4, 4, 128, 16, 5, 0.0), (2, 8, 2, 256, 64, 100, 50.0),
+    (1, 6, 1, 96, 256, 300, 0.0), (2, 8, 4, 192, 64, 64, 50.0),
+    (1, 4, 2, 40, 20, 13, 0.0)])
+def test_window_kernel_matches_plain(gen, b, h, kh, s, d, window, softcap,
+                                     dtype, tol):
+    q = torch.randn((b, h, s, d), generator=gen, device="cuda") * 2
+    k = torch.randn((b, kh, s, d), generator=gen, device="cuda") * 2
+    v = torch.randn((b, kh, s, d), generator=gen, device="cuda")
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    blk = 8 if s % 32 else 32
+    window_attention.launches = 0
+    got = window_attention(q, k, v, window=window, blk=blk, softcap=softcap)
+    torch.cuda.synchronize()
+    assert window_attention.launches == 1 and got.dtype == dtype
+    want = window_attention_plain(q, k, v, window=window, blk=blk,
+                                  softcap=softcap)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_window_wrapper_raises_past_head_dim_256(gen):
+    q = torch.zeros((1, 2, 32, 264), device="cuda")
+    with pytest.raises(ValueError, match="head_dim <= 256"):
+        window_attention(q, q, q, window=8, blk=32)
+    with pytest.raises(ValueError, match="one dtype"):
+        window_attention(q[..., :8].half(), q[..., :8].half(),
+                         q[..., :8].half(), window=8, blk=32)
+
+
+def test_gemma_smoke_prefill_launches_kernel_g(gen):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+    cfg = get_smoke_config("gemma2-2b")
+    params = M.init_params(cfg, 0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 32), generator=gen,
+                           device="cuda")
+    window_attention.launches = 0
+    logits, cache = M.prefill(cfg, params, tokens, max_len=36)
+    torch.cuda.synchronize()
+    assert window_attention.launches == cfg.n_layers // 2
+    want, cache_cpu = M.prefill(cfg, _to_cpu(params), tokens.cpu(),
+                                max_len=36)
+    torch.testing.assert_close(logits.cpu(), want, rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(cache["k"].cpu(), cache_cpu["k"], rtol=2e-3,
+                               atol=2e-3)
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return tree.cpu()

@@ -1,0 +1,251 @@
+"""The port's gemma2-2b serving path against the JAX package, on the CPU.
+
+gemma2-2b ``smoke()`` in float32, with JAX's weights carried over by
+``convert.params_from_jax``; inputs from a numpy seed. The port's local
+layers run kernel G's plain version where JAX runs
+``window_attention_blocked``. Tolerance 2e-3, as tests/test_models.py's
+prefill-vs-forward check.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_smoke_config as jax_smoke_config
+from repro.models import layers as JL
+from repro.models import model as JM
+from repro.models import serving as JS
+from repro_torch import configs as TC
+from repro_torch.convert import params_from_jax
+from repro_torch.kernels.window_attn import window_attention
+from repro_torch.models import layers as TL
+from repro_torch.models import model as TM
+from repro_torch.models import serving as TS
+
+torch.set_num_threads(1)
+
+TOL = 2e-3
+B, S, N_DECODE = 2, 32, 4          # S = 32 > window 8: every local layer
+
+
+@pytest.fixture(scope="module")
+def setup():
+    cfg = TC.get_smoke_config("gemma2-2b")
+    jcfg = jax_smoke_config("gemma2-2b")
+    jparams = JM.init_params(jcfg, jax.random.PRNGKey(0))
+    tree = jax.tree.map(np.asarray, jparams)
+    params = params_from_jax(cfg, tree, "cpu")
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size, (B, S + N_DECODE),
+                          dtype=np.int32)
+    return cfg, jcfg, jparams, params, tokens
+
+
+def _close(got, want, tol=TOL):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+def test_config_matches_jax():
+    from repro.configs import get_config as jax_config
+    full = TC.get_config("gemma2-2b")
+    assert dataclasses.asdict(full) == \
+        dataclasses.asdict(jax_config("gemma2-2b"))
+    assert dataclasses.asdict(TC.get_smoke_config("gemma2-2b")) == \
+        dataclasses.asdict(jax_smoke_config("gemma2-2b"))
+    assert full.param_count() == jax_config("gemma2-2b").param_count()
+
+
+def test_param_tree_matches_jax(setup):
+    cfg, jcfg, jparams, params, _ = setup
+    mine = TM.init_params(cfg, 0, device="cpu")
+    want = jax.tree_util.tree_flatten_with_path(jparams)[0]
+    got = {jax.tree_util.keystr(p): v for p, v in
+           jax.tree_util.tree_flatten_with_path(mine)[0]}
+    assert len(got) == len(want)
+    for path, leaf in want:
+        t = got[jax.tree_util.keystr(path)]
+        assert tuple(t.shape) == leaf.shape and t.dtype == torch.float32
+
+
+def test_params_from_jax_keeps_bf16_bits():
+    a = np.asarray(jnp.asarray([1.0, -2.5, 3.14159, 1e-3], jnp.bfloat16))
+    cfg = TC.get_smoke_config("gemma2-2b")
+    t = params_from_jax(cfg, {"embed": a, "final_norm": {"scale": a},
+                              "layers": {}}, "cpu")["embed"]
+    assert t.dtype == torch.bfloat16
+    np.testing.assert_array_equal(t.float().numpy(), a.astype(np.float32))
+    with pytest.raises(ValueError, match="keys"):
+        params_from_jax(cfg, {"embed": a}, "cpu")
+
+
+def _rand(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("name", ["rms_norm", "layer_norm", "rope",
+                                  "act_silu", "act_gelu", "mlp_gated",
+                                  "mlp_plain", "qkv_project",
+                                  "out_project", "embed_tokens"])
+def test_layer_function_matches_jax(name):
+    rng = np.random.default_rng(1)
+    x = _rand(rng, 2, 8, 16)
+    if name == "rms_norm":
+        s = _rand(rng, 16)
+        got, want = TL.rms_norm(torch.tensor(x), torch.tensor(s)), \
+            JL.rms_norm(x, s)
+    elif name == "layer_norm":
+        s, b = _rand(rng, 16), _rand(rng, 16)
+        got = TL.layer_norm(torch.tensor(x), torch.tensor(s), torch.tensor(b))
+        want = JL.layer_norm(x, s, b)
+    elif name == "rope":
+        q = _rand(rng, 2, 3, 8, 16)
+        pos = np.arange(5, 13, dtype=np.int32)
+        got = TL.rope(torch.tensor(q), torch.tensor(pos), 10_000.0)
+        want = JL.rope(q, pos, 10_000.0)
+    elif name.startswith("act"):
+        kind = name.split("_")[1]
+        got, want = TL._act(torch.tensor(x) * 3, kind), JL._act(x * 3, kind)
+    elif name.startswith("mlp"):
+        p = {"w_up": _rand(rng, 16, 24) * 0.3,
+             "w_down": _rand(rng, 24, 16) * 0.3}
+        if name == "mlp_gated":
+            p["w_gate"] = _rand(rng, 16, 24) * 0.3
+        got = TL.mlp(torch.tensor(x), {k: torch.tensor(v)
+                                       for k, v in p.items()}, "gelu")
+        want = JL.mlp(x, p, "gelu")
+    elif name == "qkv_project":
+        p = {"wq": _rand(rng, 16, 4 * 8), "wk": _rand(rng, 16, 2 * 8),
+             "wv": _rand(rng, 16, 2 * 8), "bq": _rand(rng, 32),
+             "bk": _rand(rng, 16), "bv": _rand(rng, 16)}
+        got = TL.qkv_project(torch.tensor(x), {k: torch.tensor(v) for k, v
+                                               in p.items()}, 4, 2, 8)
+        want = JL.qkv_project(x, p, 4, 2, 8)
+        for g, w in zip(got, want):
+            _close(g, w, 1e-5)
+        return
+    elif name == "out_project":
+        o, wo = _rand(rng, 2, 4, 8, 8), _rand(rng, 32, 16)
+        got = TL.out_project(torch.tensor(o), {"wo": torch.tensor(wo)})
+        want = JL.out_project(o, {"wo": wo})
+    else:
+        table = _rand(rng, 50, 16)
+        tok = rng.integers(0, 50, (2, 7), dtype=np.int32)
+        got = TL.embed_tokens(torch.tensor(table), torch.tensor(tok), True)
+        want = JL.embed_tokens(table, tok, True)
+    _close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("is_local", [True, False], ids=["local", "global"])
+def test_decoder_layer_matches_jax(setup, is_local):
+    cfg, jcfg, jparams, params, tokens = setup
+    rng = np.random.default_rng(2)
+    x = _rand(rng, B, S, cfg.d_model)
+    pos = np.arange(S, dtype=np.int32)
+    i = 0 if is_local else 1
+    jl = jax.tree.map(lambda a: a[i], jparams["layers"])
+    want = JM._decoder_layer(jcfg, jl, x, pos, is_local)
+    got = TM._decoder_layer(cfg, TM._index(params["layers"], i),
+                            torch.tensor(x), torch.tensor(pos), is_local)
+    for g, w in zip((got[0], got[2], got[3]), (want[0], want[2], want[3])):
+        _close(g, w)
+
+
+def test_forward_prefill_and_cache_match_jax(setup):
+    cfg, jcfg, jparams, params, tokens = setup
+    prompt = tokens[:, :S]
+    j_logits, _ = JM.forward(jcfg, jparams, prompt, remat=False)
+    j_pre, j_cache = JM.prefill(jcfg, jparams, prompt, max_len=S + 4)
+    window_attention.launches = 0
+    t_logits, aux = TM.forward(cfg, params, torch.tensor(prompt))
+    t_pre, t_cache = TM.prefill(cfg, params, torch.tensor(prompt),
+                                max_len=S + 4)
+    assert window_attention.launches == 0       # CPU tensors: plain version
+    assert t_logits.shape == (B, S, cfg.vocab_size) and float(aux) == 0.0
+    _close(t_logits, j_logits)
+    _close(t_pre, j_pre)
+    for name in ("k", "v"):
+        assert tuple(t_cache[name].shape) == j_cache[name].shape
+        _close(t_cache[name], j_cache[name])
+
+
+def test_teacher_forced_decode_matches_jax(setup):
+    cfg, jcfg, jparams, params, tokens = setup
+    prompt = tokens[:, :S]
+    _, j_cache = JM.prefill(jcfg, jparams, prompt, max_len=S + N_DECODE)
+    _, t_cache = TM.prefill(cfg, params, torch.tensor(prompt),
+                            max_len=S + N_DECODE)
+    j_step = jax.jit(lambda c, t, i: JM.decode_step(jcfg, jparams, c, t, i))
+    for n in range(N_DECODE):
+        tok = tokens[:, S + n:S + n + 1]
+        j_lg, j_cache = j_step(j_cache, tok, jnp.int32(S + n))
+        t_lg, t_cache = TM.decode_step(cfg, params, t_cache,
+                                       torch.tensor(tok), S + n)
+        _close(t_lg, j_lg)
+    for name in ("k", "v"):
+        _close(t_cache[name], j_cache[name])
+
+
+def test_generate_matches_jax(setup):
+    """Greedy tokens agree with JAX's at every step whose top-2 margin (in
+    JAX's logits) is above the tolerance, up to the first that is not."""
+    cfg, jcfg, jparams, params, tokens = setup
+    prompt = tokens[:, :S]
+    j_tok, j_logits = JS.generate(jcfg, jparams, prompt, N_DECODE)
+    t_tok, t_logits = TS.generate(cfg, params, torch.tensor(prompt),
+                                  N_DECODE)
+    _close(t_logits, j_logits)
+    j_tok = np.asarray(j_tok)
+    assert t_tok.shape == j_tok.shape
+    # JAX's logits at each generated position, teacher-forced on its tokens
+    _, j_cache = JM.prefill(jcfg, jparams, prompt, max_len=S + N_DECODE)
+    step_logits = [np.asarray(j_logits[:, -1])]
+    for n in range(N_DECODE - 1):
+        lg, j_cache = JM.decode_step(jcfg, jparams, j_cache,
+                                     j_tok[:, n:n + 1], jnp.int32(S + n))
+        step_logits.append(np.asarray(lg[:, 0]))
+    compared = 0
+    for n, lg in enumerate(step_logits):
+        top2 = np.sort(lg, axis=-1)[:, -2:]
+        if (top2[:, 1] - top2[:, 0]).min() <= TOL:
+            break
+        np.testing.assert_array_equal(t_tok[:, n].numpy(), j_tok[:, n])
+        compared += 1
+    assert compared >= 1
+
+
+@pytest.mark.parametrize("arch", [a for a in TC.ARCH_IDS
+                                  if a != "gemma2-2b"])
+def test_unported_archs_raise_with_roadmap_item(arch):
+    with pytest.raises(ValueError, match=r"Queue 1 item 13\b"):
+        TC.get_config(arch)
+    with pytest.raises(ValueError, match=r"Queue 1 item 13\b"):
+        TC.get_smoke_config(arch)
+
+
+@pytest.mark.parametrize("change", [dict(n_experts=4, top_k=2),
+                                    dict(family="ssm"),
+                                    dict(family="hybrid"),
+                                    dict(n_enc_layers=2),
+                                    dict(family="vlm")],
+                         ids=["moe", "ssm", "hybrid", "enc", "vlm"])
+def test_unported_options_raise_with_roadmap_item(change):
+    cfg = dataclasses.replace(TC.get_smoke_config("gemma2-2b"), **change)
+    with pytest.raises(ValueError, match=r"Queue 1 item 13\b"):
+        TM.init_params(cfg, device="cpu")
+
+
+def test_init_params_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible; the default runs there")
+    cfg = TC.get_smoke_config("gemma2-2b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TM.init_params(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TM.init_cache(cfg, 1, 8)
+    assert TM.init_params(cfg, device="cpu")["embed"].device.type == "cpu"

@@ -28,6 +28,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.allin import allin_forces
 from repro_torch.kernels.prefix_sum import prefix_sum
 from repro_torch.kernels.sfc import cell_sfc_forces
+from repro_torch.kernels.window_attn import window_attention
 from repro_torch.kernels.xpencil import (xpencil_forces,
                                          xpencil_packed_forces,
                                          xpencil_sparse_forces)
@@ -64,7 +65,8 @@ def test_nothing_catches_exceptions(path):
 def test_import_needs_no_nvcc_triton_or_jax(tmp_path):
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels, "
             "repro_torch.kernels.ops, repro_torch.kernels.ref, "
-            "repro_torch.convert\n"
+            "repro_torch.convert, repro_torch.configs, repro_torch.models, "
+            "repro_torch.models.serving, repro_torch.kernels.window_attn\n"
             "bad = [m for m in ('jax', 'triton', 'repro') if m in sys.modules]\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PATH=str(tmp_path), PYTHONPATH=str(ROOT / "src"))
@@ -239,6 +241,10 @@ def test_wrappers_refuse_other_devices():
                         plane.to(torch.int32), ids, ids.view(1, 1),
                         ids.view(1, 1, 1).expand(1, 27, 1), m_c=8,
                         kernel=make_lennard_jones(), cutoff2=1.0)
+    qkv = torch.zeros((1, 2, 8, 4), device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        window_attention(qkv, qkv, qkv, window=4, blk=8)
+    assert window_attention.launches == 0
     assert prefix_sum.launches == 0 and xpencil_forces.launches == 0
     assert xpencil_sparse_forces.launches == 0
     assert xpencil_packed_forces.launches == 0
