@@ -26,15 +26,19 @@ the main paths through ``plan(...).execute()`` and checks and times them:
     whose ``pair_cap`` grows.
   * kernel G (sliding-window attention) against its plain version over a
     sweep of batch, GQA ratio, head_dim, window, softcap and dtype, and at
-    the gemma2-2b shape;
+    the gemma2-2b shape, each case on the route ``route(dtype, D)`` names
+    (bf16 wgmma/TMA or fp32 SIMT); the wgmma route's SASS counted for
+    HGMMA and UTMALDG;
   * gemma2-2b serving at full width and depth (bf16 weights from the seed):
     ``generate`` on 2 prompts of 8192 tokens plus 16 greedy tokens, whose
-    prefill runs kernel G in each of its 13 local layers; prefill and
-    decode timed (and the card's busy share under ``torch.profiler``); G
-    on the first local layer's q, k, v against its plain version, timed
-    beside ``scaled_dot_product_attention`` (the yardstick, never called by
-    the port); the prefill's logits against a prefill that runs G's plain
-    version instead.
+    prefill runs kernel G in each of its 13 local layers, all on the
+    wgmma route; prefill and decode timed (and the card's busy share under
+    ``torch.profiler``); G on the first local layer's q, k, v against its
+    plain version, timed beside ``scaled_dot_product_attention`` (the
+    yardstick, never called by the port); the prefill's logits against a
+    prefill that runs G's plain version instead, both against a prefill of
+    the weights upcast to fp32, and the comparison once more under torch's
+    default precision flags.
 
 Per particle, the compacted and packed paths and kernel E must equal the
 dense X-pencil path (kernel B) bit for bit; kernel F sums in another order
@@ -76,6 +80,8 @@ DIST_FLOPS = 9
 
 SCAN_SIZES = (1, 2, 3, 1000, 4097, 262_144, 2_097_157)
 SCAN_TIMED_N = 262_144
+SCAN_LONG_N = 16_777_219          # 16,385 tiles of look-back
+SCAN_REUSED_CALLS = 50            # consecutive calls on one status buffer
 
 DENSE_CASES = ((64, 4, False), (32, 10, True))   # division, per cell, periodic
 PACKED_CASE = (64, 4)                             # division, per cell
@@ -100,6 +106,15 @@ G_SWEEP_S, G_RAGGED_S = 256, 200
 # local layer's output passes through up to 26 bf16 residual layers, and
 # sqrt(26) * 2^-8 = 0.020 is that accumulation taken as a random walk.
 LOGITS_REL_TOL = 2e-2
+# The bf16 prefill with kernel G against an fp32 model of the same weights
+# (G's plain version in fp32), beside the bf16 prefill with G's plain
+# version against the same fp32 model. The only difference between the two
+# bf16 prefills is G's rounding (bf16 P in P . V, another summation order),
+# one more rounding of the size of those the bf16 model already makes in
+# every layer; 1.5x the plain-G prefill's distance leaves room for that one
+# rounding and not for an error of the kernel, which would add a term of
+# the logits' own size.
+FP32_GATE_FACTOR = 1.5
 
 
 def log(*args):
@@ -256,29 +271,50 @@ def kernel_g_bound(b, h, kh, s, d, window, itemsize):
 
 def check_kernel_g(gen, dev):
     """Kernel G against its plain version over the sweep; -> (checks, max
-    abs error). Each element within tol * (1 + |plain|)."""
-    from repro_torch.kernels.window_attn import (window_attention,
+    abs error, launches by route). Each element within tol * (1 +
+    |plain|); every bf16 case whose head_dim the tensor-core route takes
+    must have taken it."""
+    from repro_torch.kernels.window_attn import (route, window_attention,
                                                  window_attention_plain)
     cases = [(b, h, kh, G_SWEEP_S, d, window, softcap, dtype, 128)
-             for b in (1, 2) for h, kh in ((4, 4), (8, 2), (6, 1), (8, 4))
-             for d in (16, 64, 256)
+             for b in (1, 2)
+             for h, kh in ((4, 4), (8, 2), (6, 1), (8, 4), (8, 1))
+             for d in (16, 64, 128, 256)
              for window in (5, 100, G_SWEEP_S + 44)   # < tile, ragged, > S
              for softcap in (0.0, 50.0)
              for dtype in (torch.float32, torch.bfloat16)]
-    cases += [(1, 8, 2, G_RAGGED_S, d, window, 50.0, dtype, 8)  # S % 32 != 0
-              for d in (16, 64, 256) for window in (5, 77, G_RAGGED_S)
+    # S not a multiple of 64 (200) or of 128 (320); window 1, below the
+    # 64-key tile, ragged, and >= S
+    cases += [(1, 8, 2, s, d, window, 50.0, dtype, 8)
+              for s in (G_RAGGED_S, 320) for d in (16, 64, 128, 256)
+              for window in (1, 5, 77, s)
               for dtype in (torch.float32, torch.bfloat16)]
+    # bf16 head dims between the powers of two, and GQA ratios 1 to 8
+    cases += [(1, h, kh, G_SWEEP_S, d, 64, 50.0, torch.bfloat16, 128)
+              for d in (32, 48, 80, 96, 112, 144, 160, 176, 192, 208, 224,
+                        240)
+              for h, kh in ((4, 4), (8, 4), (8, 2), (8, 1))]
+    # B * H * S / 128 = 512 and 1,024 blocks: several waves of the 132 SMs
+    cases += [(4, 16, 4, 1024, d, 300, 50.0, torch.bfloat16, 128)
+              for d in (128, 256)]
     cases += [(1, 8, 4, LM_PROMPT, 256, 4096, 50.0, torch.bfloat16, 128)]
     max_err = 0.0
+    by_route = dict.fromkeys(window_attention.launches_by_route, 0)
     for b, h, kh, s, d, window, softcap, dtype, blk in cases:
         amp = 4.0 if softcap else 1.0            # scores past the cap
         q = (torch.randn((b, h, s, d), generator=gen, device=dev) * amp)
         k = (torch.randn((b, kh, s, d), generator=gen, device=dev) * amp)
         v = torch.randn((b, kh, s, d), generator=gen, device=dev)
         q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+        before = dict(window_attention.launches_by_route)
         got = window_attention(q, k, v, window=window, blk=blk,
                                softcap=softcap)
         torch.cuda.synchronize()
+        way = route(dtype, d)
+        if window_attention.launches_by_route[way] != before[way] + 1:
+            raise AssertionError(f"kernel G, D={d} {dtype}: did not take "
+                                 f"the {way} route")
+        by_route[way] += 1
         want = window_attention_plain(q, k, v, window=window, blk=blk,
                                       softcap=softcap).float()
         err = (got.float() - want).abs()
@@ -287,10 +323,20 @@ def check_kernel_g(gen, dev):
                 bool((err > tol * (1 + want.abs())).any()):
             raise AssertionError(
                 f"kernel G vs plain, B={b} H={h} KH={kh} S={s} D={d} "
-                f"window={window} softcap={softcap} {dtype}: max |diff| "
-                f"{float(err.max()):.3e} > {tol} (1 + |want|)")
+                f"window={window} softcap={softcap} {dtype} ({way}): max "
+                f"|diff| {float(err.max()):.3e} > {tol} (1 + |want|)")
         max_err = max(max_err, float(err.max()))
-    return len(cases), max_err
+    return len(cases), max_err, by_route
+
+
+def sass_counts(source: str):
+    """{instruction: count} of the tensor-core and TMA instructions in the
+    built library of ``csrc/<source>`` (``cuobjdump -sass``)."""
+    from repro_torch.kernels import _build
+    tool = pathlib.Path(_build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(_build.library_path(source))],
+                          check=True, capture_output=True, text=True).stdout
+    return {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
 
 
 def logits_diff(got, want, chunk: int = 1024):
@@ -307,11 +353,13 @@ def logits_diff(got, want, chunk: int = 1024):
     return (num / den) ** 0.5, worst
 
 
-def lm_serving(seed: int, dev, reset_launches, launch_counts):
+def lm_serving(seed: int, dev, reset_launches, launch_counts,
+               precision_defaults):
     """gemma2-2b at full width and depth: the main path (``generate``), its
     timing by layer, kernel G on the captured q, k, v against its plain
-    version and the SDPA yardstick, and the prefill's logits against a
-    prefill with G's plain version."""
+    version and the SDPA yardstick, the prefill's logits against a prefill
+    with G's plain version, both against an fp32 model of the same weights,
+    and the comparison again under torch's default precision flags."""
     import numpy as np
     import torch.nn.functional as F
 
@@ -344,9 +392,12 @@ def lm_serving(seed: int, dev, reset_launches, launch_counts):
     launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_local = cfg.n_layers // 2
-    if launches != {"window_attention": n_local}:
-        raise AssertionError(f"generate launched {launches}, want "
-                             f"window_attention {n_local} (one prefill)")
+    routes = dict(window_attention.launches_by_route)
+    if launches != {"window_attention": n_local} or \
+            routes != {"wgmma": n_local, "simt": 0}:
+        raise AssertionError(f"generate launched {launches} by route "
+                             f"{routes}, want window_attention {n_local} "
+                             f"(one prefill), all on the wgmma route")
     if tuple(tokens.shape) != (LM_BATCH, LM_NEW) or \
             int(tokens.min()) < 0 or int(tokens.max()) >= cfg.vocab_size:
         raise AssertionError(f"generated tokens {tuple(tokens.shape)} out "
@@ -363,7 +414,8 @@ def lm_serving(seed: int, dev, reset_launches, launch_counts):
     log(f"gemma2-2b main path: {n_params} parameters ({cfg.dtype}, seed "
         f"{seed}, "
         f"{init_s:.1f} s), generate {LM_BATCH} x {LM_PROMPT} prompt tokens "
-        f"+ {LM_NEW} new in {generate_s:.2f} s, launches {launches}, peak "
+        f"+ {LM_NEW} new in {generate_s:.2f} s, launches {launches} (G by "
+        f"route {routes}), peak "
         f"{peak_gb:.2f} GB allocated; tokens {tokens.tolist()}")
 
     # -- prefill timed, q, k, v of the first local layer captured --------------
@@ -412,8 +464,6 @@ def lm_serving(seed: int, dev, reset_launches, launch_counts):
     del cache
     prefill_dev_ms, prefill_launches, prefill_kernels = device_time(
         lambda: M.prefill(cfg, params, prompt, max_len=max_len))
-    if decode_dev_ms <= 0 or prefill_dev_ms <= 0:
-        log("torch.profiler saw no device time; busy shares not measured")
 
     # -- kernel G on the captured gemma q, k, v --------------------------------
     q, k, v, kw = (captured[n] for n in ("q", "k", "v", "kw"))
@@ -427,6 +477,12 @@ def lm_serving(seed: int, dev, reset_launches, launch_counts):
     b, h, s, d = q.shape
     kh = k.shape[1]
     g_ms = cuda_ms(lambda: window_attention(q, k, v, **kw), reps=10)
+    # G's device time per call: its kernels' share of the prefill's profile
+    # (13 launches at this shape; a profiler session around G alone saw no
+    # kernel on the card)
+    g_dev_ms = group_kernel_times(prefill_kernels)["kernel G"] / n_local
+    if g_dev_ms <= 0:
+        raise AssertionError("the prefill's profile holds no kernel G time")
     g_plain_ms = cuda_ms(lambda: window_attention_plain(q, k, v, **kw),
                          reps=3)
     kw0 = dict(kw, softcap=0.0)
@@ -441,6 +497,17 @@ def lm_serving(seed: int, dev, reset_launches, launch_counts):
     sdpa_ms = cuda_ms(sdpa, reps=5)
     g_bound_ms, g_bound_by, g_flops, g_bytes = kernel_g_bound(
         b, h, kh, s, d, kw["window"], q.element_size())
+    # rate-only reference: causal SDPA on the flash backend, softcap 0, over
+    # all S (S + 1) / 2 causal pairs (another function: no window)
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qe, ke, ve = (q, k.repeat_interleave(h // kh, 1),
+                  v.repeat_interleave(h // kh, 1))
+    causal_flops = 4 * d * b * h * s * (s + 1) // 2
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+        causal_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qe, ke, ve, is_causal=True), reps=5)
+    causal_tflops = causal_flops / causal_ms / 1e9
+    del qe, ke, ve
 
     # -- where the prefill's time goes: the layers on the same shapes ----------
     x = torch.randn((b, s, cfg.d_model), generator=torch.Generator(
@@ -479,7 +546,54 @@ def lm_serving(seed: int, dev, reset_launches, launch_counts):
                              f"{LOGITS_REL_TOL}), max |diff| {worst:.3e}, "
                              f"greedy equal {same_greedy} (margin "
                              f"{margin:.3e})")
-    del logits_g, logits_p
+
+    # -- both bf16 prefills against an fp32 model of the same weights -----------
+    params32 = _map(params, lambda t: t.float())
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    reset_launches()
+    M.window_attention = window_attention_plain
+    logits_32, cache = M.prefill(cfg32, params32, prompt, max_len=max_len)
+    M.window_attention = window_attention
+    torch.cuda.synchronize()
+    fp32_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del cache, params32
+    if launch_counts():
+        raise AssertionError(f"fp32 prefill launched {launch_counts()}")
+    rel_g32, worst_g32 = logits_diff(logits_g, logits_32)
+    rel_p32, worst_p32 = logits_diff(logits_p, logits_32)
+    del logits_32
+    log(f"gemma2-2b vs an fp32 model (G's plain version): relative L2 of the "
+        f"bf16 prefill with kernel G {rel_g32:.6f}, with G's plain version "
+        f"{rel_p32:.6f} (ratio {rel_g32 / rel_p32:.4f}, gate "
+        f"{FP32_GATE_FACTOR}); max |diff| {worst_g32:.4f}, {worst_p32:.4f}")
+    if not rel_g32 <= FP32_GATE_FACTOR * rel_p32:
+        raise AssertionError(f"prefill with kernel G is {rel_g32:.4e} from "
+                             f"the fp32 model, more than {FP32_GATE_FACTOR} "
+                             f"x the plain-G prefill's {rel_p32:.4e}")
+    del logits_p
+
+    # -- G against its plain version again, under torch's default flags ---------
+    strict = precision_flags()
+    set_precision_flags(precision_defaults)
+    (logits_gd, cache), default_prefill_ms = timed_prefill()
+    del cache
+    M.window_attention = window_attention_plain
+    (logits_pd, cache), _ = timed_prefill()
+    M.window_attention = window_attention
+    del cache
+    set_precision_flags(strict)
+    rel_d, worst_d = logits_diff(logits_gd, logits_pd)
+    rel_flags, _ = logits_diff(logits_gd, logits_g)
+    del logits_pd, logits_g
+    log(f"gemma2-2b under torch's defaults {precision_defaults}: prefill "
+        f"with kernel G vs with its plain version, relative L2 {rel_d:.6f} "
+        f"(tol {LOGITS_REL_TOL}), max |diff| {worst_d:.4f}; vs the same "
+        f"prefill under the checks' flags {rel_flags:.6f}")
+    if rel_d > LOGITS_REL_TOL or not bool(logits_gd[:, -1].isfinite().all()):
+        raise AssertionError(f"under torch's default flags, prefill with "
+                             f"kernel G vs its plain version: relative L2 "
+                             f"{rel_d:.3e} (tol {LOGITS_REL_TOL})")
+    del logits_gd
     res = {
         "case": f"{LM_ARCH} {cfg.dtype}, B={LM_BATCH}, prompt {LM_PROMPT}, "
                 f"{LM_NEW} new tokens, max_len {max_len}",
@@ -498,7 +612,12 @@ def lm_serving(seed: int, dev, reset_launches, launch_counts):
         "decode_top_kernels": [(k[:72], ms) for k, ms in decode_kernels[:5]],
         "decode_launches_per_token": decode_launches,
         "prefill_launches": prefill_launches,
+        "routes": routes,
         "kernel_g_ms": g_ms, "kernel_g_softcap0_ms": g0_ms,
+        "kernel_g_device_ms": g_dev_ms,
+        "kernel_g_tflops": g_flops / g_ms / 1e9,
+        "sdpa_causal_flash_ms": causal_ms,
+        "sdpa_causal_flash_tflops": causal_tflops,
         "kernel_g_plain_ms": g_plain_ms, "sdpa_ms": sdpa_ms,
         "sdpa_vs_g_softcap0_max_abs": sdpa_err,
         "kernel_g_bound_ms": g_bound_ms, "kernel_g_bound_by": g_bound_by,
@@ -509,6 +628,13 @@ def lm_serving(seed: int, dev, reset_launches, launch_counts):
         "global_layer_ms": layer_ms["global"], "logits_ms": logits_ms,
         "plain_prefill_ms": plain_prefill_ms,
         "logits_rel_l2": rel, "logits_max_abs_diff": worst,
+        "logits_g_vs_fp32_rel_l2": rel_g32,
+        "logits_plain_vs_fp32_rel_l2": rel_p32,
+        "fp32_prefill_peak_allocated_gb": fp32_peak_gb,
+        "default_flags": precision_defaults,
+        "default_flags_prefill_ms": default_prefill_ms,
+        "default_flags_logits_rel_l2": rel_d,
+        "default_vs_strict_flags_rel_l2": rel_flags,
         "last_top2_margin": margin, "greedy_equal": same_greedy,
         "shapes": f"q ({b}, {h}, {s}, {d}), k, v ({b}, {kh}, {s}, {d}) "
                   f"{q.dtype}, window {kw['window']}, softcap "
@@ -516,6 +642,22 @@ def lm_serving(seed: int, dev, reset_launches, launch_counts):
     }
     log("gemma2-2b: " + json.dumps(res))
     return res
+
+
+def precision_flags():
+    """The three precision flags the card checks set, as they stand."""
+    return {"matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "matmul.allow_bf16_reduced_precision_reduction":
+                torch.backends.cuda.matmul
+                .allow_bf16_reduced_precision_reduction,
+            "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32}
+
+
+def set_precision_flags(flags) -> None:
+    torch.backends.cuda.matmul.allow_tf32 = flags["matmul.allow_tf32"]
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        flags["matmul.allow_bf16_reduced_precision_reduction"]
+    torch.backends.cudnn.allow_tf32 = flags["cudnn.allow_tf32"]
 
 
 def device_time(fn, reps: int = 1):
@@ -534,8 +676,12 @@ def device_time(fn, reps: int = 1):
               if e.device_type == torch.autograd.DeviceType.CUDA]
     kernels = sorted(((e.key, e.self_device_time_total / 1e3 / reps)
                       for e in events), key=lambda kv: -kv[1])
-    return (sum(ms for _, ms in kernels),
-            sum(e.count for e in events) / reps, kernels)
+    total = sum(ms for _, ms in kernels)
+    if total <= 0:
+        # the launch-count and device-time checks read this profile; one
+        # that saw no kernel on the card would pass them untested
+        raise AssertionError("torch.profiler recorded no device time")
+    return total, sum(e.count for e in events) / reps, kernels
 
 
 # kernel-name groups of the LM's device time, tried in order
@@ -556,6 +702,12 @@ def group_kernel_times(kernels):
                       if any(k in name for k in keys)), "other")
         out[group] += ms
     return out
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
 
 
 def _leaves(tree):
@@ -621,13 +773,12 @@ def main(argv=None) -> int:
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     log(f"nvidia-smi: {smi[0]}")
     # every plain version and reference on the card: fp32 matmuls in full
-    # fp32 (no TF32) and bf16 GEMMs without reduced-precision reductions
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    torch.backends.cudnn.allow_tf32 = False
-    log("matmul: allow_tf32=False, "
-        "allow_bf16_reduced_precision_reduction=False, cudnn.allow_tf32="
-        "False")
+    # fp32 (no TF32) and bf16 GEMMs without reduced-precision reductions;
+    # torch's defaults are kept for the one comparison run under them
+    precision_defaults = precision_flags()
+    set_precision_flags(dict.fromkeys(precision_defaults, False))
+    log(f"precision flags: {precision_flags()} (torch's defaults: "
+        f"{precision_defaults})")
 
     # -- build ---------------------------------------------------------------
     nvcc = subprocess.run([_build.nvcc_path(), "--version"], check=True,
@@ -753,6 +904,8 @@ def main(argv=None) -> int:
     def reset_launches():
         for w in wrappers.values():
             w.launches = 0
+        window_attention.launches_by_route = dict.fromkeys(
+            window_attention.launches_by_route, 0)
 
     def launch_counts():
         return {n: w.launches for n, w in wrappers.items() if w.launches}
@@ -768,31 +921,62 @@ def main(argv=None) -> int:
                                      f"(max |diff| {float(d):.3e})")
 
     # -- kernel A: the paper's scan, exactly equal to its plain versions ----
+    # the long and the repeated scans draw from a generator of their own,
+    # so every later phase draws the data it drew before
+    reuse_gen = torch.Generator(device=dev)
+    reuse_gen.manual_seed(args.seed + 1)
     scan_checks = 0
-    for n in SCAN_SIZES:
-        x = torch.randint(0, 10, (n,), generator=gen, device=dev,
-                          dtype=torch.int32)
+    for n in (*SCAN_SIZES, SCAN_LONG_N):
+        x = torch.randint(0, 10, (n,), device=dev, dtype=torch.int32,
+                          generator=gen if n != SCAN_LONG_N else reuse_gen)
         got = prefix_sum(x)
         torch.cuda.synchronize()
-        for name, want in (
-                ("paper_prefix_sum", plain_prefix.paper_prefix_sum(x)),
-                ("tiled_prefix_sum", plain_prefix.tiled_prefix_sum(x, 1024)),
-                ("torch.cumsum", torch.cumsum(x, 0, dtype=torch.int32))):
+        wants = [("torch.cumsum", torch.cumsum(x, 0, dtype=torch.int32)),
+                 ("tiled_prefix_sum", plain_prefix.tiled_prefix_sum(x, 1024))]
+        if n != SCAN_LONG_N:
+            wants.append(("paper_prefix_sum",
+                          plain_prefix.paper_prefix_sum(x)))
+        for name, want in wants:
             if not torch.equal(got, want):
                 raise AssertionError(f"scan n={n} differs from {name}")
             scan_checks += 1
+    # consecutive calls on one stream's status buffer, lengths up and down
+    reuse_sizes = [SCAN_TIMED_N, 5000, SCAN_LONG_N, 1, 70_001]
+    for i in range(SCAN_REUSED_CALLS):
+        x = torch.randint(-50, 50, (reuse_sizes[i % len(reuse_sizes)],),
+                          generator=reuse_gen, device=dev, dtype=torch.int32)
+        if not torch.equal(prefix_sum(x), torch.cumsum(x, 0,
+                                                       dtype=torch.int32)):
+            raise AssertionError(f"scan call {i} of {SCAN_REUSED_CALLS} on "
+                                 f"one buffer differs from torch.cumsum")
+        scan_checks += 1
     x = torch.randint(0, 10, (SCAN_TIMED_N,), generator=gen, device=dev,
                       dtype=torch.int32)
-    scan_ms = cuda_ms(lambda: prefix_sum(x), reps=200)
+    # kernel and torch.cumsum measured the same way, in turns
+    turns = {"A": [], "cumsum": []}
+    for which in ("A", "cumsum", "cumsum", "A"):
+        turns[which].append(cuda_ms(
+            (lambda: prefix_sum(x)) if which == "A" else
+            (lambda: torch.cumsum(x, 0, dtype=torch.int32)), reps=200))
+    scan_ms, cumsum_ms = (statistics.mean(turns[k]) for k in ("A", "cumsum"))
     scan_plain_ms = cuda_ms(lambda: plain_prefix.paper_prefix_sum(x),
                             reps=20)
-    cumsum_ms = cuda_ms(lambda: torch.cumsum(x, 0, dtype=torch.int32),
-                        reps=200)
+    scan_dev_ms, scan_launches, _ = device_time(lambda: prefix_sum(x),
+                                                reps=20)
+    cumsum_dev_ms, cumsum_launches, _ = device_time(
+        lambda: torch.cumsum(x, 0, dtype=torch.int32), reps=20)
+    if scan_launches != 1:
+        raise AssertionError(f"kernel A: {scan_launches} device launches per "
+                             f"call under the profiler, want 1")
     scan_bound_ms = 1e3 * max(8 * SCAN_TIMED_N / HBM_BYTES_PER_S,
                               SCAN_TIMED_N / F32_OPS_PER_S)
-    log(f"scan: exact at n={list(SCAN_SIZES)} ({scan_checks} checks); "
-        f"n={SCAN_TIMED_N}: kernel {scan_ms:.4f} ms, plain {scan_plain_ms:.4f}"
-        f" ms, torch.cumsum {cumsum_ms:.4f} ms, bound {scan_bound_ms:.5f} ms")
+    log(f"scan: exact at n={[*SCAN_SIZES, SCAN_LONG_N]} and over "
+        f"{SCAN_REUSED_CALLS} calls on one buffer ({scan_checks} checks); "
+        f"n={SCAN_TIMED_N}: kernel {scan_ms:.4f} ms (turns {turns['A']}), "
+        f"torch.cumsum {cumsum_ms:.4f} ms (turns {turns['cumsum']}); device "
+        f"time kernel {scan_dev_ms:.5f} ms in {scan_launches:g} launch(es), "
+        f"torch.cumsum {cumsum_dev_ms:.5f} ms in {cumsum_launches:g}; plain "
+        f"{scan_plain_ms:.4f} ms, bound {scan_bound_ms:.5f} ms")
 
     # -- kernels B, C, D against their plain versions; bit identity --------
     kernels = {"lennard_jones": make_lennard_jones(),
@@ -1363,12 +1547,20 @@ def main(argv=None) -> int:
     # -- kernel G against its plain version; gemma2-2b serving ---------------
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    g_checks, g_sweep_err = check_kernel_g(gen, dev)
-    log(f"kernel G: {g_checks} cases (B, H/KH, D, window, softcap, fp32 and "
-        f"bf16, ragged S, the gemma shape) within {G_TOL[torch.float32]} "
-        f"(fp32) / {G_TOL[torch.bfloat16]} (bf16) of (1 + |plain|); max "
-        f"|diff| {g_sweep_err:.3e}; {time.perf_counter() - t0:.1f} s")
-    lm = lm_serving(args.seed, dev, reset_launches, launch_counts)
+    g_checks, g_sweep_err, g_by_route = check_kernel_g(gen, dev)
+    log(f"kernel G: {g_checks} cases (B, H/KH 1-8, D, window 1 to > S, "
+        f"softcap, fp32 and bf16, S not a multiple of 64 or 128, several "
+        f"waves, the gemma shape) within {G_TOL[torch.float32]} (fp32) / "
+        f"{G_TOL[torch.bfloat16]} (bf16) of (1 + |plain|); routes "
+        f"{g_by_route}; max |diff| {g_sweep_err:.3e}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    g_sass = sass_counts("window_attn_sm90.cu")
+    log(f"kernel G wgmma route SASS (cuobjdump -sass): {g_sass}")
+    if not (g_sass["HGMMA"] and g_sass["UTMALDG"]):
+        raise AssertionError(f"kernel G's wgmma route: no HGMMA or UTMALDG "
+                             f"in its SASS: {g_sass}")
+    lm = lm_serving(args.seed, dev, reset_launches, launch_counts,
+                    precision_defaults)
 
     a, b = new_cases["a"], new_cases["b"]
     sfc_main = sfc_results[0]
@@ -1380,6 +1572,10 @@ def main(argv=None) -> int:
          "max_abs_err": 0, "ms": scan_ms, "plain_ms": scan_plain_ms,
          "bound_ms": scan_bound_ms, "bound_by": "bytes",
          "library_ms": cumsum_ms, "shapes": f"int32 ({SCAN_TIMED_N},)",
+         "device_ms": scan_dev_ms, "device_launches": scan_launches,
+         "library_device_ms": cumsum_dev_ms,
+         "library_device_launches": cumsum_launches,
+         "kernel_route": "single-pass decoupled look-back, one launch",
          "checks_passed": scan_checks},
         {"name": "xpencil_forces", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/xpencil.cu",
@@ -1454,7 +1650,9 @@ def main(argv=None) -> int:
          "max_term_rel_err": sfc_main["kernel_f_term_rel_err"],
          "checks_passed": sfc_checks},
         {"name": "window_attention", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/window_attn.cu",
+         "source": "src/repro_torch/kernels/csrc/window_attn_sm90.cu (bf16, "
+                   "D % 16 == 0), src/repro_torch/kernels/csrc/"
+                   "window_attn.cu (fp32, other D)",
          "replaces": "src/repro/kernels/window_attn.py:104",
          "launches": lm["launches"]["window_attention"],
          "main_case": lm["case"],
@@ -1464,6 +1662,14 @@ def main(argv=None) -> int:
          "bound_by": lm["kernel_g_bound_by"], "library_ms": lm["sdpa_ms"],
          "library_call": "scaled_dot_product_attention(attn_mask=band, "
                          "enable_gqa=True), softcap 0",
+         "device_ms": lm["kernel_g_device_ms"],
+         "device_ms_from": "torch.profiler, the prefill's 13 launches",
+         "kernel_route": "wgmma (bf16 tensor cores, TMA); main path routes "
+                         f"{lm['routes']}, sweep routes {g_by_route}",
+         "tflops": lm["kernel_g_tflops"],
+         "sdpa_causal_flash_ms": lm["sdpa_causal_flash_ms"],
+         "sdpa_causal_flash_tflops": lm["sdpa_causal_flash_tflops"],
+         "sass": g_sass,
          "shapes": lm["shapes"], "checks_passed": g_checks + 1},
     ]}
     log(f"total {time.perf_counter() - t_start:.1f} s")

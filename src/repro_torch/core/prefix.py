@@ -8,10 +8,12 @@ and therefore needs ``2h - 3`` barriers instead of ``2h``
 Each ``while`` iteration below is one barrier-delimited level; the indexed
 add inside is what all threads of the block do between two barriers.
 
-``tiled_prefix_sum`` composes tiles in the three passes the CUDA kernel uses
-for arrays longer than one block's tile (per-tile scan, scan of the tile
-totals, carry add). Integer addition is associative, so every composition
-gives the same bits as ``torch.cumsum``.
+``tiled_prefix_sum`` composes tiles as the CUDA kernel does for arrays
+longer than one block's tile: each tile is scanned on its own and adds the
+sum of the tiles before it. The kernel finds that carry in one pass by
+looking back over its predecessors' published totals (decoupled look-back);
+here it is a scan of the tile totals. Integer addition is associative, so
+every composition gives the same bits as ``torch.cumsum``.
 """
 
 from __future__ import annotations
@@ -66,8 +68,10 @@ def exclusive_prefix_sum(x: torch.Tensor,
 
 def tiled_prefix_sum(x: torch.Tensor, tile: int) -> torch.Tensor:
     """Inclusive scan of a rank-1 tensor composed from ``tile``-element
-    paper scans: scan each tile, scan the tile totals (recursively), add
-    each tile's carry. The schedule of the CUDA kernel, at any length."""
+    paper scans: scan each tile, add each tile's carry, the sum of the tiles
+    before it (here a recursive scan of the tile totals; the CUDA kernel's
+    look-back computes the same carry). The CUDA kernel's result at any
+    length."""
     n = x.shape[0]
     if n <= tile:
         return paper_prefix_sum(x)

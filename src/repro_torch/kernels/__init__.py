@@ -7,7 +7,8 @@ sfc          Par-Cell over the SFC cluster-pair list (kernel F,
              csrc/sfc.cu)
 prefix_sum   the paper's §6 scan (kernel A, csrc/prefix_sum.cu)
 window_attn  causal sliding-window attention of the LM's local layers
-             (kernel G, csrc/window_attn.cu)
+             (kernel G: bf16 on tensor cores, csrc/window_attn_sm90.cu;
+             fp32 and other head dims on CUDA cores, csrc/window_attn.cu)
 
 Each kernel has a wrapper that runs its plain PyTorch version on CPU
 tensors and launches the kernel on CUDA tensors. Importing this package

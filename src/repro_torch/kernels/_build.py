@@ -9,7 +9,9 @@ stderr.
 
 ``SIGNATURES`` declares every C entry point: pointers and the stream are
 ``c_void_p`` (a default ctypes int would cut a 64-bit pointer), and every
-entry returns the ``cudaError_t`` of its launches as an int.
+entry returns an int, the ``cudaError_t`` of its launches. The host side of a
+kernel that uses TMA gets ``cuTensorMapEncodeTiled`` through the runtime's
+driver entry points, so nothing links the driver library.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
-# source file -> {C symbol: argtypes}; every restype is c_int (cudaError_t)
+# source file -> {C symbol: argtypes}; every restype is c_int
 SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     "allin.cu": {
         # x, y, z, slot_id, fx, fy, fz, pot, nx, ny, nz, m_c, bx, by, bz,
@@ -39,7 +41,7 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
                              _I, _I, _I, _F, _I, _F, _F, _F, _F, _I, _P),
     },
     "prefix_sum.cu": {
-        # in, out, scratch, n, scratch_elems, stream
+        # in, out, status, n, capacity, stream
         "paper_scan_i32": (_P, _P, _P, _LL, _LL, _P),
     },
     "sfc.cu": {
@@ -70,6 +72,11 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         # q, k, v, o, B, H, KH, S, D, window, softcap, scale, bf16, stream
         "window_attention_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                                  _F, _I, _P),
+    },
+    "window_attn_sm90.cu": {
+        # q, k, v, o, B, H, KH, S, D, window, softcap, scale, stream
+        "window_attention_sm90": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                                  _F, _P),
     },
 }
 

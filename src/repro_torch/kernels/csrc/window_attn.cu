@@ -30,11 +30,12 @@
 // 4 * D FLOP (2 D for q.k, 2 D for p.v); at gemma2-2b's local layers (S =
 // 8192, window 4096, H = 8, D = 256) that is 206.2 GFLOP per sequence, a
 // bound of 0.208 ms against the 989 TFLOP/s of bf16 tensor cores, while
-// q, k, v and o (100.7 MB) bound it at 0.030 ms only. This first kernel
-// keeps the arithmetic on the CUDA cores in fp32 (67 TFLOP/s, so at least
-// 3.1 ms per sequence), with shared-memory traffic near the FMA rate; the
-// tensor-core redesign (mma.sync or wgmma on bf16 tiles, TMA-fed K/V
-// stages, a warp-specialised producer) is later work.
+// q, k, v and o (100.7 MB) bound it at 0.030 ms only. This body keeps the
+// arithmetic on the CUDA cores in fp32 (67 TFLOP/s, so at least 3.1 ms per
+// sequence), with shared-memory traffic near the FMA rate. It is kernel G's
+// route for fp32 inputs (TF32 tensor cores would miss the fp32 tolerance)
+// and for bf16 head dims that are not a multiple of 16; bf16 with D % 16 ==
+// 0 runs on the tensor cores (window_attn_sm90.cu).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

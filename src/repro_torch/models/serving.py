@@ -3,6 +3,18 @@
 The port of ``repro/models/serving.py``. It runs eagerly (JAX jits the
 decode step); the prompt and every generated token stay on the params'
 device, so the loop never waits on the host between steps.
+
+Precision flags: the library sets none. The card checks (``chip_smoke.py``)
+run with ``torch.backends.cuda.matmul.allow_tf32``,
+``matmul.allow_bf16_reduced_precision_reduction`` and
+``cudnn.allow_tf32`` all False, and repeat the prefill-logits comparison
+of kernel G against its plain version under torch's defaults. Of those
+defaults only ``allow_bf16_reduced_precision_reduction = True`` touches
+this path: cuBLAS may then reduce the bf16 projections, MLP and logits
+GEMMs in reduced precision, so logits move by bf16 rounding
+(``PERF.md`` §6 gives the measured distance). TF32 does not apply (the
+fp32 matmuls of the global layers' attention stay in full fp32 by
+default) and nothing here calls cuDNN.
 """
 
 from __future__ import annotations

@@ -21,7 +21,7 @@ from repro_torch.core.binning import (bin_particles, build_sfc_clusters,
 from repro_torch.kernels.allin import allin_forces, halo_bytes
 from repro_torch.kernels.prefix_sum import prefix_sum
 from repro_torch.kernels.sfc import cell_sfc_forces
-from repro_torch.kernels.window_attn import (window_attention,
+from repro_torch.kernels.window_attn import (route, window_attention,
                                              window_attention_plain)
 from repro_torch.kernels.xpencil import (xpencil_forces,
                                          xpencil_packed_forces,
@@ -44,6 +44,37 @@ def test_scan_kernel_exact(gen, n):
     assert torch.equal(prefix_sum(x), torch.cumsum(x, 0, dtype=torch.int32))
     assert torch.equal(plain_prefix.exclusive_prefix_sum(x, scan=prefix_sum),
                        plain_prefix.exclusive_prefix_sum(x))
+
+
+def test_scan_kernel_exact_over_reused_calls(gen):
+    """50 calls on one stream's status buffer, lengths up and down, each
+    bit-equal to torch.cumsum, one launch each."""
+    sizes = [262_144, 5000, 1024 ** 2 + 3, 1, 70_000] * 10
+    prefix_sum.launches = 0
+    for n in sizes:
+        x = torch.randint(-50, 50, (n,), generator=gen, device="cuda",
+                          dtype=torch.int32)
+        assert torch.equal(prefix_sum(x), torch.cumsum(x, 0,
+                                                       dtype=torch.int32))
+    assert prefix_sum.launches == len(sizes)
+
+
+def test_scan_kernel_exact_on_two_streams(gen):
+    """Scans issued on two streams at once each use their own status
+    buffer."""
+    xs = [torch.randint(0, 10, (3_000_000,), generator=gen, device="cuda",
+                        dtype=torch.int32) for _ in range(2)]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in xs]
+    outs = [[], []]
+    for _ in range(5):
+        for i, (st, x) in enumerate(zip(streams, xs)):
+            with torch.cuda.stream(st):
+                outs[i].append(prefix_sum(x))
+    torch.cuda.synchronize()
+    for x, got in zip(xs, outs):
+        want = torch.cumsum(x, 0, dtype=torch.int32)
+        assert all(torch.equal(g, want) for g in got)
 
 
 @pytest.mark.parametrize("periodic", [False, True])
@@ -308,12 +339,40 @@ def test_window_kernel_matches_plain(gen, b, h, kh, s, d, window, softcap,
     q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
     blk = 8 if s % 32 else 32
     window_attention.launches = 0
+    window_attention.launches_by_route = dict.fromkeys(
+        window_attention.launches_by_route, 0)
     got = window_attention(q, k, v, window=window, blk=blk, softcap=softcap)
     torch.cuda.synchronize()
     assert window_attention.launches == 1 and got.dtype == dtype
+    assert window_attention.launches_by_route[route(dtype, d)] == 1
     want = window_attention_plain(q, k, v, window=window, blk=blk,
                                   softcap=softcap)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("b,h,kh,s,d,window,softcap", [
+    (2, 4, 2, 256, 128, 100, 50.0), (1, 8, 4, 384, 256, 200, 50.0),
+    (1, 4, 1, 200, 64, 77, 0.0), (2, 4, 2, 128, 64, 1, 50.0),
+    (1, 8, 1, 256, 128, 96, 0.0), (1, 2, 2, 96, 48, 40, 0.0)],
+    ids=["d128", "d256", "ragged-s200", "window1", "gqa8", "d48"])
+def test_window_wgmma_route_matches_plain(gen, b, h, kh, s, d, window,
+                                          softcap):
+    """bf16 shapes that the tensor-core route must take, within 2e-2 of the
+    plain version."""
+    q = torch.randn((b, h, s, d), generator=gen, device="cuda") * 4
+    k = torch.randn((b, kh, s, d), generator=gen, device="cuda") * 4
+    v = torch.randn((b, kh, s, d), generator=gen, device="cuda")
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    blk = 8
+    window_attention.launches_by_route = dict.fromkeys(
+        window_attention.launches_by_route, 0)
+    got = window_attention(q, k, v, window=window, blk=blk, softcap=softcap)
+    torch.cuda.synchronize()
+    assert window_attention.launches_by_route == {"wgmma": 1, "simt": 0}
+    want = window_attention_plain(q, k, v, window=window, blk=blk,
+                                  softcap=softcap)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
 
 
 def test_window_wrapper_raises_past_head_dim_256(gen):
@@ -333,9 +392,12 @@ def test_gemma_smoke_prefill_launches_kernel_g(gen):
     tokens = torch.randint(0, cfg.vocab_size, (2, 32), generator=gen,
                            device="cuda")
     window_attention.launches = 0
+    window_attention.launches_by_route = dict.fromkeys(
+        window_attention.launches_by_route, 0)
     logits, cache = M.prefill(cfg, params, tokens, max_len=36)
     torch.cuda.synchronize()
     assert window_attention.launches == cfg.n_layers // 2
+    assert window_attention.launches_by_route["simt"] == cfg.n_layers // 2
     want, cache_cpu = M.prefill(cfg, _to_cpu(params), tokens.cpu(),
                                 max_len=36)
     torch.testing.assert_close(logits.cpu(), want, rtol=2e-3, atol=2e-3)

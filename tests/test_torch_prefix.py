@@ -11,7 +11,7 @@ from repro.core import prefix as jprefix
 from repro.kernels.prefix_sum import prefix_sum as jax_pallas_prefix_sum
 from repro_torch.core import prefix as tprefix
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.prefix_sum import prefix_sum, scratch_elems
+from repro_torch.kernels.prefix_sum import TILE, prefix_sum, status_words
 
 torch.set_num_threads(1)
 
@@ -70,8 +70,21 @@ def test_jax_pallas_kernel_agrees(n):
 
 
 def test_scratch_matches_recursion():
-    """The kernel's scratch holds the totals of every level of recursion."""
-    assert scratch_elems(1024) == 0
-    assert scratch_elems(1025) == 2
-    assert scratch_elems(2_097_157) == 2049 + 3
-    assert scratch_elems(262_144) == 256
+    """The kernel's status buffer: the ticket counter, then two arrays
+    (alternate launches) of one status word per tile, the carries the
+    look-back reads where the three-pass scan recursed over tile totals."""
+    assert TILE == 1024
+    assert status_words(1) == status_words(1024) == 3
+    assert status_words(1025) == 5
+    assert status_words(2_097_157) == 1 + 2 * 2049
+    assert status_words(262_144) == 1 + 2 * 256
+    # a tile's carry is the scan of the totals before it, as the
+    # look-back computes it
+    x = torch.from_numpy(_counts(5000, seed=3))
+    totals = torch.stack([t.sum() for t in x.split(TILE)])
+    carry = torch.cumsum(totals, 0) - totals
+    got = tprefix.tiled_prefix_sum(x, TILE)
+    for i, c in enumerate(carry.tolist()):
+        tile = x[i * TILE:(i + 1) * TILE]
+        assert torch.equal(got[i * TILE:(i + 1) * TILE],
+                           torch.cumsum(tile, 0, dtype=torch.int32) + c)

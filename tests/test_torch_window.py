@@ -17,8 +17,11 @@ from repro.kernels import ref as JR
 from repro.models import attention as JA
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as TR
-from repro_torch.kernels.window_attn import (window_attention,
+from repro_torch.kernels.window_attn import (MAX_D, route, smem_bytes,
+                                             wgmma_smem_bytes,
+                                             window_attention,
                                              window_attention_plain)
+from repro_torch.kernels._common import MAX_SMEM
 from repro_torch.models import attention as TA
 
 torch.set_num_threads(1)
@@ -105,8 +108,12 @@ def test_wrapper_contract():
     with pytest.raises(ValueError, match="window 0"):
         window_attention(q, k, v, window=0, blk=8)
     window_attention.launches = 0
+    window_attention.launches_by_route = dict.fromkeys(("wgmma", "simt"), 0)
     window_attention(q, k, v, window=8, blk=8)
+    window_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), window=8,
+                     blk=8)
     assert window_attention.launches == 0        # CPU: the plain version
+    assert window_attention.launches_by_route == {"wgmma": 0, "simt": 0}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -146,3 +153,28 @@ def test_decode_attention_matches_jax(window):
                               torch.tensor(v), 13, window=window,
                               softcap=50.0)
     _close(got, want, 3e-4)
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.float32, 16, "simt"), (torch.float32, 256, "simt"),
+    (torch.bfloat16, 20, "simt"), (torch.bfloat16, 8, "simt"),
+    (torch.bfloat16, 16, "wgmma"), (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 256, "wgmma"),
+    (torch.bfloat16, 48, "wgmma"), (torch.bfloat16, 264, "simt")])
+def test_route_by_dtype_and_head_dim(dtype, d, want):
+    """fp32 stays on the CUDA cores (TF32 would miss 3e-4); bf16 takes the
+    tensor cores where wgmma's depth of 16 divides D."""
+    assert route(dtype, d) == want
+
+
+def test_wgmma_route_shared_memory():
+    """Q (128 rows), K and V (2 stages of 64 keys) in bf16, 7 mbarriers and
+    1 KB of alignment slack: 197,688 B at D = 256, under the 227 KB a block
+    may opt in to, for every D the route takes."""
+    assert wgmma_smem_bytes(256) == 2 * 256 * (128 + 4 * 64) + 56 + 1024
+    assert wgmma_smem_bytes(256) == 197_688
+    assert wgmma_smem_bytes(128) == 99_384
+    for d in range(16, MAX_D + 1, 16):
+        assert route(torch.bfloat16, d) == "wgmma"
+        assert wgmma_smem_bytes(d) <= MAX_SMEM
+    assert smem_bytes(256) == 99_328                 # the SIMT route's
