@@ -10,7 +10,10 @@ the main paths through ``plan(...).execute()`` and checks and times them:
 
   * dense X-pencil (kernels A and B) at 1,048,576 particles (division 64)
     and 327,680 (division 32, periodic), and All-in-SM (kernels A and E,
-    ``strategy="allin"``) on the same particles;
+    ``strategy="allin"``) on the same particles; kernel B, and kernel C on
+    the clustered scene below, timed at their chunk width and at
+    ``CHUNK_WIDTHS``, bit-equal at each, beside the TPU schedule's dense
+    slot-pair count, the candidate-pair count and the bound;
   * packed rows (kernels A and D), 1,048,576 uniform particles, division 64;
   * a clustered scene (Gaussian blob, 131,072 particles, division 64) with
     ``compact=True``, dense layout (kernels A and C) and packed layout
@@ -87,6 +90,7 @@ DENSE_CASES = ((64, 4, False), (32, 10, True))   # division, per cell, periodic
 PACKED_CASE = (64, 4)                             # division, per cell
 BLOB_CASE = (64, 131_072, 0.1)                    # division, N, sigma_frac
 CHECK_DIVISION = 16
+CHUNK_WIDTHS = (8, 16, 32, 64)   # kernels B, C timed at these widths too
 SFC_CLUSTERINGS = ((4, "morton"), (8, "hilbert"))   # csize, curve
 SFC_PLAIN_BATCH = 2048           # clusters per chunk of F's plain version
 
@@ -751,7 +755,9 @@ def main(argv=None) -> int:
     from repro_torch.kernels.prefix_sum import prefix_sum
     from repro_torch.kernels.sfc import cell_sfc_forces
     from repro_torch.kernels.window_attn import window_attention
-    from repro_torch.kernels.xpencil import (xpencil_forces,
+    from repro_torch.kernels.xpencil import (MAX_SMEM, chunk_cells,
+                                             pencil_smem_bytes,
+                                             xpencil_forces,
                                              xpencil_packed_forces,
                                              xpencil_sparse_forces)
 
@@ -919,6 +925,20 @@ def main(argv=None) -> int:
                 d = (g - w).abs().max()
                 raise AssertionError(f"{what}: {part} not bit-equal "
                                      f"(max |diff| {float(d):.3e})")
+
+    def chunk_sweep(what, launch, want, nx, m_c, reps=10):
+        """Kernel B or C (``launch(cx_cells=...)``) at its policy's chunk
+        width and at CHUNK_WIDTHS, each timed and each bit-equal to
+        ``want``. -> {width: ms}"""
+        widths = sorted({chunk_cells(nx, m_c)} | {
+            w for w in CHUNK_WIDTHS
+            if w <= nx and pencil_smem_bytes(w, m_c) <= MAX_SMEM})
+        by_width = {}
+        for w in widths:
+            assert_equal_results(launch(cx_cells=w), want,
+                                 f"{what} at chunk width {w} vs default")
+            by_width[w] = cuda_ms(lambda: launch(cx_cells=w), reps)
+        return by_width
 
     # -- kernel A: the paper's scan, exactly equal to its plain versions ----
     # the long and the repeated scans draw from a generator of their own,
@@ -1288,18 +1308,38 @@ def main(argv=None) -> int:
         b_ms, e_ms = (statistics.mean(turns[k]) for k in ("B", "E"))
         scatter_ms = cuda_ms(lambda: dense_to_particles(dom, bins, *kb),
                              reps)
+        b_by_width = chunk_sweep(
+            f"kernel B {label}", lambda **kw: xpencil_forces(
+                bins.planes, bins.slot_id, nx=division, m_c=p.m_c,
+                kernel=kern, cutoff2=1.0, **kw), kb, division, p.m_c, reps)
+        # the same launch with the cheapest pair kernel: what the staging,
+        # the compaction and the barriers cost without LJ's arithmetic
+        b_low_ms = cuda_ms(lambda: xpencil_forces(
+            bins.planes, bins.slot_id, nx=division, m_c=p.m_c,
+            kernel=kernels["low_flop"], cutoff2=1.0), reps)
 
         out_slots = kb[0].numel()
         pairs = candidate_pairs(dom, counts)
         xp_bound_ms, xp_bound_by = bound(
             dense_read_bytes(bins) + 4 * 4 * out_slots,
             pairs * DIST_FLOPS + within * kern.flops)
+        log(f"kernel B {label}: {b_ms:.6f} ms at chunk width "
+            f"{chunk_cells(division, p.m_c)} (by width {b_by_width}); "
+            f"{out_slots * 9 * 3 * p.m_c} dense slot pairs (the TPU "
+            f"schedule's), {pairs} candidate pairs; {b_ms / xp_bound_ms:.1f}"
+            f"x its {xp_bound_ms:.6f} ms bound ({xp_bound_by}); with the "
+            f"low_flop pair kernel {b_low_ms:.6f} ms")
         res = dict(case=f"dense {label}", division=division, ppc=ppc,
                    periodic=periodic, n=n, m_c=p.m_c, launches=launches,
                    execute_ms=execute_ms, bin_ms=bin_ms, scan_ms=a_ms,
                    xpencil_ms=b_ms, scatter_ms=scatter_ms,
                    xpencil_plain_ms=xp_plain_ms, xpencil_bound_ms=xp_bound_ms,
-                   xpencil_bound_by=xp_bound_by, candidate_pairs=pairs,
+                   xpencil_bound_by=xp_bound_by,
+                   xpencil_over_bound=b_ms / xp_bound_ms,
+                   xpencil_chunk_cells=chunk_cells(division, p.m_c),
+                   xpencil_ms_by_chunk_cells=b_by_width,
+                   xpencil_low_flop_ms=b_low_ms,
+                   candidate_pairs=pairs,
                    pairs_in_cutoff=within,
                    dense_slot_pairs=out_slots * 9 * 3 * p.m_c,
                    xpencil_max_abs_err=xp_abs_err,
@@ -1430,6 +1470,11 @@ def main(argv=None) -> int:
         dom, packed_b, occ.active, "lennard_jones", kern, "main case (b)")
     pk_checks += 4
     c_bound_ms, c_bound_by = kernel_c_bound(dom, bins_b, occ, kern, within_b)
+    c_by_width = chunk_sweep(
+        "kernel C, main case (b)", lambda **kw: xpencil_sparse_forces(
+            bins_b.planes, bins_b.slot_id, occ.active, nx=division,
+            ny=division, m_c=pb.m_c, kernel=kern, cutoff2=1.0, **kw), kc,
+        division, pb.m_c, reps)
     db_bound_ms, db_bound_by = kernel_d_bound(
         dom, packed_b, occ.active[:int(occ.n_active)], kern, within_b)
     idx = occ.scatter_indices()
@@ -1459,6 +1504,9 @@ def main(argv=None) -> int:
             ny=division, m_c=pb.m_c, kernel=kern, cutoff2=1.0), reps),
         kernel_c_plain_ms=c_plain_ms, kernel_c_bound_ms=c_bound_ms,
         kernel_c_bound_by=c_bound_by,
+        kernel_c_chunk_cells=chunk_cells(division, pb.m_c),
+        kernel_c_ms_by_chunk_cells=c_by_width,
+        dense_slot_pairs=kc[0].numel() * 9 * 3 * pb.m_c,
         kernel_b_ms=cuda_ms(lambda: xpencil_forces(
             bins_b.planes, bins_b.slot_id, nx=division, m_c=pb.m_c,
             kernel=kern, cutoff2=1.0), reps),
@@ -1477,6 +1525,13 @@ def main(argv=None) -> int:
         packed_forces_term_rel_err=terms_d[0],
         packed_potential_term_rel_err=terms_d[1])
     log("main path: " + json.dumps(new_cases["b"]))
+    cb = new_cases["b"]
+    log(f"kernel C, main case (b): {cb['kernel_c_ms']:.6f} ms at chunk width "
+        f"{cb['kernel_c_chunk_cells']} (by width {c_by_width}); "
+        f"{cb['dense_slot_pairs']} dense slot pairs (the TPU schedule's, "
+        f"padding rows included), {cb['candidate_pairs']} candidate pairs; "
+        f"{cb['kernel_c_ms'] / c_bound_ms:.1f}x its {c_bound_ms:.6f} ms bound "
+        f"({c_bound_by})")
     sfc_results.append(sfc_case(dom, kern, pos_b, state_b, bins_b, dense_b,
                                 f"blob div {division}", False))
     sfc_checks += 4
@@ -1590,6 +1645,10 @@ def main(argv=None) -> int:
          "shapes": shapes(dense_main["division"], "(d+2)*m_c",
                           "(d, d*m_c)", m_c=dense_main["m_c"]),
          "max_term_rel_err": dense_main["xpencil_term_rel_err"],
+         "chunk_cells": dense_main["xpencil_chunk_cells"],
+         "ms_by_chunk_cells": dense_main["xpencil_ms_by_chunk_cells"],
+         "dense_slot_pairs": dense_main["dense_slot_pairs"],
+         "candidate_pairs": dense_main["candidate_pairs"],
          "checks_passed": xp_checks},
         {"name": "xpencil_sparse_forces", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/xpencil.cu",
@@ -1602,6 +1661,10 @@ def main(argv=None) -> int:
          "shapes": shapes(b["division"], "(d+2)*m_c", "(max_active, d*m_c)",
                           m_c=b["m_c"], max_active=b["max_active"]),
          "max_term_rel_err": b["kernel_c_term_rel_err"],
+         "chunk_cells": b["kernel_c_chunk_cells"],
+         "ms_by_chunk_cells": b["kernel_c_ms_by_chunk_cells"],
+         "dense_slot_pairs": b["dense_slot_pairs"],
+         "candidate_pairs": b["candidate_pairs"],
          "checks_passed": sp_checks},
         {"name": "xpencil_packed_forces", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/xpencil.cu",

@@ -61,6 +61,12 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         # m_c, cutoff2, kind, p0, p1, p2, p3, n_extra, stream
         "xpencil_sparse_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                _I, _I, _I, _F, _I, _F, _F, _F, _F, _I, _P),
+        # x, y, z, slot_id, active (or NULL), fx, fy, fz, pot, n_rows, nx,
+        # ny, nz, m_c, cx_cells, cutoff2, kind, p0, p1, p2, p3, n_extra,
+        # stream
+        "xpencil_chunked_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                _I, _I, _I, _I, _F, _I, _F, _F, _F, _F, _I,
+                                _P),
         # x, y, z, slot_id, slot_cell, cell_offsets, active, fx, fy, fz,
         # pot, n_rows, nx, ny, nz, row_cap, cutoff2, kind, p0, p1, p2, p3,
         # n_extra, stream

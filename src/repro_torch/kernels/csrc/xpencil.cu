@@ -9,25 +9,57 @@
 //   D  xpencil_packed_forces  (grid (n_rows, 9) over packed CSR rows; each
 //                              target's 3-cell window from the row offsets)
 //
-// What bounds them on the card: operations. B and C evaluate every dense
-// slot pair of each target's 3*m_c window (9 * 3 * m_c candidates per
-// target slot), of which only the pairs of real particles within the cutoff
-// do work; at 4 particles per cell and m_c = 24 that is about 3% of the
-// evaluated pairs. D visits only the real sources of each window, about
-// 9 * 12 per particle at 4 per cell, so its work follows the particles. The
-// bytes (rows read once, outputs written once) would take far less time
-// than the pair arithmetic. Staging with TMA, double buffering and load
-// balancing are later work.
+// The TPU kernel evaluates every dense slot pair of each target's 3*m_c
+// window, empty slots included (pair_step has no branch: an empty slot
+// costs as much as a real one); at 4 particles per cell and m_c = 24 that
+// is 37x the candidate pairs. Here B, C and D launch work per real particle
+// and visit only the real sources of each window, in ascending slot order,
+// so the pair arithmetic follows the particles.
 //
-// B and C (one kernel, xpencil_kernel): one block per (pencil row, x-chunk
-// of CX cells). The row is blockIdx.x itself (B) or act[blockIdx.x] (C: the
-// block loads its own id; Hopper has no scalar prefetch), mapped to the
-// padded pencil (z + 1, y + 1); C's output row is the list position, so
-// padding entries (pencil 0) recompute pencil 0 as on the TPU. For each of
-// the 9 neighbour rows in the order k = 0..8 (dz = k/3 - 1, dy = k%3 - 1,
-// the TPU index map (z + k//3, y + k%3)) the block stages the row's
-// (CX+2)*m_c slots of x, y, z, id in shared memory; each thread owns one
-// target slot, keeps it in registers and scans its contiguous 3*m_c window.
+// What bounds B and C on the card: the per-row work around the arithmetic.
+// On an H100 (chip_smoke.py), B at division 64 (1,048,576 particles,
+// m_c = 24) takes 0.82-0.90 ms against a 0.042 ms bound set by bytes, and
+// 0.64 ms with the low_flop pair kernel: LJ's arithmetic is about a quarter
+// of it; the staging (each neighbour row read by every block of the 9 rows
+// around it, from L2 for the most part), the two compaction passes and the
+// three block barriers a row, which leave the warps of short windows idle,
+// are the rest.
+//
+// B and C (one kernel, xpencil_kernel): one block of 128 threads per
+// (pencil row, x-chunk of CX cells). The row is blockIdx.x itself (B) or
+// act[blockIdx.x] (C: the block loads its own id; Hopper has no scalar
+// prefetch), mapped to the padded pencil (z + 1, y + 1); C's output row is
+// the list position, so padding entries (pencil 0) recompute pencil 0 as
+// on the TPU. The block
+//   1. compacts the chunk's target slots (id >= 0) into a list in shared
+//      memory, in slot order, and writes the 0s of the empty target slots
+//      in the same coalesced pass;
+//   2. gives each thread up to 4 targets of the list (a batch of 512; a
+//      chunk with more targets takes further batches, each over the 9 rows
+//      again) and keeps them and their sums in registers;
+//   3. for each of the 9 neighbour rows, k = 0..8 (dz = k/3 - 1,
+//      dy = k%3 - 1, the TPU index map (z + k//3, y + k%3)), compacts the
+//      row's (CX+2)*m_c staged slots of x, y, z, id into a dense list of
+//      its real sources, in slot order, with the offsets of its CX+2 cells;
+//      each target then visits the span of its three cells, exactly as
+//      kernel D does, and adds the row's partial to its sum;
+//   4. writes each target's sums once, at the end of its batch.
+// Both compactions are stable: each warp takes a contiguous range of the
+// slots, counts its kept slots with __ballot_sync and __popc, and the prefix
+// of the warp counts gives each warp's base (compact() below).
+//
+// The rows are double-buffered: while row k is compacted and computed, rows
+// k+1 and then k+2 load into the two staging buffers. A row segment is
+// contiguous in each of the four planes, so where its start and length are
+// multiples of 16 bytes (m_c % 4 == 0 and 16-byte aligned planes) one thread
+// issues four 1-D TMA bulk copies (cp.async.bulk) completed on the buffer's
+// mbarrier; otherwise every thread issues 4-byte cp.async copies, one
+// commit group per row. The chunk width CX is the widest up to 64 cells
+// whose block fits kChunkSmem of shared memory (pencil_smem), evened out
+// over the row's chunks: 48 KB, at which B at division 64 takes 32 cells,
+// whose 128 particles fill the block's 128 threads, and an SM holds five
+// blocks (64 cells: 82 KB, two blocks, 1.5-1.6x slower). An all-empty
+// chunk loads no row at all.
 //
 // D (xpencil_packed_kernel): one thread per packed target slot, one block
 // per (row, tile of <= 256 slots), so row_cap is not limited to one block.
@@ -37,14 +69,18 @@
 // clamped to [1, nx]) and visits only those sources, in ascending order.
 //
 // One accumulation step (pair_step, in pair.cuh, shared with kernel E)
-// serves all three, so the compiler rounds and fuses each pair term the same
-// way in each kernel. Each neighbour row is summed into its own partial,
-// then added to the accumulator. A dense window's empty slots add exactly
-// +-0 to a partial that starts at +0, so D's per-particle result equals B's
-// and C's value for value without visiting them. Outputs are written once at
-// the end: no atomics, nothing carried between blocks.
+// serves all three, so the compiler rounds and fuses each pair term the
+// same way in each kernel. Each neighbour row is summed into
+// its own partial, then added to the accumulator. An empty slot of a dense
+// window would add exactly +-0 to a partial that starts at +0, so visiting
+// only the real sources, in the same ascending order, gives B, C and D the
+// TPU schedule's values per particle, and B the same bits at every chunk
+// width. Outputs are written once: no atomics, nothing carried between
+// blocks.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "pair.cuh"
 
@@ -52,85 +88,287 @@ namespace {
 
 using namespace pair_kernels;
 
-constexpr int kMaxThreads = 1024;
-constexpr int kTargetThreads = 256;
+constexpr int kPencilThreads = 128;
+constexpr int kPencilWarps = kPencilThreads / 32;
+constexpr int kTargetsPerThread = 4;
+constexpr int kBatch = kPencilThreads * kTargetsPerThread;
+constexpr int kMaxChunkCells = 64;
+constexpr size_t kChunkSmem = 48 * 1024;
 constexpr int kPackedThreads = 256;
 
+// Shared memory of one B/C block at chunk width cx: two mbarriers (16 B),
+// the compacted sources (16 B each) and two staging buffers of x, y, z, id
+// (32 B a slot) over the (cx+2)*m_c slots of a neighbour row, then 4 B each
+// for the cx+3 cell offsets, the cx*m_c target list and the warp counts.
+__host__ __device__ constexpr size_t pencil_smem(int cx, int m_c) {
+  return 16 + (size_t)48 * (cx + 2) * m_c +
+         (size_t)4 * ((size_t)cx * m_c + cx + 3 + kPencilWarps);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the barrier's phase with the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// 1-D TMA: `bytes` (a multiple of 16) from 16-byte aligned global memory
+// into shared memory, completion counted in bytes on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Stable compaction, by the whole block, of the i in [0, n) with keep(i).
+// Each warp takes a contiguous range of whole 32-slot rounds and counts its
+// kept slots with __ballot_sync and __popc; the prefix of the warp counts
+// gives each warp's base. Then visit(i, kept, rank) runs for every i, rank
+// being the number of kept j < i, and, where stride > 0, mark[c] = that rank
+// for every i = c * stride. Returns the number kept. The caller
+// synchronises before it reads what visit wrote or calls this again.
+template <typename Keep, typename Visit>
+__device__ __forceinline__ int compact(int n, int stride, int* mark,
+                                       int* wcnt, Keep keep, Visit visit) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int per = (n + 32 * kPencilWarps - 1) / (32 * kPencilWarps) * 32;
+  const int lo = min(w * per, n), hi = min(lo + per, n);
+  int count = 0;
+  for (int b = lo; b < hi; b += 32) {
+    const int i = b + lane;
+    count += __popc(__ballot_sync(0xffffffffu, i < hi && keep(i)));
+  }
+  if (lane == 0) wcnt[w] = count;
+  __syncthreads();
+  int rank = 0, total = 0;
+#pragma unroll
+  for (int v = 0; v < kPencilWarps; ++v) {
+    const int c = wcnt[v];
+    rank += v < w ? c : 0;
+    total += c;
+  }
+  const unsigned below = (1u << lane) - 1u;
+  int cell = stride > 0 ? (lo + stride - 1) / stride : 0;
+  int edge = cell * stride;  // the next multiple of stride in the range
+  for (int b = lo; b < hi; b += 32) {
+    const int i = b + lane;
+    const bool kept = i < hi && keep(i);
+    const unsigned bal = __ballot_sync(0xffffffffu, kept);
+    const int r = rank + __popc(bal & below);
+    if (i < hi) visit(i, kept, r);
+    if (stride > 0)
+      for (; edge < min(b + 32, hi); edge += stride, ++cell)
+        if (lane == edge - b) mark[cell] = r;
+    rank += __popc(bal);
+  }
+  return total;
+}
+
 // Kernels B (act == nullptr: row r is pencil r) and C (row r is pencil
-// act[r]). Grid (n_rows, x-chunks).
+// act[r]). Grid (n_rows, x-chunks of cx_cells); 128 threads; dynamic shared
+// memory pencil_smem(cx_cells, m_c). bulk: load rows with TMA bulk copies
+// (m_c % 4 == 0, planes 16-byte aligned), else with 4-byte cp.async.
 template <int KIND>
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(kPencilThreads)
 xpencil_kernel(const float* __restrict__ x, const float* __restrict__ y,
                const float* __restrict__ z, const int* __restrict__ sid,
                const int* __restrict__ act, float* __restrict__ fx,
                float* __restrict__ fy, float* __restrict__ fz,
                float* __restrict__ pot, int nx, int ny, int m_c, int cx_cells,
-               float cutoff2, PairParams prm) {
-  extern __shared__ float stage[];
-  const int stage_len = (cx_cells + 2) * m_c;
-  float* sx = stage;
-  float* sy = sx + stage_len;
-  float* sz = sy + stage_len;
-  int* ss = reinterpret_cast<int*>(sz + stage_len);
-
+               bool bulk, float cutoff2, PairParams prm) {
+  constexpr int kT = kTargetsPerThread;
+  extern __shared__ __align__(16) unsigned char smem[];
   const int row_out = blockIdx.x;
   const int zy = act ? act[row_out] : row_out;
-  const int zz = zy / ny, yy = zy - (zy / ny) * ny;
+  const int zz = zy / ny, yy = zy - zz * ny;
   const int x0 = blockIdx.y * cx_cells;
   const int cx = min(cx_cells, nx - x0);
+  const int len = (cx + 2) * m_c;  // staged slots of a neighbour row
   const long long row_len = (long long)(nx + 2) * m_c;
   const int t = threadIdx.x;
-  const int cell = t / m_c;
-  const int slot = t - cell * m_c;
-  const bool active = t < cx * m_c;
 
-  float tx = 0.0f, ty = 0.0f, tz = 0.0f;
-  int tid = -1;
-  if (active) {
-    const long long ti = ((long long)(zz + 1) * (ny + 2) + (yy + 1)) * row_len
-                         + (long long)(x0 + 1 + cell) * m_c + slot;
-    tx = x[ti];
-    ty = y[ti];
-    tz = z[ti];
-    tid = sid[ti];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  float4* comp = reinterpret_cast<float4*>(smem + 16);
+  float* stage = reinterpret_cast<float*>(comp + len);  // [2][x,y,z,id][len]
+  int* off = reinterpret_cast<int*>(stage + 8 * len);   // cx + 3
+  int* tslot = off + cx + 3;                            // cx * m_c
+  int* wcnt = tslot + cx * m_c;                         // kPencilWarps
+
+  if (bulk && t == 0) {
+    mbar_init(smem_u32(&bars[0]), 1);
+    mbar_init(smem_u32(&bars[1]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  const bool work = active && tid >= 0;
 
-  float ax = 0.0f, ay = 0.0f, az = 0.0f, ap = 0.0f;
-  const int n_stage = (cx + 2) * m_c;
-  const int w0 = cell * m_c;  // window of target cell x0+cell: stage cells
-                              // cell, cell+1, cell+2
-  for (int k = 0; k < 9; ++k) {
-    const int dz = k / 3 - 1, dy = k % 3 - 1;
+  // 1. the chunk's targets, in slot order; the empty slots' 0s
+  const long long tbase =
+      ((long long)(zz + 1) * (ny + 2) + (yy + 1)) * row_len +
+      (long long)(x0 + 1) * m_c;
+  const long long obase = (long long)row_out * nx * m_c + (long long)x0 * m_c;
+  const int n_tgt = compact(
+      cx * m_c, 0, nullptr, wcnt, [&](int i) { return sid[tbase + i] >= 0; },
+      [&](int i, bool kept, int r) {
+        if (kept) {
+          tslot[r] = i;
+        } else {
+          fx[obase + i] = 0.0f;
+          fy[obase + i] = 0.0f;
+          fz[obase + i] = 0.0f;
+          pot[obase + i] = 0.0f;
+        }
+      });
+  __syncthreads();  // the target list and the barriers are ready
+
+  // step s stages neighbour row s % 9 for target batch s / 9 in buffer s & 1
+  const int n_steps = 9 * ((n_tgt + kBatch - 1) / kBatch);
+  auto issue = [&](int s) {
+    const int k = s % 9;
     const long long row =
-        ((long long)(zz + 1 + dz) * (ny + 2) + (yy + 1 + dy)) * row_len
-        + (long long)x0 * m_c;
-    __syncthreads();  // the previous row is no longer read
-    for (int i = t; i < n_stage; i += blockDim.x) {
-      sx[i] = x[row + i];
-      sy[i] = y[row + i];
-      sz[i] = z[row + i];
-      ss[i] = sid[row + i];
+        ((long long)(zz + k / 3) * (ny + 2) + (yy + k % 3)) * row_len +
+        (long long)x0 * m_c;
+    float* dst = stage + 4 * (s & 1) * len;
+    const void* src[4] = {x + row, y + row, z + row, sid + row};
+    if (bulk) {
+      if (t == 0) {
+        // the generic-proxy reads of this buffer (ordered by the block
+        // barrier before the call) come before the async-proxy writes
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        const uint32_t bar = smem_u32(&bars[s & 1]);
+        mbar_expect_tx(bar, 16u * len);
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+          bulk_load(smem_u32(dst + a * len), src[a], 4u * len, bar);
+      }
+    } else {
+      for (int i = t; i < len; i += kPencilThreads) {
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+          cp_async4(smem_u32(dst + a * len + i),
+                    static_cast<const float*>(src[a]) + i);
+      }
+      cp_async_commit();  // one group per step, empty or not
     }
-    __syncthreads();
-    if (work) {
+  };
+  if (n_steps > 0) issue(0);
+  if (n_steps > 1) issue(1);
+
+  float tx[kT], ty[kT], tz[kT], ax[kT], ay[kT], az[kT], ap[kT];
+  int tid[kT], tcell[kT], ts[kT];
+  for (int s = 0; s < n_steps; ++s) {
+    const int k = s % 9;
+    if (k == 0) {  // 2. the next batch of targets
+#pragma unroll
+      for (int j = 0; j < kT; ++j) {
+        const int q = (s / 9) * kBatch + j * kPencilThreads + t;
+        ts[j] = q < n_tgt ? tslot[q] : -1;
+        tx[j] = ty[j] = tz[j] = 0.0f;
+        tid[j] = -1;
+        tcell[j] = 0;
+        if (ts[j] >= 0) {
+          const long long g = tbase + ts[j];
+          tx[j] = x[g];
+          ty[j] = y[g];
+          tz[j] = z[g];
+          tid[j] = sid[g];
+          tcell[j] = ts[j] / m_c;
+        }
+        ax[j] = ay[j] = az[j] = ap[j] = 0.0f;
+      }
+    }
+
+    // 3. row s has landed: compact its real sources
+    if (bulk) {
+      mbar_wait(smem_u32(&bars[s & 1]), (s >> 1) & 1);
+    } else {
+      if (s + 1 < n_steps)
+        cp_async_wait<1>();
+      else
+        cp_async_wait<0>();
+      __syncthreads();
+    }
+    const float* sx = stage + 4 * (s & 1) * len;
+    const float* sy = sx + len;
+    const float* sz = sy + len;
+    const int* ss = reinterpret_cast<const int*>(sz + len);
+    const int n_src = compact(
+        len, m_c, off, wcnt, [&](int i) { return ss[i] >= 0; },
+        [&](int i, bool kept, int r) {
+          if (kept)
+            comp[r] = make_float4(sx[i], sy[i], sz[i], __int_as_float(ss[i]));
+        });
+    if (t == 0) off[cx + 2] = n_src;
+    __syncthreads();  // sources and offsets ready; the buffer is free
+    if (s + 2 < n_steps) issue(s + 2);
+
+#pragma unroll
+    for (int j = 0; j < kT; ++j) {
+      if (ts[j] < 0) continue;
+      const int lo = off[tcell[j]], hi = off[tcell[j] + 3];
       float px = 0.0f, py = 0.0f, pz = 0.0f, pp = 0.0f;
-      for (int j = w0; j < w0 + 3 * m_c; ++j)
-        pair_step<KIND>(tx, ty, tz, tid, sx[j], sy[j], sz[j], ss[j], cutoff2,
-                        prm, px, py, pz, pp);
-      ax += px;
-      ay += py;
-      az += pz;
-      ap += pp;
+      for (int i = lo; i < hi; ++i) {
+        const float4 q = comp[i];
+        pair_step<KIND>(tx[j], ty[j], tz[j], tid[j], q.x, q.y, q.z,
+                        __float_as_int(q.w), cutoff2, prm, px, py, pz, pp);
+      }
+      ax[j] += px;
+      ay[j] += py;
+      az[j] += pz;
+      ap[j] += pp;
     }
-  }
-  if (active) {
-    const long long o = (long long)row_out * nx * m_c
-                        + (long long)(x0 + cell) * m_c + slot;
-    fx[o] = ax;
-    fy[o] = ay;
-    fz[o] = az;
-    pot[o] = ap;
+    if (k == 8) {  // 4. the batch's sums
+#pragma unroll
+      for (int j = 0; j < kT; ++j) {
+        if (ts[j] < 0) continue;
+        fx[obase + ts[j]] = ax[j];
+        fy[obase + ts[j]] = ay[j];
+        fz[obase + ts[j]] = az[j];
+        pot[obase + ts[j]] = ap[j];
+      }
+    }
+    __syncthreads();  // the sources, offsets and warp counts are free
   }
 }
 
@@ -212,50 +450,64 @@ xpencil_packed_kernel(const float* __restrict__ x,
   }
 }
 
+// The chunk width of kernels B and C: the widest up to kMaxChunkCells whose
+// block needs at most kChunkSmem of shared memory (at least 1), then evened
+// out over the row's chunks.
+int chunk_cells(int nx, int m_c) {
+  int cx = nx < kMaxChunkCells ? nx : kMaxChunkCells;
+  while (cx > 1 && pencil_smem(cx, m_c) > kChunkSmem) --cx;
+  const int n_chunks = (nx + cx - 1) / cx;
+  return (nx + n_chunks - 1) / n_chunks;
+}
+
 cudaError_t launch_pencils(const void* x, const void* y, const void* z,
                            const void* slot_id, const int* act, void* fx,
                            void* fy, void* fz, void* pot, int n_rows, int nx,
-                           int ny, int m_c, float cutoff2, int kind,
-                           PairParams prm, void* stream) {
+                           int ny, int m_c, int cx_cells, float cutoff2,
+                           int kind, PairParams prm, void* stream) {
+  if (cx_cells < 1 || cx_cells > nx) return cudaErrorInvalidValue;
   if (n_rows == 0) return cudaSuccess;
-  int cx_cells = kTargetThreads / m_c;
-  if (cx_cells < 1) cx_cells = 1;
-  if (cx_cells > nx) cx_cells = nx;
-  const int threads = (cx_cells * m_c + 31) / 32 * 32;
-  const size_t smem = (size_t)16 * (cx_cells + 2) * m_c;
+  const size_t smem = pencil_smem(cx_cells, m_c);
+  const bool bulk =
+      m_c % 4 == 0 && ((uintptr_t)x | (uintptr_t)y | (uintptr_t)z |
+                       (uintptr_t)slot_id) % 16 == 0;
   const dim3 grid(n_rows, (nx + cx_cells - 1) / cx_cells);
   return by_kind(kind, [&](auto kc) {
     constexpr int K = decltype(kc)::value;
     const cudaError_t err = allow_smem(xpencil_kernel<K>, smem);
     if (err != cudaSuccess) return err;
-    xpencil_kernel<K><<<grid, threads, smem,
+    xpencil_kernel<K><<<grid, kPencilThreads, smem,
                         static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(x), static_cast<const float*>(y),
         static_cast<const float*>(z), static_cast<const int*>(slot_id), act,
         static_cast<float*>(fx), static_cast<float*>(fy),
         static_cast<float*>(fz), static_cast<float*>(pot), nx, ny, m_c,
-        cx_cells, cutoff2, prm);
+        cx_cells, bulk, cutoff2, prm);
     return cudaGetLastError();
   });
+}
+
+bool pencil_args_ok(int nx, int ny, int nz, int m_c) {
+  return m_c >= 1 && nx >= 1 && ny >= 1 && nz >= 1 &&
+         pencil_smem(1, m_c) <= kMaxSmem;
 }
 
 }  // namespace
 
 // Kernel B. Planes x, y, z (float32) and slot_id (int32) of shape
 // (nz+2, ny+2, (nx+2)*m_c), contiguous; outputs fx, fy, fz, pot (float32)
-// of shape (nz, ny, nx*m_c). m_c <= 1024 (one thread per target slot).
-// Allocates nothing and does not synchronise; returns the launch's
-// cudaError_t.
+// of shape (nz, ny, nx*m_c). A block needs pencil_smem(1, m_c) bytes of
+// shared memory at the least, at most 227 KB: m_c <= 1570. Allocates
+// nothing and does not synchronise; returns the launch's cudaError_t.
 extern "C" int xpencil_forces_f32(const void* x, const void* y, const void* z,
                                   const void* slot_id, void* fx, void* fy,
                                   void* fz, void* pot, int nx, int ny, int nz,
                                   int m_c, float cutoff2, int kind, float p0,
                                   float p1, float p2, float p3, int n_extra,
                                   void* stream) {
-  if (m_c < 1 || m_c > kMaxThreads || nx < 1 || ny < 1 || nz < 1)
-    return cudaErrorInvalidValue;
+  if (!pencil_args_ok(nx, ny, nz, m_c)) return cudaErrorInvalidValue;
   return launch_pencils(x, y, z, slot_id, nullptr, fx, fy, fz, pot, ny * nz,
-                        nx, ny, m_c, cutoff2, kind,
+                        nx, ny, m_c, chunk_cells(nx, m_c), cutoff2, kind,
                         PairParams{p0, p1, p2, p3, n_extra}, stream);
 }
 
@@ -269,12 +521,32 @@ extern "C" int xpencil_sparse_f32(const void* x, const void* y, const void* z,
                                   float cutoff2, int kind, float p0, float p1,
                                   float p2, float p3, int n_extra,
                                   void* stream) {
-  if (m_c < 1 || m_c > kMaxThreads || nx < 1 || ny < 1 || nz < 1 ||
-      n_rows < 0)
+  if (!pencil_args_ok(nx, ny, nz, m_c) || n_rows < 0)
     return cudaErrorInvalidValue;
   return launch_pencils(x, y, z, slot_id, static_cast<const int*>(active), fx,
-                        fy, fz, pot, n_rows, nx, ny, m_c, cutoff2, kind,
+                        fy, fz, pot, n_rows, nx, ny, m_c,
+                        chunk_cells(nx, m_c), cutoff2, kind,
                         PairParams{p0, p1, p2, p3, n_extra}, stream);
+}
+
+// Kernel B (active NULL, n_rows = nz*ny) or C at a given chunk width of
+// 1 <= cx_cells <= nx cells, which needs pencil_smem(cx_cells, m_c) bytes
+// of shared memory; the same outputs, bit for bit, as at the width the
+// entries above choose.
+extern "C" int xpencil_chunked_f32(const void* x, const void* y,
+                                   const void* z, const void* slot_id,
+                                   const void* active, void* fx, void* fy,
+                                   void* fz, void* pot, int n_rows, int nx,
+                                   int ny, int nz, int m_c, int cx_cells,
+                                   float cutoff2, int kind, float p0, float p1,
+                                   float p2, float p3, int n_extra,
+                                   void* stream) {
+  if (!pencil_args_ok(nx, ny, nz, m_c) || n_rows < 0 ||
+      (active == nullptr && n_rows != nz * ny))
+    return cudaErrorInvalidValue;
+  return launch_pencils(x, y, z, slot_id, static_cast<const int*>(active), fx,
+                        fy, fz, pot, n_rows, nx, ny, m_c, cx_cells, cutoff2,
+                        kind, PairParams{p0, p1, p2, p3, n_extra}, stream);
 }
 
 // Kernel D. Packed planes x, y, z (float32), slot_id and slot_cell (int32)

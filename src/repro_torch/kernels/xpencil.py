@@ -10,9 +10,11 @@
 On CPU tensors each wrapper runs its plain version (the same schedule in
 PyTorch, ``repro_torch.core.strategies.xpencil_*planes``); on CUDA tensors
 it launches its kernel or raises. ``<wrapper>.launches`` counts the
-launches. Kernels B and C evaluate every dense slot pair of each target's
-3*m_c window, kernel D only the window's real particles; all three are
-bound by operations, not bytes (see the note in the CUDA source).
+launches. All three launch work per real particle and visit only the real
+sources of each target's window, in ascending slot order: kernels B and C
+compact each staged neighbour row in shared memory (``pencil_smem_bytes``
+at the chunk width ``chunk_cells``), kernel D reads packed rows. All three
+are bound by operations, not bytes (see the note in the CUDA source).
 """
 
 from __future__ import annotations
@@ -26,14 +28,46 @@ from ..core.strategies import (xpencil_packed_planes, xpencil_planes,
                                xpencil_sparse_planes)
 from ._common import MAX_SMEM, check_tensors, cuda_form, launch, new_outputs
 
-MAX_M_C = 1024         # kernels B, C: one thread per target slot of a block
+# kernels B and C (csrc/xpencil.cu: kPencilWarps, kMaxChunkCells, kChunkSmem)
+PENCIL_WARPS = 4              # 128 threads a block
+MAX_CHUNK_CELLS = 64
+CHUNK_SMEM = 48 * 1024        # bytes of shared memory the chunk width aims at
+
+
+def pencil_smem_bytes(cx_cells: int, m_c: int) -> int:
+    """Shared memory of one kernel B/C block at a chunk width of
+    ``cx_cells`` cells (``csrc/xpencil.cu::pencil_smem``): two mbarriers
+    (16 B), the compacted sources (16 B each) and two staging buffers of x,
+    y, z and id (32 B a slot) over the ``(cx_cells+2)*m_c`` slots of a
+    neighbour row, then 4 B each for the cell offsets, the target list and
+    the warp counts."""
+    return (16 + 48 * (cx_cells + 2) * m_c
+            + 4 * (cx_cells * m_c + cx_cells + 3 + PENCIL_WARPS))
+
+
+def chunk_cells(nx: int, m_c: int) -> int:
+    """Kernel B/C's chunk width (``csrc/xpencil.cu::chunk_cells``): the
+    widest up to ``MAX_CHUNK_CELLS`` cells whose block needs at most
+    ``CHUNK_SMEM`` bytes (at least 1), evened out over the row's chunks."""
+    cx = min(nx, MAX_CHUNK_CELLS)
+    while cx > 1 and pencil_smem_bytes(cx, m_c) > CHUNK_SMEM:
+        cx -= 1
+    n_chunks = -(-nx // cx)
+    return -(-nx // n_chunks)
+
+
+# the largest m_c whose block of one cell fits a block's shared memory
+MAX_M_C = ((MAX_SMEM - pencil_smem_bytes(1, 0))
+           // (pencil_smem_bytes(1, 1) - pencil_smem_bytes(1, 0)))
 
 
 def _dense_planes(x, y, z, slot_id, nx: int, m_c: int, what: str):
     """Check kernel B/C's dense planes -> (nz, ny)."""
     if not 1 <= m_c <= MAX_M_C:
-        raise ValueError(f"m_c={m_c} does not fit the CUDA X-pencil kernel "
-                         f"(one thread per target slot, 1 <= m_c <= {MAX_M_C})")
+        raise ValueError(
+            f"m_c={m_c} does not fit the CUDA X-pencil kernel: a block of "
+            f"one cell stages {pencil_smem_bytes(1, m_c)} bytes of shared "
+            f"memory, at most {MAX_SMEM} (1 <= m_c <= {MAX_M_C})")
     nzp, nyp, width = x.shape
     if width != (nx + 2) * m_c or nzp < 3 or nyp < 3:
         raise ValueError(f"planes of shape {tuple(x.shape)} do not match "
@@ -44,18 +78,33 @@ def _dense_planes(x, y, z, slot_id, nx: int, m_c: int, what: str):
     return nzp - 2, nyp - 2
 
 
+def _check_chunk(cx_cells: Optional[int], nx: int, m_c: int) -> None:
+    if cx_cells is not None and not (
+            1 <= cx_cells <= nx
+            and pencil_smem_bytes(cx_cells, m_c) <= MAX_SMEM):
+        raise ValueError(
+            f"cx_cells={cx_cells} is not a chunk width of kernels B/C: "
+            f"1 <= cx_cells <= nx={nx}, and a block stages "
+            f"{pencil_smem_bytes(cx_cells, m_c)} bytes of shared memory, "
+            f"at most {MAX_SMEM}")
+
+
 def xpencil_forces(planes: Dict[str, torch.Tensor], slot_id: torch.Tensor, *,
-                   nx: int, m_c: int, kernel: PairKernel, cutoff2: float
+                   nx: int, m_c: int, kernel: PairKernel, cutoff2: float,
+                   cx_cells: Optional[int] = None
                    ) -> Tuple[torch.Tensor, ...]:
     """Kernel B: the X-pencil schedule over padded planes.
 
     Args:
       planes: "x", "y", "z" float32 planes of shape (nz+2, ny+2, (nx+2)*m_c).
-      slot_id: matching int32 plane, -1 for empty slots.
+      slot_id: matching int32 plane, -1 for empty slots (anywhere in a cell).
+      cx_cells: the kernel's chunk width in cells, or None for
+        ``chunk_cells(nx, m_c)``; the result does not depend on it.
     Returns:
       (fx, fy, fz, pot), each (nz, ny, nx*m_c) over the interior slots.
     """
     x, y, z = planes["x"], planes["y"], planes["z"]
+    _check_chunk(cx_cells, nx, m_c)
     if x.device.type == "cpu":
         return xpencil_planes(x, y, z, slot_id, nx=nx, m_c=m_c,
                               kernel=kernel, cutoff2=cutoff2)
@@ -64,9 +113,15 @@ def xpencil_forces(planes: Dict[str, torch.Tensor], slot_id: torch.Tensor, *,
     form = cuda_form(kernel)
     nz, ny = _dense_planes(x, y, z, slot_id, nx, m_c, "xpencil_forces")
     outs = new_outputs((nz, ny, nx * m_c), x.device)
-    launch("xpencil.cu", "xpencil_forces_f32", x, x.data_ptr(), y.data_ptr(),
-           z.data_ptr(), slot_id.data_ptr(), *(o.data_ptr() for o in outs),
-           nx, ny, nz, m_c, float(cutoff2), *form)
+    ptrs = (x.data_ptr(), y.data_ptr(), z.data_ptr(), slot_id.data_ptr())
+    if cx_cells is None:
+        launch("xpencil.cu", "xpencil_forces_f32", x, *ptrs,
+               *(o.data_ptr() for o in outs), nx, ny, nz, m_c,
+               float(cutoff2), *form)
+    else:
+        launch("xpencil.cu", "xpencil_chunked_f32", x, *ptrs, None,
+               *(o.data_ptr() for o in outs), nz * ny, nx, ny, nz, m_c,
+               cx_cells, float(cutoff2), *form)
     xpencil_forces.launches += 1
     return outs
 
@@ -74,7 +129,8 @@ def xpencil_forces(planes: Dict[str, torch.Tensor], slot_id: torch.Tensor, *,
 def xpencil_sparse_forces(planes: Dict[str, torch.Tensor],
                           slot_id: torch.Tensor, active_zy: torch.Tensor, *,
                           nx: int, ny: int, m_c: int, kernel: PairKernel,
-                          cutoff2: float) -> Tuple[torch.Tensor, ...]:
+                          cutoff2: float, cx_cells: Optional[int] = None
+                          ) -> Tuple[torch.Tensor, ...]:
     """Kernel C: the X-pencil schedule over the listed pencils.
 
     Args:
@@ -82,11 +138,13 @@ def xpencil_sparse_forces(planes: Dict[str, torch.Tensor],
       active_zy: (n_rows,) int32 interior pencil ids ``z * ny + y``, each in
         [0, nz * ny) (``Occupancy.active``; its padding, pencil 0,
         recomputes pencil 0 and is dropped by the caller's scatter).
+      cx_cells: the chunk width, as in :func:`xpencil_forces`.
     Returns:
       (fx, fy, fz, pot), each ``(n_rows, nx*m_c)``: row ``a`` holds the
       interior forces of pencil ``active_zy[a]``.
     """
     x, y, z = planes["x"], planes["y"], planes["z"]
+    _check_chunk(cx_cells, nx, m_c)
     if x.device.type == "cpu":
         return xpencil_sparse_planes(x, y, z, slot_id, active_zy, nx=nx,
                                      ny=ny, m_c=m_c, kernel=kernel,
@@ -105,10 +163,16 @@ def xpencil_sparse_forces(planes: Dict[str, torch.Tensor],
                   [("active_zy", active_zy, torch.int32, (n_rows,))],
                   "xpencil_sparse_forces")
     outs = new_outputs((n_rows, nx * m_c), x.device)
-    launch("xpencil.cu", "xpencil_sparse_f32", x, x.data_ptr(), y.data_ptr(),
-           z.data_ptr(), slot_id.data_ptr(), active_zy.data_ptr(),
-           *(o.data_ptr() for o in outs), n_rows, nx, ny, nz, m_c,
-           float(cutoff2), *form)
+    ptrs = (x.data_ptr(), y.data_ptr(), z.data_ptr(), slot_id.data_ptr(),
+            active_zy.data_ptr())
+    if cx_cells is None:
+        launch("xpencil.cu", "xpencil_sparse_f32", x, *ptrs,
+               *(o.data_ptr() for o in outs), n_rows, nx, ny, nz, m_c,
+               float(cutoff2), *form)
+    else:
+        launch("xpencil.cu", "xpencil_chunked_f32", x, *ptrs,
+               *(o.data_ptr() for o in outs), n_rows, nx, ny, nz, m_c,
+               cx_cells, float(cutoff2), *form)
     xpencil_sparse_forces.launches += 1
     return outs
 

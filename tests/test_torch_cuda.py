@@ -9,12 +9,14 @@ import pytest
 import torch
 
 from repro_torch.core import (Domain, ParticleState, full_pencil_occupancy,
-                              make_gravity, make_lennard_jones,
-                              make_low_flop, pack_rows,
+                              make_gravity, make_high_flop,
+                              make_lennard_jones, make_low_flop,
+                              make_sph_density, pack_rows,
                               pencil_occupancy, plan, scenarios,
                               suggest_m_c, suggest_row_cap)
 from repro_torch.core import prefix as plain_prefix
 from repro_torch.core import strategies as S
+from repro_torch.core.interactions import PairKernel
 from repro_torch.core.binning import (bin_particles, build_sfc_clusters,
                                       sfc_device_slot_tables, sfc_n_clusters,
                                       sfc_pair_count, sfc_to_particles)
@@ -23,7 +25,8 @@ from repro_torch.kernels.prefix_sum import prefix_sum
 from repro_torch.kernels.sfc import cell_sfc_forces
 from repro_torch.kernels.window_attn import (route, window_attention,
                                              window_attention_plain)
-from repro_torch.kernels.xpencil import (xpencil_forces,
+from repro_torch.kernels.xpencil import (MAX_M_C, MAX_SMEM, chunk_cells,
+                                         pencil_smem_bytes, xpencil_forces,
                                          xpencil_packed_forces,
                                          xpencil_sparse_forces)
 
@@ -184,6 +187,194 @@ def test_dense_compact_packed_equal_and_launch(gen, periodic):
     assert bool(f_d.isfinite().all())
     for key, (f, u) in runs.items():
         assert torch.equal(f, f_d) and torch.equal(u, u_d), key
+
+
+# -- kernels B and C: real particles only, holes anywhere, any chunk width --
+
+PAIR_KINDS = {"lennard_jones": make_lennard_jones, "low_flop": make_low_flop,
+              "high_flop": make_high_flop, "gravity": make_gravity,
+              "sph_density": lambda: make_sph_density(1.0)}
+
+
+def _term_close(got, want, size, what, tol=1e-4):
+    """|got - want| <= tol * (|want| + size) per element, ``size`` the sum
+    of the element's own pair-term sizes (chip_smoke.py's gate)."""
+    assert bool(got.isfinite().all()), what
+    want = want.double()
+    bad = (got.double() - want).abs() > tol * (want.abs() + size.double())
+    assert not bool(bad.any()), (f"{what}: {int(bad.sum())} elements off, "
+                                 f"e.g. {got[bad][:3].tolist()} vs "
+                                 f"{want[bad][:3].tolist()}")
+
+
+def _term_sizes(kern):
+    return (PairKernel("force_term_size", torch.zeros_like,
+                       lambda r2: kern.coeff(r2).abs() * r2.sqrt(), flops=0),
+            PairKernel("potential_term_size", torch.zeros_like,
+                       lambda r2: kern.potential(r2).abs(), flops=0))
+
+
+def _punch_holes(slot_id, m_c, gen, frac=0.35):
+    """-1 in about ``frac`` of the occupied slots that have an occupied
+    slot after them in their cell."""
+    s = slot_id.view(-1, m_c).clone()
+    occ = s >= 0
+    later = occ.flip(-1).int().cumsum(-1).flip(-1) - occ.int()
+    pick = occ & (later > 0) & (torch.rand(s.shape, generator=gen,
+                                           device=s.device) < frac)
+    s[pick] = -1
+    return s.view(slot_id.shape), int(pick.sum())
+
+
+def _pack_stably(planes, sid, nx, m_c):
+    """Kernel D's packed rows of dense planes whose cells may hold holes:
+    each padded row's real slots in slot order -> (packed planes, slot_id,
+    slot_cell, cell_offsets, the packed position of every dense slot)."""
+    nzp, nyp, w = sid.shape
+    occ = sid >= 0
+    rank = occ.int().cumsum(-1) - 1
+    row_counts = occ.sum(-1, dtype=torch.int32)
+    row_cap = max(int(row_counts.max()), 1)
+    cell_occ = occ.view(nzp, nyp, nx + 2, m_c).sum(-1, dtype=torch.int32)
+    off = cell_occ.cumsum(-1, dtype=torch.int32) - cell_occ
+    cell_offsets = torch.cat([off, row_counts[..., None]], -1).contiguous()
+    dest = torch.where(occ, rank, row_cap).long()
+
+    def pack(plane, fill):
+        out = torch.full((nzp, nyp, row_cap + 1), fill, dtype=plane.dtype,
+                         device=plane.device)
+        out.scatter_(-1, dest, plane)
+        return out[..., :row_cap].contiguous()
+
+    cell = (torch.arange(w, device=sid.device, dtype=torch.int32)
+            // m_c).expand(nzp, nyp, w)
+    return ({c: pack(planes[c], 1.0e8) for c in "xyz"}, pack(sid, -1),
+            pack(cell.contiguous(), 1), cell_offsets, rank)
+
+
+def _check_b_c_d(dom, planes, sid, m_c, kern, what):
+    """Kernel B against its plain version and, bit for bit, against itself
+    at every chunk width, kernel C (every pencil, shuffled, plus padding)
+    and kernel D over the same real particles packed stably."""
+    nx, ny, nz = dom.ncells
+    kw = dict(m_c=m_c, kernel=kern, cutoff2=1.0)
+    xyz = [planes[c] for c in "xyz"]
+    b = xpencil_forces(planes, sid, nx=nx, **kw)
+    want = S.xpencil_planes(*xyz, sid, nx=nx, **kw)
+    fsize, usize = (S.xpencil_planes(*xyz, sid, nx=nx, m_c=m_c, kernel=k,
+                                     cutoff2=1.0)[3]
+                    for k in _term_sizes(kern))
+    real = sid[1:-1, 1:-1, m_c:-m_c] >= 0
+    for g, w, part in zip(b, want, ("fx", "fy", "fz", "pot")):
+        _term_close(g, w, usize if part == "pot" else fsize,
+                    f"B {part} {what}")
+        assert not bool(g[~real].any()), f"B {part} {what}: empty slot not 0"
+    for cx in sorted({1, min(3, nx), nx, chunk_cells(nx, m_c)}):
+        if pencil_smem_bytes(cx, m_c) > MAX_SMEM:
+            continue
+        got = xpencil_forces(planes, sid, nx=nx, cx_cells=cx, **kw)
+        assert all(torch.equal(g, w) for g, w in zip(got, b)), (what, cx)
+
+    act = torch.randperm(nz * ny, device=sid.device).int()
+    act = torch.cat([act, torch.zeros(3, dtype=torch.int32,
+                                      device=sid.device)])
+    c = xpencil_sparse_forces(planes, sid, act, nx=nx, ny=ny, **kw)
+    want_c = S.xpencil_sparse_planes(*xyz, sid, act, nx=nx, ny=ny, **kw)
+    rows = act.long()
+    for g, w, bb, part in zip(c, want_c, b, ("fx", "fy", "fz", "pot")):
+        size = (usize if part == "pot" else fsize).reshape(nz * ny, -1)
+        _term_close(g, w, size[rows], f"C {part} {what}")
+        assert torch.equal(g, bb.reshape(nz * ny, -1)[rows]), f"C {what}"
+    if nx > 1:
+        got = xpencil_sparse_forces(planes, sid, act, nx=nx, ny=ny,
+                                    cx_cells=nx - 1, **kw)
+        assert all(torch.equal(g, w) for g, w in zip(got, c)), what
+
+    p_planes, p_sid, p_cell, p_off, rank = _pack_stably(planes, sid, nx, m_c)
+    d = xpencil_packed_forces(p_planes, p_sid, p_cell, p_off, None, nx=nx,
+                              ny=ny, **kw)
+    pos = rank[1:-1, 1:-1, m_c:-m_c].clamp(min=0).long()
+    for g, bb in zip(d, b):
+        per_slot = g.view(nz, ny, -1).gather(-1, pos)
+        assert torch.equal(per_slot[real], bb[real]), f"D vs B {what}"
+    return b
+
+
+def _scene(gen, ncells, ppc, m_c, periodic, full_cell=False, half_y=False):
+    dom = Domain(box=tuple(float(c) for c in ncells), ncells=ncells,
+                 cutoff=1.0, periodic=periodic)
+    n = ncells[0] * ncells[1] * ncells[2] * ppc
+    pos = dom.sample_uniform(n, generator=gen, device="cuda")
+    if half_y:                    # every pencil row with y >= ny/2 is empty
+        pos = pos * torch.tensor([1.0, 0.5, 1.0], device="cuda")
+    if full_cell:                 # cell (1, 1, 1) holds m_c or more
+        extra = 1.0 + torch.rand((m_c + 2, 3), generator=gen, device="cuda")
+        pos = torch.cat([pos, extra])
+    bins = bin_particles(dom, pos, m_c=m_c)
+    return dom, bins
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("m_c", [7, 24])            # cp.async; TMA bulk
+@pytest.mark.parametrize("name", sorted(PAIR_KINDS))
+def test_xpencil_kernels_with_holes(gen, periodic, m_c, name):
+    """Holes in the middle of cells, nx = 7 (widths 1, 3, 7 and the
+    policy's), every pair kind."""
+    dom, bins = _scene(gen, (7, 5, 4), 4, m_c, periodic, full_cell=True)
+    sid, n_holes = _punch_holes(bins.slot_id, m_c, gen)
+    assert n_holes > 50
+    _check_b_c_d(dom, bins.planes, sid, m_c, PAIR_KINDS[name](),
+                 f"holes m_c={m_c} periodic={periodic}")
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("m_c", [7, 24])
+@pytest.mark.parametrize("scene", ["full_cell", "empty_rows", "empty_grid"])
+def test_xpencil_kernels_on_edge_scenes(gen, periodic, m_c, scene):
+    dom, bins = _scene(gen, (9, 6, 5), 3, m_c, periodic,
+                       full_cell=scene == "full_cell",
+                       half_y=scene == "empty_rows")
+    sid = bins.slot_id
+    counts = (sid >= 0).view(-1, m_c).sum(-1)
+    if scene == "full_cell":
+        assert int(counts.max()) == m_c
+    elif scene == "empty_rows":
+        rows = (sid[1:-1, 1:-1] >= 0).any(-1)
+        assert bool((~rows).any()) and bool(rows.any())
+    else:
+        sid = torch.full_like(sid, -1)
+    b = _check_b_c_d(dom, bins.planes, sid, m_c, make_lennard_jones(),
+                     f"{scene} m_c={m_c} periodic={periodic}")
+    if scene == "empty_grid":
+        assert not any(bool(o.any()) for o in b)
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+def test_xpencil_kernels_one_cell_wide(gen, periodic):
+    dom, bins = _scene(gen, (1, 4, 3), 5, 12, periodic, full_cell=True)
+    sid, _ = _punch_holes(bins.slot_id, 12, gen)
+    _check_b_c_d(dom, bins.planes, sid, 12, make_gravity(),
+                 f"nx=1 periodic={periodic}")
+
+
+def test_xpencil_kernels_above_1024_slots_a_cell(gen):
+    """m_c past the old one-thread-per-slot limit, up to the shared-memory
+    one: a cell of 1100 particles, against the plain version."""
+    m_c = 1100
+    dom, bins = _scene(gen, (3, 2, 2), 20, m_c, False)
+    dense = 1.0 + torch.rand((m_c + 50, 3), generator=gen, device="cuda")
+    pos = torch.cat([torch.rand((200, 3), generator=gen, device="cuda")
+                     * torch.tensor([3.0, 2.0, 2.0], device="cuda"), dense])
+    bins = bin_particles(dom, pos, m_c=m_c)
+    assert int((bins.slot_id >= 0).view(-1, m_c).sum(-1).max()) == m_c
+    _check_b_c_d(dom, bins.planes, bins.slot_id, m_c, make_low_flop(),
+                 "m_c=1100")
+    big = MAX_M_C + 1
+    planes = {c: torch.zeros((3, 3, 3 * big), device="cuda") for c in "xyz"}
+    with pytest.raises(ValueError, match="shared memory"):
+        xpencil_forces(planes, torch.full((3, 3, 3 * big), -1,
+                                          dtype=torch.int32, device="cuda"),
+                       nx=1, m_c=big, kernel=make_low_flop(), cutoff2=1.0)
 
 
 @pytest.mark.parametrize("periodic", [False, True])
