@@ -13,14 +13,19 @@ the main paths through ``plan(...).execute()`` and checks and times them:
     ``strategy="allin"``) on the same particles; kernel B, and kernel C on
     the clustered scene below, timed at their chunk width and at
     ``CHUNK_WIDTHS``, bit-equal at each, beside the TPU schedule's dense
-    slot-pair count, the candidate-pair count and the bound;
+    slot-pair count, the candidate-pair count (both counted from the bins)
+    and the bound; kernel E at its block size and at ``ALLIN_THREADS``,
+    bit-equal at each; B, E and F also with the low_flop pair kernel (what
+    staging and compaction cost), and E and F's pair steps counted on the
+    card against the candidate pairs;
   * packed rows (kernels A and D), 1,048,576 uniform particles, division 64;
   * a clustered scene (Gaussian blob, 131,072 particles, division 64) with
     ``compact=True``, dense layout (kernels A and C) and packed layout
     (kernels A and D);
   * a plan built on the uniform scene, run on the blob through
     ``execute_or_replan``, for the packed+compacted X-pencil and for
-    All-in-SM (whose sub-box follows the grown ``m_c``);
+    All-in-SM (whose sub-box follows the grown ``m_c``); All-in-SM (kernel
+    E) on the clustered scene, timed in turns with B;
   * the reference strategies (Par-Part, Par-Cell, All-in-SM, compacted and
     not) at division 12 and 8 against the O(N^2) oracle;
   * the SFC cluster layout (kernels A and F, ``strategy="cell_dense",
@@ -91,6 +96,7 @@ PACKED_CASE = (64, 4)                             # division, per cell
 BLOB_CASE = (64, 131_072, 0.1)                    # division, N, sigma_frac
 CHECK_DIVISION = 16
 CHUNK_WIDTHS = (8, 16, 32, 64)   # kernels B, C timed at these widths too
+ALLIN_THREADS = (256, 512, 1024)  # kernel E timed at these block sizes too
 SFC_CLUSTERINGS = ((4, "morton"), (8, "hilbert"))   # csize, curve
 SFC_PLAIN_BATCH = 2048           # clusters per chunk of F's plain version
 
@@ -722,6 +728,15 @@ def _leaves(tree):
         yield tree
 
 
+def slot_pairs_visited(launch) -> int:
+    """The pair steps a kernel E or F launch takes (``launch(visits)``
+    adds them to a one-element int64 counter on the card)."""
+    visits = torch.zeros(1, dtype=torch.int64, device="cuda")
+    launch(visits)
+    torch.cuda.synchronize()
+    return int(visits)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -748,7 +763,8 @@ def main(argv=None) -> int:
                                           sfc_to_particles)
     from repro_torch.core.interactions import PairKernel
     from repro_torch.kernels import _build
-    from repro_torch.kernels.allin import allin_forces, halo_bytes
+    from repro_torch.kernels.allin import (allin_forces, allin_threads,
+                                           halo_bytes)
     from repro_torch.kernels.ops import (xpencil_interactions,
                                          xpencil_packed_interactions,
                                          xpencil_sparse_interactions)
@@ -939,6 +955,18 @@ def main(argv=None) -> int:
                                  f"{what} at chunk width {w} vs default")
             by_width[w] = cuda_ms(lambda: launch(cx_cells=w), reps)
         return by_width
+
+    def threads_sweep(what, launch, want, reps=10):
+        """Kernel E (``launch(threads=...)``) at ALLIN_THREADS, each
+        bit-equal to ``want`` and timed in turns (ascending, then
+        descending). -> {threads: mean ms}"""
+        times = {t: [] for t in ALLIN_THREADS}
+        for t in ALLIN_THREADS:
+            assert_equal_results(launch(threads=t), want,
+                                 f"{what} at {t} threads vs default")
+        for t in ALLIN_THREADS + ALLIN_THREADS[::-1]:
+            times[t].append(cuda_ms(lambda: launch(threads=t), reps))
+        return {t: statistics.mean(v) for t, v in times.items()}
 
     # -- kernel A: the paper's scan, exactly equal to its plain versions ----
     # the long and the repeated scans draw from a generator of their own,
@@ -1224,6 +1252,26 @@ def main(argv=None) -> int:
                                         cutoff2=1.0)) if which == "B" else
                 (lambda: sfc_tiles(dom, bins, sfc, kern)), reps))
         b_ms, f_ms = (statistics.mean(turns[k]) for k in ("B", "F"))
+        f_low_ms = cuda_ms(lambda: sfc_tiles(dom, bins, sfc,
+                                             kernels["low_flop"]), reps)
+        # pair steps: every real target against the real sources of its
+        # kept slabs, itself included; a schedule that visits every slot
+        # takes m_c steps a slab, each kept code for every real target of
+        # its cluster
+        tgt, src = sfc_device_slot_tables(dom, bins.m_c, sfc.csize,
+                                          sfc.curve, dev)
+        visited = slot_pairs_visited(lambda v: cell_sfc_forces(
+            bins.planes, bins.slot_id, sfc.codes, tgt, src, m_c=bins.m_c,
+            kernel=kern, cutoff2=1.0, visits=v))
+        real_pairs = candidate_pairs(dom, bins.counts) + pos.shape[0]
+        if visited != real_pairs:
+            raise AssertionError(f"kernel F {label}: {visited} pair steps, "
+                                 f"want {real_pairs} (real pairs, self "
+                                 f"included)")
+        kept = torch.bincount((sfc.codes.long() >> 5),
+                              minlength=sfc_n_clusters(dom, sfc.csize) + 1)
+        every_slot = int((sfc.cluster_counts.long() * kept[:-1]).sum()
+                         * bins.m_c)
         f_bound_ms, f_bound_by = bound(
             kernel_f_bytes(dom, bins, sfc),
             candidate_pairs(dom, bins.counts) * DIST_FLOPS
@@ -1237,12 +1285,14 @@ def main(argv=None) -> int:
             pair_list_ms=cuda_ms(lambda: ps.clusters(bins), reps),
             kernel_f_ms=f_ms, kernel_f_ms_turns=turns["F"],
             kernel_b_ms=b_ms, kernel_b_ms_turns=turns["B"],
-            f_over_b=f_ms / b_ms,
+            f_over_b=f_ms / b_ms, kernel_f_low_flop_ms=f_low_ms,
+            kernel_f_pair_steps=visited,
+            kernel_f_every_slot_steps_from_bins=every_slot,
             to_particles_ms=cuda_ms(lambda: sfc_to_particles(dom, sfc, *kf),
                                     reps),
             kernel_f_plain_ms=plain_ms, kernel_f_bound_ms=f_bound_ms,
             kernel_f_bound_by=f_bound_by,
-            candidate_pairs=candidate_pairs(dom, bins.counts),
+            candidate_pairs_from_bins=candidate_pairs(dom, bins.counts),
             pairs_in_cutoff=within, kernel_f_max_abs_err=abs_err,
             kernel_f_term_rel_err=term_err, forces_vs_reference=errs[0],
             potential_vs_reference=errs[1], forces_term_rel_err=terms[0],
@@ -1317,9 +1367,23 @@ def main(argv=None) -> int:
         b_low_ms = cuda_ms(lambda: xpencil_forces(
             bins.planes, bins.slot_id, nx=division, m_c=p.m_c,
             kernel=kernels["low_flop"], cutoff2=1.0), reps)
+        e_low_ms = cuda_ms(lambda: allin_forces(
+            bins.planes, bins.slot_id, box=pe.box, m_c=p.m_c,
+            kernel=kernels["low_flop"], cutoff2=1.0), reps)
+        e_by_threads = threads_sweep(
+            f"kernel E {label}", lambda **kw: allin_forces(
+                bins.planes, bins.slot_id, box=pe.box, m_c=p.m_c,
+                kernel=kern, cutoff2=1.0, **kw), ke, reps)
+        e_visited = slot_pairs_visited(lambda v: allin_forces(
+            bins.planes, bins.slot_id, box=pe.box, m_c=p.m_c, kernel=kern,
+            cutoff2=1.0, visits=v))
 
         out_slots = kb[0].numel()
         pairs = candidate_pairs(dom, counts)
+        if e_visited != pairs + n:
+            raise AssertionError(f"kernel E {label}: {e_visited} pair steps, "
+                                 f"want {pairs + n} (real pairs, self "
+                                 f"included)")
         xp_bound_ms, xp_bound_by = bound(
             dense_read_bytes(bins) + 4 * 4 * out_slots,
             pairs * DIST_FLOPS + within * kern.flops)
@@ -1329,6 +1393,13 @@ def main(argv=None) -> int:
             f"schedule's), {pairs} candidate pairs; {b_ms / xp_bound_ms:.1f}"
             f"x its {xp_bound_ms:.6f} ms bound ({xp_bound_by}); with the "
             f"low_flop pair kernel {b_low_ms:.6f} ms")
+        log(f"kernel E {label}: {e_ms:.6f} ms at box {pe.box} and "
+            f"{allin_threads(pe.box, p.m_c)} threads (B in turns "
+            f"{b_ms:.6f}; by threads {e_by_threads}); low_flop "
+            f"{e_low_ms:.6f} ms; {e_visited} pair "
+            f"steps = {pairs} candidate pairs + {n} self pairs (counted "
+            f"from the bins; a schedule over every slot of 27 cells would "
+            f"take {n * 27 * p.m_c})")
         res = dict(case=f"dense {label}", division=division, ppc=ppc,
                    periodic=periodic, n=n, m_c=p.m_c, launches=launches,
                    execute_ms=execute_ms, bin_ms=bin_ms, scan_ms=a_ms,
@@ -1339,9 +1410,9 @@ def main(argv=None) -> int:
                    xpencil_chunk_cells=chunk_cells(division, p.m_c),
                    xpencil_ms_by_chunk_cells=b_by_width,
                    xpencil_low_flop_ms=b_low_ms,
-                   candidate_pairs=pairs,
+                   candidate_pairs_from_bins=pairs,
                    pairs_in_cutoff=within,
-                   dense_slot_pairs=out_slots * 9 * 3 * p.m_c,
+                   dense_slot_pairs_from_bins=out_slots * 9 * 3 * p.m_c,
                    xpencil_max_abs_err=xp_abs_err,
                    xpencil_term_rel_err=xp_term_err,
                    forces_vs_reference=err_f, potential_vs_reference=err_u,
@@ -1355,7 +1426,11 @@ def main(argv=None) -> int:
                    allin_blocks=dom.n_cells // (pe.box[0] * pe.box[1]
                                                 * pe.box[2]),
                    allin_max_abs_err=e_abs_err,
-                   allin_term_rel_err=e_term_err)
+                   allin_term_rel_err=e_term_err, allin_low_flop_ms=e_low_ms,
+                   allin_threads=allin_threads(pe.box, pe.m_c),
+                   allin_ms_by_threads=e_by_threads,
+                   allin_pair_steps=e_visited,
+                   allin_every_slot_steps_from_bins=n * 27 * p.m_c)
         results.append(res)
         log("main path: " + json.dumps(res))
 
@@ -1431,7 +1506,7 @@ def main(argv=None) -> int:
         kernel_d_bound_by=d_bound_by,
         unpack_ms=cuda_ms(lambda: packed_to_particles(dom, packed, *kd),
                           reps),
-        candidate_pairs=candidate_pairs(dom, bins.counts),
+        candidate_pairs_from_bins=candidate_pairs(dom, bins.counts),
         pairs_in_cutoff=within, kernel_d_max_abs_err=d_abs_err,
         kernel_d_term_rel_err=d_term_err, forces_vs_reference=errs[0],
         potential_vs_reference=errs[1], forces_term_rel_err=terms[0],
@@ -1506,7 +1581,7 @@ def main(argv=None) -> int:
         kernel_c_bound_by=c_bound_by,
         kernel_c_chunk_cells=chunk_cells(division, pb.m_c),
         kernel_c_ms_by_chunk_cells=c_by_width,
-        dense_slot_pairs=kc[0].numel() * 9 * 3 * pb.m_c,
+        dense_slot_pairs_from_bins=kc[0].numel() * 9 * 3 * pb.m_c,
         kernel_b_ms=cuda_ms(lambda: xpencil_forces(
             bins_b.planes, bins_b.slot_id, nx=division, m_c=pb.m_c,
             kernel=kern, cutoff2=1.0), reps),
@@ -1517,7 +1592,7 @@ def main(argv=None) -> int:
         kernel_d_plain_ms=db_plain_ms, kernel_d_bound_ms=db_bound_ms,
         kernel_d_bound_by=db_bound_by,
         scatter_ms=cuda_ms(scatter_back, reps),
-        candidate_pairs=candidate_pairs(dom, bins_b.counts),
+        candidate_pairs_from_bins=candidate_pairs(dom, bins_b.counts),
         pairs_in_cutoff=within_b, kernel_c_max_abs_err=c_abs_err,
         kernel_c_term_rel_err=c_term_err, kernel_d_max_abs_err=db_abs_err,
         forces_vs_reference=errs_c[0], potential_vs_reference=errs_c[1],
@@ -1528,14 +1603,72 @@ def main(argv=None) -> int:
     cb = new_cases["b"]
     log(f"kernel C, main case (b): {cb['kernel_c_ms']:.6f} ms at chunk width "
         f"{cb['kernel_c_chunk_cells']} (by width {c_by_width}); "
-        f"{cb['dense_slot_pairs']} dense slot pairs (the TPU schedule's, "
-        f"padding rows included), {cb['candidate_pairs']} candidate pairs; "
+        f"{cb['dense_slot_pairs_from_bins']} dense slot pairs (the TPU "
+        f"schedule's, padding rows included), "
+        f"{cb['candidate_pairs_from_bins']} candidate pairs; "
         f"{cb['kernel_c_ms'] / c_bound_ms:.1f}x its {c_bound_ms:.6f} ms bound "
         f"({c_bound_by})")
     sfc_results.append(sfc_case(dom, kern, pos_b, state_b, bins_b, dense_b,
                                 f"blob div {division}", False))
     sfc_checks += 4
     log("main path (d): " + json.dumps(sfc_results[-1]))
+
+    # (c) All-in-SM on the blob: kernel E, and B in turns, on its bins
+    pe_b = plan(dom, kern, positions=pos_b, strategy="allin")
+    fe, ue, launches_eb = run_main(pe_b, state_b, "allin blob",
+                                   ("prefix_sum", "allin_forces"))
+    if launches_eb["allin_forces"] != 1 or pe_b.m_c != pb.m_c:
+        raise AssertionError(f"allin blob: {launches_eb}, m_c {pe_b.m_c} "
+                             f"vs {pb.m_c}")
+    assert_equal_results((fe, ue), dense_b, "allin (kernel E) vs dense, blob")
+    keb, _, eb_plain_ms, _, eb_abs_err, eb_term_err = check_kernel_e(
+        bins_b, pe_b.box, "lennard_jones", kern, "main case (b)")
+    al_checks += 4
+
+    def b_blob(k=kern):
+        return xpencil_forces(bins_b.planes, bins_b.slot_id, nx=division,
+                              m_c=pb.m_c, kernel=k, cutoff2=1.0)
+
+    def e_blob(k=kern, visits=None):
+        return allin_forces(bins_b.planes, bins_b.slot_id, box=pe_b.box,
+                            m_c=pb.m_c, kernel=k, cutoff2=1.0, visits=visits)
+
+    assert_equal_results(keb, b_blob(), "kernel E vs B planes, blob")
+    ident_checks += 1
+    turns = {"B": [], "E": []}
+    for which in ("B", "E", "E", "B"):
+        turns[which].append(cuda_ms(b_blob if which == "B" else e_blob,
+                                    reps))
+    eb_visited = slot_pairs_visited(lambda v: e_blob(visits=v))
+    blob_pairs = candidate_pairs(dom, bins_b.counts)
+    if eb_visited != blob_pairs + n_blob:
+        raise AssertionError(f"kernel E blob: {eb_visited} pair steps, want "
+                             f"{blob_pairs + n_blob}")
+    eb_bound_ms, eb_bound_by = bound(
+        dense_read_bytes(bins_b) + 4 * 4 * keb[0].numel(),
+        blob_pairs * DIST_FLOPS + within_b * kern.flops)
+    new_cases["c_blob"] = dict(
+        case="allin blob", division=division, n=n_blob, m_c=pe_b.m_c,
+        box=pe_b.box, smem_bytes=halo_bytes(pe_b.box, pe_b.m_c),
+        launches=launches_eb,
+        execute_ms=cuda_ms(lambda: pe_b.execute(state_b), reps),
+        kernel_e_ms=statistics.mean(turns["E"]), kernel_e_ms_turns=turns["E"],
+        kernel_b_ms=statistics.mean(turns["B"]), kernel_b_ms_turns=turns["B"],
+        kernel_e_low_flop_ms=cuda_ms(
+            lambda: e_blob(kernels["low_flop"]), reps),
+        kernel_e_threads=allin_threads(pe_b.box, pe_b.m_c),
+        kernel_e_ms_by_threads=threads_sweep(
+            "kernel E blob", lambda **kw: allin_forces(
+                bins_b.planes, bins_b.slot_id, box=pe_b.box, m_c=pb.m_c,
+                kernel=kern, cutoff2=1.0, **kw), keb, reps),
+        kernel_b_low_flop_ms=cuda_ms(
+            lambda: b_blob(kernels["low_flop"]), reps),
+        kernel_e_plain_ms=eb_plain_ms, kernel_e_max_abs_err=eb_abs_err,
+        kernel_e_term_rel_err=eb_term_err, kernel_e_bound_ms=eb_bound_ms,
+        kernel_e_bound_by=eb_bound_by, pair_steps=eb_visited,
+        candidate_pairs_from_bins=blob_pairs,
+        every_slot_steps_from_bins=n_blob * 27 * pe_b.m_c)
+    log("main path (c) on the blob: " + json.dumps(new_cases["c_blob"]))
 
     # -- replan on the card: a plan sized on the uniform scene, run on the blob
     pu = plan(dom, kern, positions=pos_u, layout="packed", compact=True)
@@ -1647,8 +1780,6 @@ def main(argv=None) -> int:
          "max_term_rel_err": dense_main["xpencil_term_rel_err"],
          "chunk_cells": dense_main["xpencil_chunk_cells"],
          "ms_by_chunk_cells": dense_main["xpencil_ms_by_chunk_cells"],
-         "dense_slot_pairs": dense_main["dense_slot_pairs"],
-         "candidate_pairs": dense_main["candidate_pairs"],
          "checks_passed": xp_checks},
         {"name": "xpencil_sparse_forces", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/xpencil.cu",
@@ -1663,8 +1794,6 @@ def main(argv=None) -> int:
          "max_term_rel_err": b["kernel_c_term_rel_err"],
          "chunk_cells": b["kernel_c_chunk_cells"],
          "ms_by_chunk_cells": b["kernel_c_ms_by_chunk_cells"],
-         "dense_slot_pairs": b["dense_slot_pairs"],
-         "candidate_pairs": b["candidate_pairs"],
          "checks_passed": sp_checks},
         {"name": "xpencil_packed_forces", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/xpencil.cu",
@@ -1693,6 +1822,12 @@ def main(argv=None) -> int:
                           box=dense_main["allin_box"],
                           smem_bytes=dense_main["allin_smem_bytes"]),
          "max_term_rel_err": dense_main["allin_term_rel_err"],
+         "low_flop_ms": dense_main["allin_low_flop_ms"],
+         "threads": dense_main["allin_threads"],
+         "ms_by_threads": dense_main["allin_ms_by_threads"],
+         "pair_steps": dense_main["allin_pair_steps"],
+         "ms_by_case": {r["case"]: r["allin_ms"] for r in results}
+         | {"blob": new_cases["c_blob"]["kernel_e_ms"]},
          "checks_passed": al_checks},
         {"name": "cell_sfc_forces", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/sfc.cu",
@@ -1711,6 +1846,9 @@ def main(argv=None) -> int:
                           pair_cap=sfc_main["pair_cap"],
                           n_pairs=sfc_main["n_pairs"]),
          "max_term_rel_err": sfc_main["kernel_f_term_rel_err"],
+         "low_flop_ms": sfc_main["kernel_f_low_flop_ms"],
+         "pair_steps": sfc_main["kernel_f_pair_steps"],
+         "ms_by_case": {r["case"]: r["kernel_f_ms"] for r in sfc_results},
          "checks_passed": sfc_checks},
         {"name": "window_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/window_attn_sm90.cu (bf16, "

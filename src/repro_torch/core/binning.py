@@ -35,6 +35,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ._device import resolve_device
 from .domain import Domain
 from .prefix import exclusive_prefix_sum
 
@@ -334,9 +335,12 @@ def scatter_rows(rows: torch.Tensor, idx: torch.Tensor,
 
 
 def full_pencil_occupancy(domain: Domain,
-                          device: torch.device | str = "cpu") -> Occupancy:
+                          device: torch.device | str | None = None
+                          ) -> Occupancy:
     """The identity occupancy: every (z, y) pencil active, in order, so the
-    packed runners iterate all rows through the active-list machinery."""
+    packed runners iterate all rows through the active-list machinery.
+    ``device`` None is the CUDA card (raises without one)."""
+    device = resolve_device(device)
     n = domain.nz * domain.ny
     return Occupancy(
         unit_counts=torch.ones((n,), dtype=torch.int32, device=device),

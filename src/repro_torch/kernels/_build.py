@@ -35,10 +35,11 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 # source file -> {C symbol: argtypes}; every restype is c_int
 SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     "allin.cu": {
-        # x, y, z, slot_id, fx, fy, fz, pot, nx, ny, nz, m_c, bx, by, bz,
-        # cutoff2, kind, p0, p1, p2, p3, n_extra, stream
-        "allin_forces_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                             _I, _I, _I, _F, _I, _F, _F, _F, _F, _I, _P),
+        # x, y, z, slot_id, fx, fy, fz, pot, visits, nx, ny, nz, m_c, bx,
+        # by, bz, threads, cutoff2, kind, p0, p1, p2, p3, n_extra, stream
+        "allin_forces_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                             _I, _I, _I, _I, _I, _F, _I, _F, _F, _F, _F, _I,
+                             _P),
     },
     "prefix_sum.cu": {
         # in, out, status, n, capacity, stream
@@ -46,11 +47,11 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     },
     "sfc.cu": {
         # x, y, z, slot_id, codes, tgt_base, src_base, fx, fy, fz, pot,
-        # n_codes, n_clusters, csize, m_c, total, cutoff2, kind, p0, p1, p2,
-        # p3, n_extra, stream
+        # visits, n_codes, n_clusters, csize, m_c, total, cutoff2, kind, p0,
+        # p1, p2, p3, n_extra, stream
         "cell_sfc_forces_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _F, _I, _F, _F, _F, _F,
-                                _I, _P),
+                                _P, _I, _I, _I, _I, _I, _F, _I, _F, _F, _F,
+                                _F, _I, _P),
     },
     "xpencil.cu": {
         # x, y, z, slot_id, fx, fy, fz, pot, nx, ny, nz, m_c, cutoff2,

@@ -3,7 +3,7 @@ CUDA form, output allocation and the launch through ``_build``."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -39,6 +39,16 @@ def new_outputs(shape, device) -> Tuple[torch.Tensor, ...]:
     """fx, fy, fz, pot: four uninitialised float32 tensors."""
     return tuple(torch.empty(shape, dtype=torch.float32, device=device)
                  for _ in range(4))
+
+
+def visit_counter(visits: Optional[torch.Tensor], device) -> Optional[int]:
+    """The pointer a kernel adds its pair-step count to: None (NULL) or a
+    one-element int64 tensor on ``device``."""
+    if visits is None:
+        return None
+    check_tensors(device, [("visits", visits, torch.int64, (1,))],
+                  "visit counter")
+    return visits.data_ptr()
 
 
 def launch(source: str, entry: str, x: torch.Tensor, *args) -> None:

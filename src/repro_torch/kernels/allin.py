@@ -6,20 +6,28 @@
 On CPU tensors the wrapper runs its plain version (the same schedule in
 PyTorch, ``repro_torch.core.strategies.allin_planes``); on CUDA tensors it
 launches the kernel or raises. ``allin_forces.launches`` counts the
-launches. Kernel E evaluates the dense slot pairs of kernel B, so it is
-bound by operations; its halo block sets how many blocks an SM holds (see
-the note in the CUDA source).
+launches. Kernel E stages its sub-box's halo block in shared memory with
+each cell compacted to its real particles (``halo_bytes``, no more) and
+visits only the real sources of each real target's 27 cells, in kernel B's
+order; the staging and the two blocks, or one, that the halo leaves an SM
+set its pace (see the note in the CUDA source), and the block's threads
+follow them (``allin_threads``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from ..core.interactions import PairKernel
 from ..core.strategies import allin_planes
-from ._common import MAX_SMEM, check_tensors, cuda_form, launch, new_outputs
+from ._common import (MAX_SMEM, check_tensors, cuda_form, launch, new_outputs,
+                      visit_counter)
+
+MAX_THREADS = 1024     # csrc/allin.cu::kAllinMaxThreads, the launch bound
+SM_SMEM = 233472       # bytes of shared memory an H100 SM holds (228 KB)
+SMEM_RESERVED = 1024   # of which the runtime keeps 1 KB a block
 
 
 def halo_bytes(box: Tuple[int, int, int], m_c: int) -> int:
@@ -29,9 +37,18 @@ def halo_bytes(box: Tuple[int, int, int], m_c: int) -> int:
     return 16 * (bz + 2) * (by + 2) * (bx + 2) * m_c
 
 
+def allin_threads(box: Tuple[int, int, int], m_c: int) -> int:
+    """Kernel E's threads a block: 512 where two blocks' halos fit an SM's
+    shared memory (two blocks of 1024 would need more than the SM's 64K
+    registers), else ``MAX_THREADS`` (the SM holds one block)."""
+    two = 2 * (halo_bytes(box, m_c) + SMEM_RESERVED) <= SM_SMEM
+    return 512 if two else MAX_THREADS
+
+
 def allin_forces(planes: Dict[str, torch.Tensor], slot_id: torch.Tensor, *,
                  box: Tuple[int, int, int], m_c: int, kernel: PairKernel,
-                 cutoff2: float) -> Tuple[torch.Tensor, ...]:
+                 cutoff2: float, visits: Optional[torch.Tensor] = None,
+                 threads: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
     """Kernel E: the All-in-SM schedule over padded planes.
 
     Args:
@@ -39,6 +56,11 @@ def allin_forces(planes: Dict[str, torch.Tensor], slot_id: torch.Tensor, *,
       slot_id: matching int32 plane, -1 for empty slots.
       box: interior sub-box (bx, by, bz); must divide (nx, ny, nz)
         (``core.strategies.shrink_to_divisors``).
+      visits: optional int64 tensor of one element on the card, to which
+        the kernel adds the number of pair steps it took (CUDA only).
+      threads: the kernel's threads a block, a multiple of 32 up to
+        ``MAX_THREADS``, or None for ``allin_threads(box, m_c)``; the result
+        does not depend on it (CUDA only).
     Returns:
       (fx, fy, fz, pot), each (nz, ny, nx*m_c) over the interior slots.
     """
@@ -52,6 +74,11 @@ def allin_forces(planes: Dict[str, torch.Tensor], slot_id: torch.Tensor, *,
     if min(box) < 1 or nx % bx or ny % by or nz % bz:
         raise ValueError(f"sub-box {box} must divide the grid "
                          f"({nx}, {ny}, {nz})")
+    if threads is None:
+        threads = allin_threads(box, m_c)
+    if not (32 <= threads <= MAX_THREADS and threads % 32 == 0):
+        raise ValueError(f"threads={threads} is not a block of kernel E: a "
+                         f"multiple of 32 up to {MAX_THREADS}")
     if x.device.type == "cpu":
         return allin_planes(x, y, z, slot_id, box=box, m_c=m_c,
                             kernel=kernel, cutoff2=cutoff2)
@@ -71,7 +98,8 @@ def allin_forces(planes: Dict[str, torch.Tensor], slot_id: torch.Tensor, *,
     outs = new_outputs((nz, ny, nx * m_c), x.device)
     launch("allin.cu", "allin_forces_f32", x, x.data_ptr(), y.data_ptr(),
            z.data_ptr(), slot_id.data_ptr(), *(o.data_ptr() for o in outs),
-           nx, ny, nz, m_c, bx, by, bz, float(cutoff2), *form)
+           visit_counter(visits, x.device), nx, ny, nz, m_c, bx, by, bz,
+           threads, float(cutoff2), *form)
     allin_forces.launches += 1
     return outs
 

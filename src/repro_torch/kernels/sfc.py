@@ -2,34 +2,57 @@
 ``csrc/sfc.cu``.
 
   cell_sfc_forces  kernel F, the compressed cluster-pair list over the
-                   dense planes, one block per cluster
+                   dense planes, one warp per cluster
                    (replaces ``repro/kernels/sfc.py::cell_sfc_forces``)
 
 On CPU tensors the wrapper runs its plain version (the same schedule in
 PyTorch, ``repro_torch.core.strategies.cell_sfc_tiles``); on CUDA tensors
 it launches the kernel or raises. ``cell_sfc_forces.launches`` counts the
-launches. Kernel F evaluates 27 one-cell slabs of m_c slots per target of
-a kept cluster, so like kernel B it is bound by operations (see the note in
-the CUDA source).
+launches. Kernel F compacts a cluster's real targets, stages the source
+slabs of its kept codes compacted to their real particles, and lets each
+target visit only its own slab's real sources; the staging of 27 slabs a
+cell sets its pace (see the note in the CUDA source). A warp's shared
+memory (``sfc_warp_smem_bytes``) limits the tile, not a thread count.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from ..core.interactions import PairKernel
 from ..core.strategies import cell_sfc_tiles
-from ._common import check_tensors, cuda_form, launch, new_outputs
+from ._common import (MAX_SMEM, check_tensors, cuda_form, launch, new_outputs,
+                      visit_counter)
 
-MAX_TILE = 1024        # kernel F: one thread per slot of a cluster's tile
+# kernel F (csrc/sfc.cu: kSfcStageBytes)
+SFC_STAGE_BYTES = 6144   # staged slabs a warp aims at
+
+
+def sfc_group(tile: int) -> int:
+    """Codes kernel F stages at a time for a tile of ``csize*m_c`` slots
+    (``csrc/sfc.cu::sfc_group``): 4, 2 or 1, the most whose slabs (16 B a
+    slot) fit ``SFC_STAGE_BYTES``."""
+    return next(g for g in (4, 2, 1)
+                if 16 * g * tile <= SFC_STAGE_BYTES or g == 1)
+
+
+def sfc_warp_smem_bytes(csize: int, m_c: int) -> int:
+    """Shared memory of one kernel F warp (``csrc/sfc.cu::sfc_warp_smem``):
+    the staged slabs of ``sfc_group`` codes (16 B a slot), the target list
+    (4 B a tile slot), the source bases of 32 codes and their stencil
+    slots, rounded up to 16 B."""
+    tile = csize * m_c
+    n = 16 * sfc_group(tile) * tile + 4 * tile + 128 * csize + 128
+    return -(-n // 16) * 16
 
 
 def cell_sfc_forces(planes: Dict[str, torch.Tensor], slot_id: torch.Tensor,
                     codes: torch.Tensor, tgt_base: torch.Tensor,
                     src_base: torch.Tensor, *, m_c: int, kernel: PairKernel,
-                    cutoff2: float) -> Tuple[torch.Tensor, ...]:
+                    cutoff2: float, visits: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, ...]:
     """Kernel F: the SFC cluster schedule over the compressed pair list.
 
     Args:
@@ -41,6 +64,8 @@ def cell_sfc_forces(planes: Dict[str, torch.Tensor], slot_id: torch.Tensor,
         csize) flat slot bases of the clusters' cells, unshifted and shifted
         by stencil slot k; a base equal to the planes' size is the empty
         sentinel cell (``binning.sfc_device_slot_tables``).
+      visits: optional int64 tensor of one element on the card, to which
+        the kernel adds the number of pair steps it took (CUDA only).
     Returns:
       (fx, fy, fz, pot), each (n_clusters, csize*m_c) cluster tiles.
     """
@@ -53,10 +78,11 @@ def cell_sfc_forces(planes: Dict[str, torch.Tensor], slot_id: torch.Tensor,
                          f"{x.device}")
     form = cuda_form(kernel)
     n_clusters, csize = tgt_base.shape
-    if not 1 <= csize * m_c <= MAX_TILE:
+    if m_c < 1 or csize < 1 or sfc_warp_smem_bytes(csize, m_c) > MAX_SMEM:
         raise ValueError(
-            f"csize={csize} x m_c={m_c} does not fit kernel F (one thread "
-            f"per slot of a cluster's tile, csize * m_c <= {MAX_TILE})")
+            f"csize={csize} x m_c={m_c} does not fit kernel F: a warp "
+            f"stages {sfc_warp_smem_bytes(csize, m_c)} bytes of shared "
+            f"memory, at most {MAX_SMEM}")
     total = x.numel()
     if total >= 2 ** 31 or n_clusters * 32 >= 2 ** 31:
         raise ValueError(f"{total} slots or {n_clusters} clusters exceed "
@@ -76,8 +102,9 @@ def cell_sfc_forces(planes: Dict[str, torch.Tensor], slot_id: torch.Tensor,
     launch("sfc.cu", "cell_sfc_forces_f32", x, x.data_ptr(), y.data_ptr(),
            z.data_ptr(), slot_id.data_ptr(), codes.data_ptr(),
            tgt_base.data_ptr(), src_base.data_ptr(),
-           *(o.data_ptr() for o in outs), codes.numel(), n_clusters, csize,
-           m_c, total, float(cutoff2), *form)
+           *(o.data_ptr() for o in outs), visit_counter(visits, x.device),
+           codes.numel(), n_clusters, csize, m_c, total, float(cutoff2),
+           *form)
     cell_sfc_forces.launches += 1
     return outs
 

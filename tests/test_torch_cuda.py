@@ -5,6 +5,8 @@ On the card: ``python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 ``chip_smoke.py`` repeats these checks at the main path's sizes.
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -22,7 +24,7 @@ from repro_torch.core.binning import (bin_particles, build_sfc_clusters,
                                       sfc_pair_count, sfc_to_particles)
 from repro_torch.kernels.allin import allin_forces, halo_bytes
 from repro_torch.kernels.prefix_sum import prefix_sum
-from repro_torch.kernels.sfc import cell_sfc_forces
+from repro_torch.kernels.sfc import cell_sfc_forces, sfc_warp_smem_bytes
 from repro_torch.kernels.window_attn import (route, window_attention,
                                              window_attention_plain)
 from repro_torch.kernels.xpencil import (MAX_M_C, MAX_SMEM, chunk_cells,
@@ -431,6 +433,104 @@ def test_allin_main_path_launches_kernel_e(gen, periodic):
     assert torch.equal(f, f_b) and torch.equal(u, u_b)
 
 
+# -- kernel E: compacted halo cells, real targets only ---------------------
+
+def _real_pairs(sid, m_c):
+    """Pair steps a kernel that visits only real particles takes: for each
+    real interior target, the real slots of its 27 neighbour cells in the
+    padded planes (itself included, the ghost ring holding the periodic
+    images)."""
+    nzp, nyp, w = sid.shape
+    cnt = (sid >= 0).view(nzp, nyp, w // m_c, m_c).sum(-1).long()
+    nbr = sum(cnt[1 + dz:nzp - 1 + dz, 1 + dy:nyp - 1 + dy,
+                  1 + dx:w // m_c - 1 + dx]
+              for dz in (-1, 0, 1) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
+    return int((cnt[1:-1, 1:-1, 1:-1] * nbr).sum())
+
+
+def _check_e(dom, planes, sid, m_c, kern, boxes, what):
+    """Kernel E at each box against its plain version (per element, term
+    sizes), bit-equal to kernel B per slot, 0 in every empty slot, and its
+    pair steps exactly the real pairs."""
+    nx, ny, nz = dom.ncells
+    xyz = [planes[c] for c in "xyz"]
+    b = xpencil_forces(planes, sid, nx=nx, m_c=m_c, kernel=kern, cutoff2=1.0)
+    fsize, usize = (S.xpencil_planes(*xyz, sid, nx=nx, m_c=m_c, kernel=k,
+                                     cutoff2=1.0)[3]
+                    for k in _term_sizes(kern))
+    real = sid[1:-1, 1:-1, m_c:-m_c] >= 0
+    for box in boxes:
+        visits = torch.zeros(1, dtype=torch.int64, device="cuda")
+        got = allin_forces(planes, sid, box=box, m_c=m_c, kernel=kern,
+                           cutoff2=1.0, visits=visits)
+        want = S.allin_planes(*xyz, sid, box=box, m_c=m_c, kernel=kern,
+                              cutoff2=1.0)
+        for g, w, bb, part in zip(got, want, b, ("fx", "fy", "fz", "pot")):
+            _term_close(g, w, usize if part == "pot" else fsize,
+                        f"E {part} box {box} {what}")
+            assert torch.equal(g, bb), f"E != B: {part} box {box} {what}"
+            assert not bool(g[~real].any()), f"E {part} {what}: empty slot"
+        assert int(visits) == _real_pairs(sid, m_c), (box, what)
+    return b
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("m_c", [7, 24])
+@pytest.mark.parametrize("name", sorted(PAIR_KINDS))
+def test_allin_kernel_with_holes(gen, periodic, m_c, name):
+    """Holes in the middle of cells, a full cell, every pair kind, boxes
+    from one cell to the whole grid."""
+    dom, bins = _scene(gen, (6, 4, 3), 4, m_c, periodic, full_cell=True)
+    sid, n_holes = _punch_holes(bins.slot_id, m_c, gen)
+    assert n_holes > 30
+    _check_e(dom, bins.planes, sid, m_c, PAIR_KINDS[name](),
+             [(1, 1, 1), (3, 2, 1), (2, 4, 3), (6, 4, 3)],
+             f"holes m_c={m_c} periodic={periodic}")
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("m_c", [7, 24, 33])
+@pytest.mark.parametrize("scene", ["full_cell", "empty_rows", "empty_grid"])
+def test_allin_kernel_on_edge_scenes(gen, periodic, m_c, scene):
+    """Full cells (count = m_c), empty pencil rows, an all-empty grid; m_c
+    below, at and above a warp's 32 slots."""
+    dom, bins = _scene(gen, (6, 6, 4), 3, m_c, periodic,
+                       full_cell=scene == "full_cell",
+                       half_y=scene == "empty_rows")
+    sid = bins.slot_id
+    if scene == "full_cell":
+        assert int((sid >= 0).view(-1, m_c).sum(-1).max()) == m_c
+    if scene == "empty_grid":
+        sid = torch.full_like(sid, -1)
+    b = _check_e(dom, bins.planes, sid, m_c, make_lennard_jones(),
+                 [(1, 1, 1), (2, 3, 2), (6, 6, 4)],
+                 f"{scene} m_c={m_c} periodic={periodic}")
+    if scene == "empty_grid":
+        assert not any(bool(o.any()) for o in b)
+
+
+@pytest.mark.parametrize("m_c", [7, 24, 40])
+def test_allin_kernel_bits_do_not_depend_on_threads(gen, m_c):
+    """Kernel E at every block size, from one warp to 1024 threads (the
+    launch bound), and at allin_threads' choice: B's bits and the real
+    pairs' steps each time; with holes and a full cell."""
+    dom, bins = _scene(gen, (4, 4, 4), 5, m_c, False, full_cell=True)
+    sid, n_holes = _punch_holes(bins.slot_id, m_c, gen)
+    assert n_holes > 30
+    kern = make_lennard_jones()
+    b = xpencil_forces(bins.planes, sid, nx=4, m_c=m_c, kernel=kern,
+                       cutoff2=1.0)
+    for box in ((4, 4, 4), (2, 2, 1)):
+        for threads in (32, 96, 256, 512, 1024, None):
+            visits = torch.zeros(1, dtype=torch.int64, device="cuda")
+            got = allin_forces(bins.planes, sid, box=box, m_c=m_c,
+                               kernel=kern, cutoff2=1.0, visits=visits,
+                               threads=threads)
+            for g, bb, part in zip(got, b, ("fx", "fy", "fz", "pot")):
+                assert torch.equal(g, bb), (part, box, threads)
+            assert int(visits) == _real_pairs(sid, m_c), (box, threads)
+
+
 def _sfc_tiles(dom, bins, kern, csize, curve, pair_cap=None, plain=False):
     """Kernel F (or its plain version) over the pair list of ``bins``."""
     if pair_cap is None:
@@ -486,15 +586,71 @@ def test_sfc_kernel_bits_do_not_depend_on_clustering(gen, periodic):
         assert torch.equal(f, runs[0][0]) and torch.equal(u, runs[0][1])
 
 
-def test_sfc_wrapper_raises_past_1024_threads(gen):
+def test_sfc_kernel_past_1024_slots_a_tile(gen):
+    """csize * m_c past the old one-thread-per-slot limit (8 x 129 = 1032
+    slots, full cells) runs and matches the plain version; the limit is a
+    warp's shared memory, stated with the byte count."""
     dom = Domain.cubic(3)
-    pos = dom.sample_uniform(30, generator=gen, device="cuda")
+    pos = torch.cat([dom.sample_uniform(60, generator=gen, device="cuda"),
+                     1.0 + torch.rand((140, 3), generator=gen,
+                                      device="cuda")])
     bins = bin_particles(dom, pos, m_c=129)
+    assert int((bins.slot_id >= 0).view(-1, 129).sum(-1).max()) == 129
+    kern = make_low_flop()
     cell_sfc_forces.launches = 0
-    with pytest.raises(ValueError, match="csize \\* m_c <= 1024"):
-        _sfc_tiles(dom, bins, make_lennard_jones(), 8, "morton")
-    sfc, tiles = _sfc_tiles(dom, bins, make_lennard_jones(), 7, "morton")
-    assert tiles[0].shape == (4, 7 * 129) and cell_sfc_forces.launches == 1
+    sfc, got = _sfc_tiles(dom, bins, kern, 8, "morton")
+    _, want = _sfc_tiles(dom, bins, kern, 8, "morton", plain=True)
+    assert got[0].shape == (4, 8 * 129) and cell_sfc_forces.launches == 1
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+    big = next(m for m in range(11000, 12000)
+               if sfc_warp_smem_bytes(1, m) > MAX_SMEM)
+    planes = {c: torch.zeros((3, 3, 3 * big), device="cuda") for c in "xyz"}
+    sid = torch.full((3, 3, 3 * big), -1, dtype=torch.int32, device="cuda")
+    one = torch.zeros((1, 1), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match=str(MAX_SMEM)):
+        cell_sfc_forces(planes, sid, one.view(1), one,
+                        torch.zeros((1, 27, 1), dtype=torch.int32,
+                                    device="cuda"),
+                        m_c=big, kernel=kern, cutoff2=1.0)
+    assert cell_sfc_forces.launches == 1
+
+
+def test_sfc_kernel_tile_past_the_default_shared_memory(gen):
+    """A warp that needs more than the 48 KB a block gets without opting
+    in (csize 8 x m_c 400, full cells): matches the plain version, takes
+    exactly the real pairs' steps and gives csize 1's bits per particle."""
+    m_c = 400
+    assert sfc_warp_smem_bytes(8, m_c) > 48 * 1024
+    assert sfc_warp_smem_bytes(1, m_c) <= 48 * 1024
+    dom = Domain.cubic(3)
+    pos = torch.cat([dom.sample_uniform(1500, generator=gen, device="cuda"),
+                     1.0 + torch.rand((420, 3), generator=gen,
+                                      device="cuda")])
+    bins = bin_particles(dom, pos, m_c=m_c)
+    assert int((bins.slot_id >= 0).view(-1, m_c).sum(-1).max()) == m_c
+    kern = make_lennard_jones()
+    visits = torch.zeros(1, dtype=torch.int64, device="cuda")
+    sfc = build_sfc_clusters(dom, bins, sfc_pair_count(
+        dom, counts=bins.counts, csize=8, curve="morton"), 8, "morton")
+    tgt, src = sfc_device_slot_tables(dom, m_c, 8, "morton", "cuda")
+    got = cell_sfc_forces(bins.planes, bins.slot_id, sfc.codes, tgt, src,
+                          m_c=m_c, kernel=kern, cutoff2=1.0, visits=visits)
+    assert got[0].shape == (4, 8 * m_c)
+    assert int(visits) == _real_pairs(bins.slot_id, m_c)
+    args = (bins.planes["x"], bins.planes["y"], bins.planes["z"],
+            bins.slot_id, sfc.codes, tgt, src)
+    want = S.cell_sfc_tiles(*args, m_c=m_c, kernel=kern, cutoff2=1.0)
+    fsize, usize = (S.cell_sfc_tiles(*args, m_c=m_c, kernel=k,
+                                     cutoff2=1.0)[3]
+                    for k in _term_sizes(kern))
+    for g, w, part in zip(got, want, ("fx", "fy", "fz", "pot")):
+        _term_close(g, w, usize if part == "pot" else fsize,
+                    f"F {part} csize 8 m_c {m_c}")
+    sfc1, one = _sfc_tiles(dom, bins, kern, 1, "morton")
+    f8, u8 = sfc_to_particles(dom, sfc, *got)
+    f1, u1 = sfc_to_particles(dom, sfc1, *one)
+    assert torch.equal(f8, f1) and torch.equal(u8, u1)
 
 
 @pytest.mark.parametrize("periodic", [False, True])
@@ -513,6 +669,122 @@ def test_sfc_main_path_launches_kernel_f(gen, periodic):
                     layout="sfc", backend="reference").execute(state)
     torch.testing.assert_close(f, f_r, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(u, u_r, rtol=1e-4, atol=1e-4)
+
+
+# -- kernel F: compacted slabs, real targets only ---------------------------
+
+CLUSTERINGS = [(c, k) for k in ("morton", "hilbert") for c in (1, 4, 8)]
+
+
+def _check_f(dom, bins, kern, what, full_list=True):
+    """Kernel F at every clustering and both pair_caps: against its plain
+    version (per element, term sizes), per particle the same bits every
+    time, 0 in every empty target slot, its pair steps exactly the real
+    pairs. -> per-particle (forces, potential)."""
+    m_c = bins.m_c
+    runs = []
+    for csize, curve in CLUSTERINGS:
+        caps = [sfc_pair_count(dom, counts=bins.counts, csize=csize,
+                               curve=curve), sfc_n_clusters(dom, csize) * 27]
+        for cap in caps:
+            visits = torch.zeros(1, dtype=torch.int64, device="cuda")
+            sfc = build_sfc_clusters(dom, bins, cap, csize, curve)
+            assert not bool(sfc.overflowed)
+            tgt, src = sfc_device_slot_tables(dom, m_c, csize, curve,
+                                              bins.slot_id.device)
+            got = cell_sfc_forces(bins.planes, bins.slot_id, sfc.codes, tgt,
+                                  src, m_c=m_c, kernel=kern, cutoff2=1.0,
+                                  visits=visits)
+            runs.append(sfc_to_particles(dom, sfc, *got))
+            if cap != caps[0] or csize == 8:
+                continue
+            args = (bins.planes["x"], bins.planes["y"], bins.planes["z"],
+                    bins.slot_id, sfc.codes, tgt, src)
+            want = S.cell_sfc_tiles(*args, m_c=m_c, kernel=kern, cutoff2=1.0)
+            fsize, usize = (S.cell_sfc_tiles(*args, m_c=m_c, kernel=k,
+                                             cutoff2=1.0)[3]
+                            for k in _term_sizes(kern))
+            real = bins.slot_id.view(-1)[
+                (tgt.long()[..., None] + torch.arange(m_c, device="cuda"))
+                .clamp(max=bins.slot_id.numel() - 1)].view(got[0].shape) >= 0
+            real &= (tgt.long() < bins.slot_id.numel()).repeat_interleave(
+                m_c, -1)
+            for g, w, part in zip(got, want, ("fx", "fy", "fz", "pot")):
+                _term_close(g, w, usize if part == "pot" else fsize,
+                            f"F {part} {csize} {curve} {what}")
+                assert not bool(g[~real].any()), f"F {part} {what}: empty"
+            if full_list:
+                assert int(visits) == _real_pairs(bins.slot_id, m_c), what
+    for f, u in runs[1:]:
+        assert torch.equal(f, runs[0][0]) and torch.equal(u, runs[0][1]), \
+            what
+    return runs[0]
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("m_c", [7, 24])
+@pytest.mark.parametrize("name", ["lennard_jones", "low_flop", "gravity"])
+def test_sfc_kernel_with_holes(gen, periodic, m_c, name):
+    """Holes in the middle of cells and a full cell; a 5 x 4 x 3 grid
+    leaves clusters padded with sentinel cells."""
+    dom, bins = _scene(gen, (5, 4, 3), 4, m_c, periodic, full_cell=True)
+    sid, n_holes = _punch_holes(bins.slot_id, m_c, gen)
+    assert n_holes > 30
+    bins = dataclasses.replace(bins, slot_id=sid)
+    _check_f(dom, bins, PAIR_KINDS[name](), f"holes m_c={m_c} "
+             f"periodic={periodic}")
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("scene", ["full_cell", "empty_rows", "empty_grid"])
+def test_sfc_kernel_on_edge_scenes(gen, periodic, scene):
+    """Full cells (count = m_c), half the grid empty (clusters with no kept
+    code, whose tiles must be 0), an all-empty grid."""
+    m_c = 24
+    dom, bins = _scene(gen, (8, 8, 4), 3, m_c, periodic,
+                       full_cell=scene == "full_cell",
+                       half_y=scene == "empty_rows")
+    if scene == "empty_grid":
+        bins = dataclasses.replace(bins,
+                                   slot_id=torch.full_like(bins.slot_id, -1))
+    f, u = _check_f(dom, bins, make_lennard_jones(),
+                    f"{scene} periodic={periodic}")
+    if scene == "empty_rows":
+        sfc = build_sfc_clusters(dom, bins, sfc_n_clusters(dom, 4) * 27, 4,
+                                 "morton")
+        kept = torch.zeros(sfc_n_clusters(dom, 4) + 1, dtype=torch.bool,
+                           device="cuda")
+        kept[(sfc.codes.long() >> 5)] = True
+        assert not bool(kept[:-1].all())       # some clusters keep no code
+        tgt, src = sfc_device_slot_tables(dom, m_c, 4, "morton", "cuda")
+        tiles = cell_sfc_forces(bins.planes, bins.slot_id, sfc.codes, tgt,
+                                src, m_c=m_c, kernel=make_lennard_jones(),
+                                cutoff2=1.0)
+        assert not any(bool(t[~kept[:-1]].any()) for t in tiles)
+    if scene == "empty_grid":
+        assert not bool(f.any()) and not bool(u.any())
+
+
+def test_sfc_kernel_takes_each_code_once(gen):
+    """Repeated codes and codes past the 27 stencil slots are taken as the
+    plain version takes them: once, and not at all."""
+    dom, pos = _blob(gen, 6, 1500)
+    bins = bin_particles(dom, pos, m_c=suggest_m_c(dom, pos))
+    kern = make_low_flop()
+    sfc, want = _sfc_tiles(dom, bins, kern, 4, "morton",
+                           sfc_n_clusters(dom, 4) * 27)
+    codes = sfc.codes[:int(sfc.n_pairs)]
+    extra = torch.cat([codes[::3], (codes[::5] | 31)])
+    noisy = torch.sort(torch.cat([sfc.codes, extra])).values
+    tgt, src = sfc_device_slot_tables(dom, bins.m_c, 4, "morton", "cuda")
+    got = cell_sfc_forces(bins.planes, bins.slot_id, noisy, tgt, src,
+                          m_c=bins.m_c, kernel=kern, cutoff2=1.0)
+    plain = S.cell_sfc_tiles(bins.planes["x"], bins.planes["y"],
+                             bins.planes["z"], bins.slot_id, noisy, tgt, src,
+                             m_c=bins.m_c, kernel=kern, cutoff2=1.0)
+    for g, w, p in zip(got, want, plain):
+        assert torch.equal(g, w)
+        torch.testing.assert_close(g, p, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-4),

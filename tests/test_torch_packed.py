@@ -157,7 +157,7 @@ def test_packed_kernel_plain_matches_jax(name, periodic):
     _, tb, jb, tp, jp = _packs(jdom, pos, m_c, row_cap)
     # every row, then an active list with padding rows
     max_active = active_unit_count(dom, tpos) + 3
-    lists = [(full_pencil_occupancy(dom), j_full_occupancy(jdom)),
+    lists = [(full_pencil_occupancy(dom, "cpu"), j_full_occupancy(jdom)),
              (pencil_occupancy(dom, tb.counts, max_active),
               j_pencil_occupancy(jdom, jb.counts, max_active))]
     active = torch.cat([o.active for o, _ in lists])

@@ -22,8 +22,8 @@ import pytest
 import torch
 
 from repro_torch.core import (Domain, PairKernel, ParticleState,
-                              make_lennard_jones, plan, scenarios,
-                              supports_compact, supports_layout)
+                              full_pencil_occupancy, make_lennard_jones, plan,
+                              scenarios, supports_compact, supports_layout)
 from repro_torch.kernels import _build
 from repro_torch.kernels.allin import allin_forces
 from repro_torch.kernels.prefix_sum import prefix_sum
@@ -139,6 +139,19 @@ def test_samplers_default_to_the_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         scenarios.sample_gaussian_blob(dom, 10)
     assert dom.sample_uniform(10, device="cpu").device == torch.device("cpu")
+
+
+def test_full_pencil_occupancy_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible; the default runs there")
+    dom = Domain.cubic(3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        full_pencil_occupancy(dom)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        full_pencil_occupancy(dom, "cuda")
+    occ = full_pencil_occupancy(dom, "cpu")
+    assert occ.active.device == torch.device("cpu")
+    assert occ.active.tolist() == list(range(9)) and int(occ.n_active) == 9
 
 
 @pytest.mark.parametrize("kwargs,item", [
