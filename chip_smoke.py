@@ -18,10 +18,16 @@ the main paths through ``plan(...).execute()`` and checks and times them:
     bit-equal at each; B, E and F also with the low_flop pair kernel (what
     staging and compaction cost), and E and F's pair steps counted on the
     card against the candidate pairs;
-  * packed rows (kernels A and D), 1,048,576 uniform particles, division 64;
+  * packed rows (kernels A and D and the pack kernel), 1,048,576 uniform
+    particles, division 64; kernel D timed at every tile of pencils that
+    fits, per call and back to back, bit-equal at each, with the
+    low_flop pair kernel, and in turns with B on the same particles; the
+    pack kernel against its plain version (the scatters of JAX's
+    ``pack_rows``), torch.equal, and timed beside it;
   * a clustered scene (Gaussian blob, 131,072 particles, division 64) with
     ``compact=True``, dense layout (kernels A and C) and packed layout
-    (kernels A and D);
+    (kernels A and D and the pack kernel), D and the pack kernel checked
+    and timed as on the uniform scene;
   * a plan built on the uniform scene, run on the blob through
     ``execute_or_replan``, for the packed+compacted X-pencil and for
     All-in-SM (whose sub-box follows the grown ``m_c``); All-in-SM (kernel
@@ -146,6 +152,25 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def cuda_ms_queued(fn, reps: int, warmup: int = 2) -> float:
+    """Milliseconds of ``fn()`` on the card, by CUDA events around ``reps``
+    calls enqueued back to back: the device time of a call whose launch
+    the host enqueues faster than the card runs it. ``cuda_ms`` records an
+    event pair around each call on an idle card, so its time also holds the
+    host's time to enqueue the call."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def scale_rel_err(got, want) -> float:
@@ -763,21 +788,26 @@ def main(argv=None) -> int:
                                           sfc_to_particles)
     from repro_torch.core.interactions import PairKernel
     from repro_torch.kernels import _build
+    from repro_torch.core.binning import pack_slots_plain
     from repro_torch.kernels.allin import (allin_forces, allin_threads,
                                            halo_bytes)
+    from repro_torch.kernels.pack import pack_slots
     from repro_torch.kernels.ops import (xpencil_interactions,
                                          xpencil_packed_interactions,
                                          xpencil_sparse_interactions)
     from repro_torch.kernels.prefix_sum import prefix_sum
     from repro_torch.kernels.sfc import cell_sfc_forces
     from repro_torch.kernels.window_attn import window_attention
-    from repro_torch.kernels.xpencil import (MAX_SMEM, chunk_cells,
+    from repro_torch.kernels.xpencil import (MAX_SMEM, MAX_TILE_ROWS,
+                                             chunk_cells, packed_smem_bytes,
+                                             packed_tile_rows,
                                              pencil_smem_bytes,
                                              xpencil_forces,
                                              xpencil_packed_forces,
                                              xpencil_sparse_forces)
 
-    wrappers = {"prefix_sum": prefix_sum, "xpencil_forces": xpencil_forces,
+    wrappers = {"prefix_sum": prefix_sum, "pack_slots": pack_slots,
+                "xpencil_forces": xpencil_forces,
                 "xpencil_sparse_forces": xpencil_sparse_forces,
                 "xpencil_packed_forces": xpencil_packed_forces,
                 "allin_forces": allin_forces,
@@ -968,6 +998,73 @@ def main(argv=None) -> int:
             times[t].append(cuda_ms(lambda: launch(threads=t), reps))
         return {t: statistics.mean(v) for t, v in times.items()}
 
+    def tile_sweep(what, launch, want, row_cap, reps=10):
+        """Kernel D (``launch(tile_rows=...)``) at every tile of pencils
+        that fits, each bit-equal to ``want`` and timed per call and back
+        to back. -> ({tile_rows: ms}, {tile_rows: queued ms})"""
+        times, queued = {}, {}
+        for r in range(MAX_TILE_ROWS + 1):
+            if packed_smem_bytes(r, row_cap) > MAX_SMEM:
+                continue
+            run = (lambda: launch(tile_rows=r))
+            assert_equal_results(run(), want, f"{what} at tile_rows {r} vs "
+                                 f"default")
+            times[r] = cuda_ms(run, reps)
+            queued[r] = cuda_ms_queued(run, 2 * reps)
+        return times, queued
+
+    def in_turns(fns, reps=10):
+        """Each call of ``fns`` (name -> call) timed per call and back to
+        back, in turns (in order, then reversed). -> ({name: mean ms},
+        {name: mean queued ms})"""
+        per, queued = {n: [] for n in fns}, {n: [] for n in fns}
+        for n in [*fns, *reversed(fns)]:
+            per[n].append(cuda_ms(fns[n], reps))
+            queued[n].append(cuda_ms_queued(fns[n], reps))
+        return ({n: statistics.mean(v) for n, v in per.items()},
+                {n: statistics.mean(v) for n, v in queued.items()})
+
+    def pack_inputs(dom, bins):
+        """The per-row exclusive cell offsets and row counts that
+        ``pack_rows`` hands the pack kernel."""
+        nx, ny, nz = dom.ncells
+        occ = bins.slot_id.view(nz + 2, ny + 2, nx + 2, bins.m_c) >= 0
+        cc = occ.sum(-1, dtype=torch.int32)
+        return cc.cumsum(-1, dtype=torch.int32) - cc, cc.sum(-1,
+                                                          dtype=torch.int32)
+
+    def check_pack(dom, bins, row_cap, what):
+        """The pack kernel against its plain version on ``bins``: every
+        output torch.equal. -> (max |diff|, launch, plain launch)"""
+        offsets, row_counts = pack_inputs(dom, bins)
+        kw = dict(nx=dom.nx, ny=dom.ny, row_cap=row_cap)
+        launch = (lambda: pack_slots(bins, offsets, row_counts, **kw))
+        plain_of = (lambda: pack_slots_plain(bins, offsets, row_counts, **kw))
+        got, want = launch(), plain_of()
+        names = [*want[0], "slot_id", "slot_cell", "particle_slot"]
+        err = 0.0
+        for g, w, name in zip([*got[0].values(), *got[1:]],
+                              [*want[0].values(), *want[1:]], names):
+            if g.dtype != w.dtype or not torch.equal(g, w):
+                raise AssertionError(f"pack kernel {what}: {name} differs "
+                                     f"from the plain scatters")
+            err = max(err, float((g.double() - w.double()).abs().max()))
+        return err, launch, plain_of
+
+    def pack_bound(bins, row_cap):
+        """(bound ms, "bytes") of the pack kernel: the dense slot ids, the
+        fields of the slots it moves, the offsets, row counts and dense
+        particle slots read once; the packed planes, ids, cells and
+        particle slots written once."""
+        sid = bins.slot_id
+        nzp, nyp, width = sid.shape
+        moved = int(torch.clamp((sid >= 0).sum(-1), max=row_cap).sum())
+        n, n_f = bins.particle_slot.numel(), len(bins.planes)
+        n_bytes = (4 * sid.numel() + 4 * n_f * moved
+                   + 4 * nzp * nyp * (width // bins.m_c + 1) + 8 * n
+                   + 4 * (n_f + 2) * nzp * nyp * row_cap)
+        return bound(n_bytes, 0)
+
     # -- kernel A: the paper's scan, exactly equal to its plain versions ----
     # the long and the repeated scans draw from a generator of their own,
     # so every later phase draws the data it drew before
@@ -1031,7 +1128,7 @@ def main(argv=None) -> int:
                "low_flop": make_low_flop(), "high_flop": make_high_flop(),
                "gravity": make_gravity(), "sph_density": make_sph_density(1.0)}
     xp_checks = sp_checks = pk_checks = ident_checks = al_checks = 0
-    sfc_checks = sfc_ident_checks = 0
+    sfc_checks = sfc_ident_checks = pack_checks = 0
     div = CHECK_DIVISION
     for periodic in (False, True):
         dom = Domain.cubic(div, cutoff=1.0, periodic=periodic)
@@ -1048,6 +1145,12 @@ def main(argv=None) -> int:
             raise AssertionError(f"{int(hocc.n_active)} active pencils, "
                                  f"want {div * div // 2}")
         hpacked = pack_rows(dom, hbins, suggest_row_cap(dom, half))
+        for b_, cap, what in ((bins, packed.row_cap, label),
+                              (hbins, hpacked.row_cap, f"{label} half-empty"),
+                              (bins, packed.row_cap // 2,
+                               f"{label} row_cap overflow")):
+            check_pack(dom, b_, cap, what)
+            pack_checks += 1
         # kernel E at the plan's sub-box (within 48 KB of shared memory) and
         # at one past 48 KB, which needs the opt-in
         boxes = (S.shrink_to_divisors(dom, S.subbox_dims(dom, 24)), (4, 4, 2))
@@ -1114,6 +1217,9 @@ def main(argv=None) -> int:
         f"{sp_checks} + {pk_checks} + {al_checks} checks; E at boxes "
         f"{list(boxes)}); C and D per particle (every row and active rows) "
         f"and E per slot equal B bit for bit ({ident_checks} checks)")
+    log(f"pack kernel: open/periodic at division {div}, uniform, half-empty "
+        f"and an overflowing row_cap, every output torch.equal to the plain "
+        f"scatters ({pack_checks} checks)")
     log(f"kernel F: 5 pair kernels x open/periodic at division {div}, "
         f"(csize, curve) {list(SFC_CLUSTERINGS)}, within tolerance of its "
         f"plain version ({sfc_checks} checks); per particle the same bits at "
@@ -1472,7 +1578,8 @@ def main(argv=None) -> int:
     state_u = ParticleState(pos_u)
     pa = plan(dom, kern, positions=pos_u, layout="packed")
     f, u, launches = run_main(pa, state_u, "packed uniform",
-                              ("prefix_sum", "xpencil_packed_forces"))
+                              ("prefix_sum", "pack_slots",
+                               "xpencil_packed_forces"))
     dense_u = plan(dom, kern, m_c=pa.m_c).execute(state_u)
     assert_equal_results((f, u), dense_u, "packed vs dense, uniform")
     for layout in ("dense", "packed"):             # kernel C; D, active rows
@@ -1489,6 +1596,31 @@ def main(argv=None) -> int:
         dom, packed, None, "lennard_jones", kern, "main case (a)")
     pk_checks += 4
     d_bound_ms, d_bound_by = kernel_d_bound(dom, packed, every, kern, within)
+
+    def d_uniform(k=kern, **kw):
+        return xpencil_packed_forces(
+            packed.planes, packed.slot_id, packed.slot_cell,
+            packed.cell_offsets, None, nx=division, ny=division, m_c=pa.m_c,
+            kernel=k, cutoff2=1.0, **kw)
+
+    def b_uniform():
+        return xpencil_forces(bins.planes, bins.slot_id, nx=division,
+                              m_c=pa.m_c, kernel=kern, cutoff2=1.0)
+
+    d_by_tiles, d_queued_by_tiles = tile_sweep(
+        "kernel D, main case (a)", d_uniform, kd, pa.row_cap, reps)
+    d_turns = {"D": [], "B": []}                  # on the same particles
+    d_queued = {"D": [], "B": []}
+    for which in ("D", "B", "B", "D"):
+        fn = d_uniform if which == "D" else b_uniform
+        d_turns[which].append(cuda_ms(fn, reps))
+        d_queued[which].append(cuda_ms_queued(fn, 2 * reps))
+    pack_err, pack_launch, pack_plain = check_pack(dom, bins, pa.row_cap,
+                                                   "main case (a)")
+    pack_bound_ms, pack_bound_by = pack_bound(bins, pa.row_cap)
+    pd = plan(dom, kern, m_c=pa.m_c)
+    exec_turns = in_turns({"packed": lambda: pa.execute(state_u),
+                           "dense": lambda: pd.execute(state_u)}, reps)
     new_cases["a"] = dict(
         case="packed uniform", division=division, ppc=ppc, n=pos_u.shape[0],
         m_c=pa.m_c, row_cap=pa.row_cap,
@@ -1496,12 +1628,27 @@ def main(argv=None) -> int:
         execute_ms=cuda_ms(lambda: pa.execute(state_u), reps),
         dense_execute_ms=cuda_ms(lambda: plan(dom, kern, m_c=pa.m_c).execute(
             state_u), reps),
+        execute_ms_in_turns=exec_turns[0],
+        execute_queued_ms_in_turns=exec_turns[1],
         bin_ms=cuda_ms(lambda: pa.bin(state_u), reps),
         pack_ms=cuda_ms(lambda: pa.pack(bins), reps),
-        kernel_d_ms=cuda_ms(lambda: xpencil_packed_forces(
-            packed.planes, packed.slot_id, packed.slot_cell,
-            packed.cell_offsets, None, nx=division, ny=division, m_c=pa.m_c,
-            kernel=kern, cutoff2=1.0), reps),
+        pack_kernel_ms=cuda_ms(pack_launch, reps),
+        pack_plain_ms=cuda_ms(pack_plain, reps),
+        pack_bound_ms=pack_bound_ms, pack_bound_by=pack_bound_by,
+        pack_max_abs_err=pack_err,
+        kernel_d_ms=cuda_ms(d_uniform, reps),
+        kernel_d_tile_rows=packed_tile_rows(pa.row_cap, division ** 2),
+        kernel_d_smem_bytes=packed_smem_bytes(
+            packed_tile_rows(pa.row_cap, division ** 2), pa.row_cap),
+        kernel_d_ms_by_tile_rows=d_by_tiles,
+        kernel_d_queued_ms_by_tile_rows=d_queued_by_tiles,
+        kernel_d_low_flop_ms=cuda_ms(lambda: d_uniform(kernels["low_flop"]),
+                                     reps),
+        kernel_d_ms_in_turns=statistics.mean(d_turns["D"]),
+        kernel_b_ms_in_turns=statistics.mean(d_turns["B"]),
+        kernel_d_queued_ms_in_turns=statistics.mean(d_queued["D"]),
+        kernel_b_queued_ms_in_turns=statistics.mean(d_queued["B"]),
+        pack_kernel_queued_ms=cuda_ms_queued(pack_launch, 2 * reps),
         kernel_d_plain_ms=d_plain_ms, kernel_d_bound_ms=d_bound_ms,
         kernel_d_bound_by=d_bound_by,
         unpack_ms=cuda_ms(lambda: packed_to_particles(dom, packed, *kd),
@@ -1512,6 +1659,20 @@ def main(argv=None) -> int:
         potential_vs_reference=errs[1], forces_term_rel_err=terms[0],
         potential_term_rel_err=terms[1])
     log("main path: " + json.dumps(new_cases["a"]))
+    ca = new_cases["a"]
+    log(f"kernel D, main case (a): {ca['kernel_d_ms']:.6f} ms at tile_rows "
+        f"{ca['kernel_d_tile_rows']} ({ca['kernel_d_smem_bytes']} B), "
+        f"{ca['kernel_d_ms'] / d_bound_ms:.1f}x its {d_bound_ms:.6f} ms bound "
+        f"({d_bound_by}); in turns D {d_turns['D']}, B {d_turns['B']}, "
+        f"queued D {d_queued['D']}, B {d_queued['B']}; "
+        f"low_flop {ca['kernel_d_low_flop_ms']:.6f} ms; by tile {d_by_tiles}, "
+        f"queued {d_queued_by_tiles}")
+    log(f"execute(), main case (a), in turns: {exec_turns[0]} ms, queued "
+        f"{exec_turns[1]} ms")
+    log(f"pack kernel, main case (a): {ca['pack_kernel_ms']:.6f} ms (queued "
+        f"{ca['pack_kernel_queued_ms']:.6f}), plain "
+        f"{ca['pack_plain_ms']:.6f} ms, bound {pack_bound_ms:.6f} ms "
+        f"({pack_bound_by}); pack_rows {ca['pack_ms']:.6f} ms")
 
     # (b) a clustered scene, compacted: dense layout (C), packed layout (D)
     division, n_blob, sigma_frac = BLOB_CASE
@@ -1524,7 +1685,8 @@ def main(argv=None) -> int:
                                 ("prefix_sum", "xpencil_sparse_forces"))
     pbp = plan(dom, kern, positions=pos_b, compact=True, layout="packed")
     fp, up, launches_d = run_main(pbp, state_b, "compact packed blob",
-                                  ("prefix_sum", "xpencil_packed_forces"))
+                                  ("prefix_sum", "pack_slots",
+                                   "xpencil_packed_forces"))
     dense_b = plan(dom, kern, m_c=pb.m_c).execute(state_b)
     assert_equal_results((f, u), dense_b, "compact vs dense, blob")
     assert_equal_results((fp, up), dense_b, "compact packed vs dense, blob")
@@ -1552,8 +1714,24 @@ def main(argv=None) -> int:
         division, pb.m_c, reps)
     db_bound_ms, db_bound_by = kernel_d_bound(
         dom, packed_b, occ.active[:int(occ.n_active)], kern, within_b)
+
+    def d_blob(k=kern, **kw):
+        return xpencil_packed_forces(
+            packed_b.planes, packed_b.slot_id, packed_b.slot_cell,
+            packed_b.cell_offsets, occ.active, nx=division, ny=division,
+            m_c=pb.m_c, kernel=k, cutoff2=1.0, **kw)
+
+    kdb = d_blob()
+    db_by_tiles, db_queued_by_tiles = tile_sweep(
+        "kernel D, main case (b)", d_blob, kdb, pbp.row_cap, reps)
+    packb_err, packb_launch, packb_plain = check_pack(
+        dom, bins_b, pbp.row_cap, "main case (b)")
+    packb_bound_ms, packb_bound_by = pack_bound(bins_b, pbp.row_cap)
     idx = occ.scatter_indices()
     nz_ny = dom.nz * dom.ny
+
+    execb_turns = in_turns({"compact packed": lambda: pbp.execute(state_b),
+                            "compact": lambda: pb.execute(state_b)}, reps)
 
     def scatter_back():
         planes = [scatter_rows(r, idx, nz_ny).view(dom.nz, dom.ny, -1)
@@ -1568,12 +1746,18 @@ def main(argv=None) -> int:
         launches_compact=launches_c, launches_compact_packed=launches_d,
         execute_compact_ms=cuda_ms(lambda: pb.execute(state_b), reps),
         execute_compact_packed_ms=cuda_ms(lambda: pbp.execute(state_b), reps),
+        execute_ms_in_turns=execb_turns[0],
+        execute_queued_ms_in_turns=execb_turns[1],
         execute_dense_ms=cuda_ms(lambda: plan(dom, kern, m_c=pb.m_c).execute(
             state_b), reps),
         bin_ms=cuda_ms(lambda: pb.bin(state_b), reps),
         occupancy_ms=cuda_ms(lambda: pencil_occupancy(
             dom, bins_b.counts, pb.max_active), reps),
         pack_ms=cuda_ms(lambda: pbp.pack(bins_b), reps),
+        pack_kernel_ms=cuda_ms(packb_launch, reps),
+        pack_plain_ms=cuda_ms(packb_plain, reps),
+        pack_bound_ms=packb_bound_ms, pack_bound_by=packb_bound_by,
+        pack_max_abs_err=packb_err,
         kernel_c_ms=cuda_ms(lambda: xpencil_sparse_forces(
             bins_b.planes, bins_b.slot_id, occ.active, nx=division,
             ny=division, m_c=pb.m_c, kernel=kern, cutoff2=1.0), reps),
@@ -1585,10 +1769,15 @@ def main(argv=None) -> int:
         kernel_b_ms=cuda_ms(lambda: xpencil_forces(
             bins_b.planes, bins_b.slot_id, nx=division, m_c=pb.m_c,
             kernel=kern, cutoff2=1.0), reps),
-        kernel_d_ms=cuda_ms(lambda: xpencil_packed_forces(
-            packed_b.planes, packed_b.slot_id, packed_b.slot_cell,
-            packed_b.cell_offsets, occ.active, nx=division, ny=division,
-            m_c=pb.m_c, kernel=kern, cutoff2=1.0), reps),
+        kernel_d_ms=cuda_ms(d_blob, reps),
+        kernel_d_queued_ms=cuda_ms_queued(d_blob, 2 * reps),
+        pack_kernel_queued_ms=cuda_ms_queued(packb_launch, 2 * reps),
+        kernel_d_tile_rows=packed_tile_rows(pbp.row_cap,
+                                            occ.active.shape[0]),
+        kernel_d_ms_by_tile_rows=db_by_tiles,
+        kernel_d_queued_ms_by_tile_rows=db_queued_by_tiles,
+        kernel_d_low_flop_ms=cuda_ms(lambda: d_blob(kernels["low_flop"]),
+                                     reps),
         kernel_d_plain_ms=db_plain_ms, kernel_d_bound_ms=db_bound_ms,
         kernel_d_bound_by=db_bound_by,
         scatter_ms=cuda_ms(scatter_back, reps),
@@ -1608,6 +1797,17 @@ def main(argv=None) -> int:
         f"{cb['candidate_pairs_from_bins']} candidate pairs; "
         f"{cb['kernel_c_ms'] / c_bound_ms:.1f}x its {c_bound_ms:.6f} ms bound "
         f"({c_bound_by})")
+    log(f"kernel D, main case (b): {cb['kernel_d_ms']:.6f} ms at tile_rows "
+        f"{cb['kernel_d_tile_rows']}, {cb['kernel_d_ms'] / db_bound_ms:.1f}x "
+        f"its {db_bound_ms:.6f} ms bound ({db_bound_by}); queued "
+        f"{cb['kernel_d_queued_ms']:.6f} ms; low_flop "
+        f"{cb['kernel_d_low_flop_ms']:.6f} ms; by tile {db_by_tiles}, "
+        f"queued {db_queued_by_tiles}")
+    log(f"execute(), main case (b), in turns: {execb_turns[0]} ms, queued "
+        f"{execb_turns[1]} ms")
+    log(f"pack kernel, main case (b): {cb['pack_kernel_ms']:.6f} ms, plain "
+        f"{cb['pack_plain_ms']:.6f} ms, bound {packb_bound_ms:.6f} ms; "
+        f"pack_rows {cb['pack_ms']:.6f} ms")
     sfc_results.append(sfc_case(dom, kern, pos_b, state_b, bins_b, dense_b,
                                 f"blob div {division}", False))
     sfc_checks += 4
@@ -1804,9 +2004,38 @@ def main(argv=None) -> int:
          "bound_ms": a["kernel_d_bound_ms"],
          "bound_by": a["kernel_d_bound_by"], "library_ms": None,
          "shapes": shapes(a["division"], "row_cap", "(d*d, row_cap)",
-                          row_cap=a["row_cap"]),
+                          row_cap=a["row_cap"],
+                          tile_rows=a["kernel_d_tile_rows"],
+                          smem_bytes=a["kernel_d_smem_bytes"]),
          "max_term_rel_err": a["kernel_d_term_rel_err"],
+         "low_flop_ms": a["kernel_d_low_flop_ms"],
+         "ms_in_turns_with_b": a["kernel_d_ms_in_turns"],
+         "kernel_b_ms_in_turns": a["kernel_b_ms_in_turns"],
+         "queued_ms_in_turns_with_b": a["kernel_d_queued_ms_in_turns"],
+         "kernel_b_queued_ms_in_turns": a["kernel_b_queued_ms_in_turns"],
+         "queued_ms_by_case": {b["case"]: b["kernel_d_queued_ms"]},
+         "ms_by_tile_rows": a["kernel_d_ms_by_tile_rows"],
+         "queued_ms_by_tile_rows": a["kernel_d_queued_ms_by_tile_rows"],
+         "ms_by_case": {a["case"]: a["kernel_d_ms"],
+                        b["case"]: b["kernel_d_ms"]},
          "checks_passed": pk_checks},
+        {"name": "pack_slots", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/pack.cu",
+         "replaces": "src/repro/core/binning.py:548 pack_rows (plain JAX)",
+         "launches": a["launches"]["pack_slots"], "main_case": a["case"],
+         "max_abs_err": max(a["pack_max_abs_err"], b["pack_max_abs_err"]),
+         "ms": a["pack_kernel_ms"], "plain_ms": a["pack_plain_ms"],
+         "bound_ms": a["pack_bound_ms"], "bound_by": a["pack_bound_by"],
+         "library_ms": None,
+         "shapes": shapes(a["division"], "(d+2)*m_c",
+                          "(d+2, d+2, row_cap) planes", m_c=a["m_c"],
+                          row_cap=a["row_cap"]),
+         "pack_rows_ms": a["pack_ms"],
+         "queued_ms_by_case": {a["case"]: a["pack_kernel_queued_ms"],
+                               b["case"]: b["pack_kernel_queued_ms"]},
+         "ms_by_case": {a["case"]: a["pack_kernel_ms"],
+                        b["case"]: b["pack_kernel_ms"]},
+         "checks_passed": pack_checks + 2},
         {"name": "allin_forces", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/allin.cu",
          "replaces": "src/repro/kernels/allin.py:129",

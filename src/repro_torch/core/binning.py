@@ -458,15 +458,16 @@ def pack_rows(domain: Domain, bins: CellBins, row_cap: int) -> PackedRows:
     rank r) moves to packed position ``offsets[c] + r``. The scan is one
     rank-1 exclusive scan over all rows' counts (kernel A on a CUDA tensor)
     minus each row's first entry: exact in int32 and equal to a per-row
-    scan. Slots past ``row_cap`` go to a dump slot that is cut off.
+    scan. Slots past ``row_cap`` are dropped. The moves are
+    ``kernels.pack.pack_slots`` (one kernel on a CUDA tensor,
+    :func:`pack_slots_plain` on a CPU one).
     """
+    from ..kernels.pack import pack_slots
     from ..kernels.prefix_sum import prefix_sum
 
     nx, ny, nz = domain.ncells
     m_c = bins.m_c
-    nzp, nyp = nz + 2, ny + 2
-    dev = bins.slot_id.device
-    shape4 = (nzp, nyp, nx + 2, m_c)
+    shape4 = (nz + 2, ny + 2, nx + 2, m_c)
 
     occupied = bins.slot_id.view(shape4) >= 0
     cell_counts_p = occupied.sum(-1, dtype=torch.int32)    # (nzp, nyp, nx+2)
@@ -475,6 +476,28 @@ def pack_rows(domain: Domain, bins: CellBins, row_cap: int) -> PackedRows:
     offsets = flat_scan - flat_scan[..., :1]
     row_counts = cell_counts_p.sum(-1, dtype=torch.int32)  # (nzp, nyp)
     cell_offsets = torch.cat([offsets, row_counts[..., None]], dim=-1)
+    planes, slot_id, slot_cell, particle_slot = pack_slots(
+        bins, offsets, row_counts, nx=nx, ny=ny, row_cap=row_cap)
+    return PackedRows(planes=planes, slot_id=slot_id, slot_cell=slot_cell,
+                      cell_offsets=cell_offsets, row_counts=row_counts,
+                      counts=bins.counts, particle_slot=particle_slot,
+                      row_cap=row_cap, m_c=m_c)
+
+
+def pack_slots_plain(bins: CellBins, offsets: torch.Tensor,
+                     row_counts: torch.Tensor, *, nx: int, ny: int,
+                     row_cap: int):
+    """The plain version of ``kernels.pack.pack_slots``: the packed planes,
+    ``slot_id``, ``slot_cell`` and ``particle_slot`` of
+    :func:`pack_rows` from the dense bins and each row's exclusive cell
+    ``offsets`` (``row_counts`` is unused: the scatters drop what they do
+    not write), in JAX's scatters."""
+    del row_counts
+    m_c = bins.m_c
+    nzp, nyp = bins.slot_id.shape[:2]
+    dev = bins.slot_id.device
+    shape4 = (nzp, nyp, nx + 2, m_c)
+    occupied = bins.slot_id.view(shape4) >= 0
 
     rank = torch.arange(m_c, dtype=torch.int32, device=dev)
     dest = offsets[..., None] + rank                       # (nzp,nyp,nx+2,m_c)
@@ -515,11 +538,7 @@ def pack_rows(domain: Domain, bins: CellBins, row_cap: int) -> PackedRows:
     pos_in_row = torch.clamp(pos_in_row, max=row_cap)
     particle_slot = (((zp - 1) * ny + (yp - 1)) * (row_cap + 1)
                      + pos_in_row).to(torch.int32)
-
-    return PackedRows(planes=planes, slot_id=slot_id, slot_cell=slot_cell,
-                      cell_offsets=cell_offsets, row_counts=row_counts,
-                      counts=bins.counts, particle_slot=particle_slot,
-                      row_cap=row_cap, m_c=m_c)
+    return planes, slot_id, slot_cell, particle_slot
 
 
 def unpack_scatter(domain: Domain, packed: PackedRows,

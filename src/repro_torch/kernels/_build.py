@@ -41,6 +41,13 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
                              _I, _I, _I, _I, _I, _F, _I, _F, _F, _F, _F, _I,
                              _P),
     },
+    "pack.cu": {
+        # src, dst (arrays of n_fields pointers), fill (n_fields unsigned),
+        # n_fields, slot_id, offsets, row_counts, dense_slot, psid, pcell,
+        # pslot, nx, ny, nz, m_c, row_cap, n_particles, stream
+        "pack_rows_f32": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                          _I, _I, _I, _I, _P),
+    },
     "prefix_sum.cu": {
         # in, out, status, n, capacity, stream
         "paper_scan_i32": (_P, _P, _P, _LL, _LL, _P),
@@ -69,11 +76,11 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
                                 _I, _I, _I, _I, _F, _I, _F, _F, _F, _F, _I,
                                 _P),
         # x, y, z, slot_id, slot_cell, cell_offsets, active, fx, fy, fz,
-        # pot, n_rows, nx, ny, nz, row_cap, cutoff2, kind, p0, p1, p2, p3,
-        # n_extra, stream
+        # pot, n_rows, nx, ny, nz, row_cap, tile_rows, cutoff2, kind, p0, p1,
+        # p2, p3, n_extra, stream
         "xpencil_packed_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _I, _F, _I, _F, _F, _F, _F,
-                               _I, _P),
+                               _I, _I, _I, _I, _I, _I, _F, _I, _F, _F, _F,
+                               _F, _I, _P),
     },
     "window_attn.cu": {
         # q, k, v, o, B, H, KH, S, D, window, softcap, scale, bf16, stream

@@ -109,6 +109,23 @@ __device__ __forceinline__ void pair_step(float tx, float ty, float tz,
   pp += u * w;
 }
 
+// Whether pair_step counts source (sx, sy, sz, s) for target (tx, ty, tz,
+// tid): its mask, from the same r2. A pair it does not count adds exactly
+// +-0 to each partial sum (its terms are finite values times a 0 weight),
+// and a partial that starts at +0 is never -0, so leaving such a pair out
+// keeps every bit of the sums.
+__device__ __forceinline__ bool pair_counts(float tx, float ty, float tz,
+                                            int tid, float sx, float sy,
+                                            float sz, int s, float cutoff2) {
+  const float ddx = tx - sx;
+  const float ddy = ty - sy;
+  const float ddz = tz - sz;
+  const float r2 = __fadd_rn(__fadd_rn(__fmul_rn(ddx, ddx),
+                                       __fmul_rn(ddy, ddy)),
+                             __fmul_rn(ddz, ddz));
+  return (s != tid) && (s >= 0) && (r2 < cutoff2) && (r2 > 0.0f);
+}
+
 // Calls f(std::integral_constant<int, KIND>) for the runtime pair kind.
 template <typename F>
 cudaError_t by_kind(int kind, F&& f) {

@@ -61,12 +61,38 @@
 // blocks (64 cells: 82 KB, two blocks, 1.5-1.6x slower). An all-empty
 // chunk loads no row at all.
 //
-// D (xpencil_packed_kernel): one thread per packed target slot, one block
-// per (row, tile of <= 256 slots), so row_cap is not limited to one block.
-// Per neighbour row the block stages the row's real particles (at most
-// row_cap of x, y, z, id) in shared memory; each thread reads its cell's
-// window [off[c-1], off[c+2]) from the row's offsets (c = its slot cell
-// clamped to [1, nx]) and visits only those sources, in ascending order.
+// D (xpencil_packed_kernel): a tile of R consecutive entries of the row
+// list (R = packed_tile_rows), its targets the real slots [0,
+// min(off[nx+2], row_cap)) of each row, split evenly into blocks of at most
+// 768 (packed_split); 384 threads a block, each with up to two targets.
+// The first block of a tile writes the 0s of its padding slots in one
+// coalesced pass. Every warp loads the tile's list itself (Hopper has no
+// scalar prefetch) and splits it into groups, runs of consecutive pencils
+// (z, y .. y+L-1) of one z: the whole tile of an every-pencil sweep that
+// does not cross a z boundary, and common in an occupancy list. The packed
+// rows (z', y-1 .. y+L) of one z' plane are one contiguous segment of every
+// field, so a block stages, for each dz, the L+2 rows around the rows of
+// its targets with one TMA bulk copy a field (3(L+2) rows for L pencils,
+// not 9L), and each target computes its three dy partials from the
+// segment, their sums carried between the three planes in shared memory.
+// The planes are double-buffered: while plane k is computed, plane k+1
+// loads into the other buffer, completed on that buffer's mbarrier (or,
+// for row_cap % 4 != 0 or unaligned planes, by 4-byte cp.async copies, one
+// commit group a plane). Staging only each row's real prefix, one copy a
+// row and field, measured no faster (PERF.md, PR 19).
+// Where a tile of one pencil does not fit 227 KB (row_cap > 2293), R is
+// 0: one pencil a tile, its 9 rows staged one at a time in one buffer by
+// cp.async, 16*row_cap bytes, one target a thread, so row_cap <= 14528 as
+// before. A target reads its window [off[c-1], off[c+2]) of each source row
+// from the row's offsets (c its slot cell clamped to [1, nx]; ends clamped
+// to the row's min(off[nx+2], row_cap) real slots for an overflowed row).
+// A window is visited 32 sources at a time: first the mask of the pairs
+// within the cutoff (pair_counts), then pair_step on those alone, in
+// ascending order, so LJ's pair terms (two IEEE divisions) run for the
+// ~16 % of candidates within the cutoff, not for every one. What bounds D
+// then: the loop over the candidates (loads, r2, compare) and the
+// divergence of window lengths within a warp; with the low_flop pair
+// kernel D takes about 80 % of its LJ time (PERF.md, PR 19).
 //
 // One accumulation step (pair_step, in pair.cuh, shared with kernel E)
 // serves all three, so the compiler rounds and fuses each pair term the
@@ -82,6 +108,7 @@
 
 #include <cstdint>
 
+#include "cells.cuh"
 #include "pair.cuh"
 
 namespace {
@@ -94,7 +121,11 @@ constexpr int kTargetsPerThread = 4;
 constexpr int kBatch = kPencilThreads * kTargetsPerThread;
 constexpr int kMaxChunkCells = 64;
 constexpr size_t kChunkSmem = 48 * 1024;
-constexpr int kPackedThreads = 256;
+constexpr int kPackedThreads = 384;
+constexpr int kPackedTargets = 2 * kPackedThreads;  // a D block's targets
+constexpr int kMaxTileRows = 32;   // a warp's lanes hold a D tile's list
+constexpr size_t kPackedSmem = 88 * 1024;   // two D blocks an SM
+constexpr int kMinTiles = 2 * 132;          // two D tiles an H100 SM
 
 // Shared memory of one B/C block at chunk width cx: two mbarriers (16 B),
 // the compacted sources (16 B each) and two staging buffers of x, y, z, id
@@ -103,6 +134,27 @@ constexpr int kPackedThreads = 256;
 __host__ __device__ constexpr size_t pencil_smem(int cx, int m_c) {
   return 16 + (size_t)48 * (cx + 2) * m_c +
          (size_t)4 * ((size_t)cx * m_c + cx + 3 + kPencilWarps);
+}
+
+// Shared memory of one D block: tile_rows >= 1 pencils a tile, two
+// mbarriers (16 B), two staging buffers of x, y, z, id (32 B a slot) over
+// the tile_rows + 2 rows of a dz plane and the sums of the block's targets
+// (16 B each); tile_rows = 0, one pencil a tile, one buffer of one row and
+// no mbarrier.
+__host__ __device__ constexpr size_t packed_smem(int tile_rows, int row_cap) {
+  return tile_rows > 0 ? 16 + (size_t)32 * (tile_rows + 2) * row_cap +
+                             (size_t)16 * kPackedTargets
+                       : (size_t)16 * row_cap;
+}
+
+// The targets a D block takes: a tile's slots, tile_rows (or 1) times
+// row_cap, split evenly into the fewest parts of at most kPackedTargets
+// (tile_rows >= 1) or kPackedThreads (0).
+int packed_split(int tile_rows, int row_cap) {
+  const long long slots = (long long)(tile_rows > 0 ? tile_rows : 1) * row_cap;
+  const int cap = tile_rows > 0 ? kPackedTargets : kPackedThreads;
+  const long long parts = (slots + cap - 1) / cap;
+  return (int)((slots + parts - 1) / parts);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -372,10 +424,14 @@ xpencil_kernel(const float* __restrict__ x, const float* __restrict__ y,
   }
 }
 
-// Kernel D over packed rows of row_cap slots (act == nullptr: row r is
-// pencil r; else row r is pencil act[r]). Grid (n_rows, slot tiles).
+// Kernel D over packed rows of row_cap slots (act == nullptr: entry a is
+// pencil a; else entry a is pencil act[a]). Grid (tiles of tile_rows
+// consecutive entries, or one at tile_rows 0; parts of split targets);
+// kPackedThreads threads; dynamic shared memory packed_smem(tile_rows,
+// row_cap). bulk (tile_rows > 0, row_cap % 4 == 0, planes 16-byte aligned):
+// TMA bulk copies, else 4-byte cp.async.
 template <int KIND>
-__global__ void __launch_bounds__(kPackedThreads)
+__global__ void __launch_bounds__(kPackedThreads, 2)
 xpencil_packed_kernel(const float* __restrict__ x,
                       const float* __restrict__ y,
                       const float* __restrict__ z,
@@ -384,69 +440,256 @@ xpencil_packed_kernel(const float* __restrict__ x,
                       const int* __restrict__ off,
                       const int* __restrict__ act, float* __restrict__ fx,
                       float* __restrict__ fy, float* __restrict__ fz,
-                      float* __restrict__ pot, int nx, int ny, int row_cap,
+                      float* __restrict__ pot, int n_rows, int nx, int ny,
+                      int row_cap, int tile_rows, int split, bool bulk,
                       float cutoff2, PairParams prm) {
-  extern __shared__ float stage[];
-  float* sx = stage;
-  float* sy = sx + row_cap;
-  float* sz = sy + row_cap;
-  int* ss = reinterpret_cast<int*>(sz + row_cap);
-
-  const int a = blockIdx.x;
-  const int zy = act ? act[a] : a;
-  const int zz = zy / ny, yy = zy - (zy / ny) * ny;
+  constexpr unsigned kAll = 0xffffffffu;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const bool planes = tile_rows > 0;
+  const int n_buf = planes ? 2 : 1;
+  const int n_dy = planes ? 3 : 1;     // dy partials a step computes
+  const int per_group = 9 / n_dy;      // steps a group takes
+  const long long seg_len = (long long)(planes ? tile_rows + 2 : 1) * row_cap;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  float* stage = reinterpret_cast<float*>(smem + (planes ? 16 : 0));
+  float4* sums = reinterpret_cast<float4*>(stage + 2 * 4 * seg_len);
+  const int t = threadIdx.x, lane = t & 31;
   const int nyp = ny + 2, n_off = nx + 3;
-  const int t = blockIdx.y * blockDim.x + threadIdx.x;
-  const bool active = t < row_cap;
+  const int a0 = blockIdx.x * (planes ? tile_rows : 1);
+  const int n_ent = min(planes ? tile_rows : 1, n_rows - a0);
 
-  float tx = 0.0f, ty = 0.0f, tz = 0.0f;
-  int tid = -1, tcell = 1;
-  if (active) {
-    const long long ti = ((long long)(zz + 1) * nyp + (yy + 1)) * row_cap + t;
-    tx = x[ti];
-    ty = y[ti];
-    tz = z[ti];
-    tid = sid[ti];
-    tcell = min(max(scell[ti], 1), nx);
+  // 1. the tile's list, in every warp: lane i holds entry a0 + i, its
+  // pencil zy, its real targets nt (the row's real slots) and their
+  // exclusive prefix excl over the tile
+  int zy = 0, nt = 0;
+  if (lane < n_ent) {
+    zy = act ? act[a0 + lane] : a0 + lane;
+    const int zz = zy / ny;
+    nt = min(off[((long long)(zz + 1) * nyp + (zy - zz * ny) + 1) * n_off +
+                 nx + 2],
+             row_cap);
   }
-  const bool work = active && tid >= 0;
+  int incl = nt;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_up_sync(kAll, incl, d);
+    if (lane >= d) incl += v;
+  }
+  const int excl = incl - nt;
+  // the entry of tile target k: the last entry whose targets start at or
+  // before it (an entry with none starts where the next one does)
+  auto entry_of = [&](int k) {
+    int e = 0;
+#pragma unroll
+    for (int w = 16; w > 0; w >>= 1) {
+      const int m = e + w;
+      const int v = __shfl_sync(kAll, excl, min(m, 31));  // every lane
+      if (m < n_ent && v <= k) e = m;
+    }
+    return e;
+  };
 
-  float ax = 0.0f, ay = 0.0f, az = 0.0f, ap = 0.0f;
-  for (int k = 0; k < 9; ++k) {
-    const int dz = k / 3 - 1, dy = k % 3 - 1;
-    const long long srow = (long long)(zz + 1 + dz) * nyp + (yy + 1 + dy);
-    const int* so = off + srow * n_off;
-    const long long base = srow * row_cap;
-    // the row's real particles: offsets of an overflowed row run past
-    // row_cap, whose slots hold only the first row_cap of them
-    const int n_real = min(so[nx + 2], row_cap);
-    __syncthreads();  // the previous row is no longer read
-    for (int i = threadIdx.x; i < n_real; i += blockDim.x) {
-      sx[i] = x[base + i];
-      sy[i] = y[base + i];
-      sz[i] = z[base + i];
-      ss[i] = sid[base + i];
-    }
-    __syncthreads();
-    if (work) {
-      const int lo = min(so[tcell - 1], n_real);
-      const int hi = min(so[tcell + 2], n_real);
-      float px = 0.0f, py = 0.0f, pz = 0.0f, pp = 0.0f;
-      for (int j = lo; j < hi; ++j)
-        pair_step<KIND>(tx, ty, tz, tid, sx[j], sy[j], sz[j], ss[j], cutoff2,
-                        prm, px, py, pz, pp);
-      ax += px;
-      ay += py;
-      az += pz;
-      ap += pp;
+  // 2. the 0s of the padding slots [nt, row_cap), by the tile's first part
+  if (blockIdx.y == 0) {
+    for (int i = 0; i < n_ent; ++i) {
+      const int n = __shfl_sync(kAll, nt, i);
+      const long long o = (long long)(a0 + i) * row_cap;
+      for (int s = n + t; s < row_cap; s += kPackedThreads) {
+        fx[o + s] = 0.0f;
+        fy[o + s] = 0.0f;
+        fz[o + s] = 0.0f;
+        pot[o + s] = 0.0f;
+      }
     }
   }
-  if (active) {
-    const long long o = (long long)a * row_cap + t;
-    fx[o] = ax;
-    fy[o] = ay;
-    fz[o] = az;
-    pot[o] = ap;
+
+  // 3. this block's targets [k_beg, k_end) of the tile, and the groups
+  // they fall in: a group is a run of consecutive pencils of one z. Lane g
+  // holds group g's part [g_lo, g_hi) of them and its entries e_lo..e_hi.
+  const int k_beg = blockIdx.y * split;
+  const int k_end = min(k_beg + split, __shfl_sync(kAll, incl, n_ent - 1));
+  if (k_beg >= k_end) return;
+  const int prev = __shfl_up_sync(kAll, zy, 1);
+  const unsigned starts = __ballot_sync(
+      kAll, lane < n_ent &&
+                (lane == 0 || zy != prev + 1 || zy / ny != prev / ny));
+  const int n_groups = __popc(starts);
+  const int g_first = lane < n_groups ? nth_set_bit(starts, lane) : 0;
+  const int g_end =
+      lane + 1 < n_groups ? nth_set_bit(starts, lane + 1) : n_ent;
+  const int g_lo = max(k_beg, __shfl_sync(kAll, excl, g_first));
+  const int g_hi = min(k_end, __shfl_sync(kAll, incl, max(g_end - 1, 0)));
+  const unsigned parts = __ballot_sync(kAll, lane < n_groups && g_lo < g_hi);
+  const int e_lo = entry_of(g_lo);
+  const int e_hi = entry_of(g_hi - 1);
+  const int n_steps = __popc(parts) * per_group;
+
+  if (bulk && t == 0) {
+    mbar_init(smem_u32(&bars[0]), 1);
+    mbar_init(smem_u32(&bars[1]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();  // the barriers are ready
+
+  // Step s stages, for the (s / per_group)-th group with targets here and
+  // its step j = s % per_group, the rows its targets read at dz (and, one
+  // row a step, dy): padded rows (z + 1 + dz, y_lo + dy_lo .. y_hi +
+  // dy_hi), one contiguous segment of every plane.
+  struct Geometry {
+    int e_lo, len, k_lo, k_hi, j;
+    long long trow;  // the padded row of entry e_lo
+    long long row0;  // the first padded row the step stages
+  };
+  auto geometry = [&](int s) {
+    Geometry q;
+    const int g = nth_set_bit(parts, s / per_group);
+    q.j = s % per_group;
+    q.e_lo = __shfl_sync(kAll, e_lo, g);
+    q.len = __shfl_sync(kAll, e_hi, g) - q.e_lo + 1;
+    q.k_lo = __shfl_sync(kAll, g_lo, g);
+    q.k_hi = __shfl_sync(kAll, g_hi, g);
+    const int zy0 = __shfl_sync(kAll, zy, q.e_lo);
+    const int zz = zy0 / ny, yy = zy0 - zz * ny;
+    const int dz = planes ? q.j - 1 : q.j / 3 - 1;
+    const int dy_lo = planes ? -1 : q.j % 3 - 1;
+    q.trow = (long long)(zz + 1) * nyp + yy + 1;
+    q.row0 = q.trow + (long long)dz * nyp + dy_lo;
+    return q;
+  };
+
+  auto issue = [&](int s) {
+    const Geometry q = geometry(s);
+    const int buf = s % n_buf;
+    const int rows = q.len + n_dy - 1;
+    float* dst = stage + buf * 4 * seg_len;
+    const float* src[4] = {x, y, z, reinterpret_cast<const float*>(sid)};
+    if (bulk) {
+      if (t == 0) {
+        // the generic-proxy reads of this buffer (ordered by the block
+        // barrier before the call) come before the async-proxy writes
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        const uint32_t bar = smem_u32(&bars[buf]);
+        const uint32_t bytes = 4u * rows * row_cap;
+        mbar_expect_tx(bar, 4 * bytes);
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+          bulk_load(smem_u32(dst + a * seg_len), src[a] + q.row0 * row_cap,
+                    bytes, bar);
+      }
+    } else {
+      for (int i = t; i < rows * row_cap; i += kPackedThreads) {
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+          cp_async4(smem_u32(dst + a * seg_len + i),
+                    src[a] + q.row0 * row_cap + i);
+      }
+      cp_async_commit();  // one group per step, empty or not
+    }
+  };
+
+  // A step takes its group's targets k in [k_lo, k_hi), target k on thread
+  // (k - k_lo) % kPackedThreads for all of the group's steps: tile_rows
+  // >= 1, their sums carried between the group's three planes in shared
+  // memory; tile_rows 0, one target a thread, its sums in registers.
+  struct Target {
+    int k, e, slot, tid, cell;  // e: its entry less the group's e_lo
+    float x, y, z;
+  };
+  auto target = [&](const Geometry& q, int k) {
+    Target g;
+    g.k = k;
+    const int e = entry_of(k);
+    g.e = e - q.e_lo;
+    g.slot = k - __shfl_sync(kAll, excl, e);
+    g.tid = -1;
+    g.cell = 1;
+    g.x = g.y = g.z = 0.0f;
+    if (k < q.k_hi) {
+      const long long ti = (q.trow + g.e) * row_cap + g.slot;
+      g.tid = sid[ti];
+      g.x = x[ti];
+      g.y = y[ti];
+      g.z = z[ti];
+      g.cell = min(max(scell[ti], 1), nx);
+    }
+    return g;
+  };
+
+  // 4. the steps: while step s is computed, step s + 1 loads (two buffers)
+  float4 rsum = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (n_buf == 2 && n_steps > 0) issue(0);
+  for (int s = 0; s < n_steps; ++s) {
+    const int buf = s % n_buf;
+    if (s + n_buf - 1 < n_steps) issue(s + n_buf - 1);
+    const Geometry q = geometry(s);
+    Target g = target(q, q.k_lo + t);  // loads while the rows land
+    if (bulk) {
+      mbar_wait(smem_u32(&bars[buf]), (s >> 1) & 1);
+    } else {
+      if (n_buf == 2 && s + 1 < n_steps)
+        cp_async_wait<1>();
+      else
+        cp_async_wait<0>();
+      __syncthreads();
+    }
+    const float* sx = stage + buf * 4 * seg_len;
+    const float* sy = sx + seg_len;
+    const float* sz = sy + seg_len;
+    const int* ss = reinterpret_cast<const int*>(sz + seg_len);
+    for (int k0 = q.k_lo; k0 < q.k_hi; k0 += kPackedThreads) {
+      if (k0 != q.k_lo) g = target(q, k0 + t);
+      if (g.k >= q.k_hi) continue;
+      float4 a = q.j == 0 ? make_float4(0.0f, 0.0f, 0.0f, 0.0f)
+                          : (planes ? sums[g.k - k_beg] : rsum);
+      // one partial a dy, each from +0 over the window [off[c-1],
+      // off[c+2]) of the source row in ascending order, added in k order
+      for (int d = 0; d < n_dy && g.tid >= 0; ++d) {
+        // the source row's real particles: offsets of an overflowed row run
+        // past row_cap, whose slots hold only the first row_cap of them
+        const int* so = off + (q.row0 + g.e + d) * n_off;
+        const int n_real = min(so[nx + 2], row_cap);
+        const int r0 = (g.e + d) * row_cap;
+        const int lo = r0 + min(so[g.cell - 1], n_real);
+        const int hi = r0 + min(so[g.cell + 2], n_real);
+        float px = 0.0f, py = 0.0f, pz = 0.0f, pp = 0.0f;
+        // 32 sources at a time: first the mask of the pairs pair_step
+        // counts, then pair_step on those alone, in ascending order
+        // (pair_counts: the others add exactly +-0), so a warp runs the pair
+        // terms about as often as its lanes' largest count within the
+        // cutoff, not their largest window
+        for (int c0 = lo; c0 < hi; c0 += 32) {
+          const int n = min(32, hi - c0);
+          unsigned kept = 0;
+          for (int i = 0; i < n; ++i)
+            if (pair_counts(g.x, g.y, g.z, g.tid, sx[c0 + i], sy[c0 + i],
+                            sz[c0 + i], ss[c0 + i], cutoff2))
+              kept |= 1u << i;
+          for (; kept; kept &= kept - 1) {
+            const int i = c0 + __ffs(kept) - 1;
+            pair_step<KIND>(g.x, g.y, g.z, g.tid, sx[i], sy[i], sz[i], ss[i],
+                            cutoff2, prm, px, py, pz, pp);
+          }
+        }
+        a.x += px;
+        a.y += py;
+        a.z += pz;
+        a.w += pp;
+      }
+      if (q.j < per_group - 1) {
+        if (planes)
+          sums[g.k - k_beg] = a;
+        else
+          rsum = a;
+      } else {  // 5. the target's sums
+        const long long o =
+            (long long)(a0 + q.e_lo + g.e) * row_cap + g.slot;
+        fx[o] = a.x;
+        fy[o] = a.y;
+        fz[o] = a.z;
+        pot[o] = a.w;
+      }
+    }
+    __syncthreads();  // the buffer is free
   }
 }
 
@@ -483,6 +726,54 @@ cudaError_t launch_pencils(const void* x, const void* y, const void* z,
         static_cast<float*>(fx), static_cast<float*>(fy),
         static_cast<float*>(fz), static_cast<float*>(pot), nx, ny, m_c,
         cx_cells, bulk, cutoff2, prm);
+    return cudaGetLastError();
+  });
+}
+
+// Kernel D's tile: the most pencils, up to kMaxTileRows, whose block needs
+// at most kPackedSmem of shared memory and that leave at least kMinTiles
+// tiles of the n_rows entries (at least 1); 0 (one row a step, one buffer)
+// where a block of one pencil exceeds kMaxSmem.
+int packed_tile_rows(int row_cap, int n_rows) {
+  if (packed_smem(1, row_cap) > kMaxSmem) return 0;
+  int r = kMaxTileRows;
+  while (r > 1 && (packed_smem(r, row_cap) > kPackedSmem ||
+                   (long long)r * kMinTiles > n_rows))
+    --r;
+  return r;
+}
+
+cudaError_t launch_packed(const void* x, const void* y, const void* z,
+                          const void* slot_id, const void* slot_cell,
+                          const void* cell_offsets, const void* active,
+                          void* fx, void* fy, void* fz, void* pot, int n_rows,
+                          int nx, int ny, int row_cap, int tile_rows,
+                          float cutoff2, int kind,
+                          PairParams prm, void* stream) {
+  if (n_rows == 0) return cudaSuccess;
+  const size_t smem = packed_smem(tile_rows, row_cap);
+  const bool bulk =
+      tile_rows > 0 && row_cap % 4 == 0 &&
+      ((uintptr_t)x | (uintptr_t)y | (uintptr_t)z | (uintptr_t)slot_id) % 16 ==
+          0;
+  const int per_block = tile_rows > 0 ? tile_rows : 1;
+  const int split = packed_split(tile_rows, row_cap);
+  const dim3 grid((n_rows + per_block - 1) / per_block,
+                  (per_block * row_cap + split - 1) / split);
+  return by_kind(kind, [&](auto kc) {
+    constexpr int K = decltype(kc)::value;
+    const cudaError_t err = allow_smem(xpencil_packed_kernel<K>, smem);
+    if (err != cudaSuccess) return err;
+    xpencil_packed_kernel<K><<<grid, kPackedThreads, smem,
+                               static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x), static_cast<const float*>(y),
+        static_cast<const float*>(z), static_cast<const int*>(slot_id),
+        static_cast<const int*>(slot_cell),
+        static_cast<const int*>(cell_offsets),
+        static_cast<const int*>(active), static_cast<float*>(fx),
+        static_cast<float*>(fy), static_cast<float*>(fz),
+        static_cast<float*>(pot), n_rows, nx, ny, row_cap, tile_rows, split,
+        bulk, cutoff2, prm);
     return cudaGetLastError();
   });
 }
@@ -553,37 +844,27 @@ extern "C" int xpencil_chunked_f32(const void* x, const void* y,
 // of shape (nz+2, ny+2, row_cap), cell_offsets (int32) of shape
 // (nz+2, ny+2, nx+3), active (int32, n_rows) interior pencil ids or NULL for
 // every pencil in id order (n_rows = nz*ny); outputs of shape (n_rows,
-// row_cap). Needs 16*row_cap bytes of shared memory, at most 227 KB.
+// row_cap). tile_rows: pencils a block, 0 <= tile_rows <= kMaxTileRows with
+// packed_smem(tile_rows, row_cap) <= kMaxSmem, or -1 for
+// packed_tile_rows(row_cap, n_rows); the bits do not depend on it.
+// At tile_rows 0 a block needs 16*row_cap bytes: row_cap <= 14528.
 extern "C" int xpencil_packed_f32(const void* x, const void* y, const void* z,
                                   const void* slot_id, const void* slot_cell,
                                   const void* cell_offsets, const void* active,
                                   void* fx, void* fy, void* fz, void* pot,
                                   int n_rows, int nx, int ny, int nz,
-                                  int row_cap, float cutoff2, int kind,
-                                  float p0, float p1, float p2, float p3,
-                                  int n_extra, void* stream) {
+                                  int row_cap, int tile_rows,
+                                  float cutoff2, int kind, float p0, float p1,
+                                  float p2, float p3, int n_extra,
+                                  void* stream) {
   if (row_cap < 1 || nx < 1 || ny < 1 || nz < 1 || n_rows < 0 ||
       (active == nullptr && n_rows != nz * ny))
     return cudaErrorInvalidValue;
-  if (n_rows == 0) return cudaSuccess;
-  const PairParams prm{p0, p1, p2, p3, n_extra};
-  const int threads =
-      row_cap < kPackedThreads ? (row_cap + 31) / 32 * 32 : kPackedThreads;
-  const size_t smem = (size_t)16 * row_cap;
-  const dim3 grid(n_rows, (row_cap + threads - 1) / threads);
-  return by_kind(kind, [&](auto kc) {
-    constexpr int K = decltype(kc)::value;
-    const cudaError_t err = allow_smem(xpencil_packed_kernel<K>, smem);
-    if (err != cudaSuccess) return err;
-    xpencil_packed_kernel<K><<<grid, threads, smem,
-                               static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x), static_cast<const float*>(y),
-        static_cast<const float*>(z), static_cast<const int*>(slot_id),
-        static_cast<const int*>(slot_cell),
-        static_cast<const int*>(cell_offsets),
-        static_cast<const int*>(active), static_cast<float*>(fx),
-        static_cast<float*>(fy), static_cast<float*>(fz),
-        static_cast<float*>(pot), nx, ny, row_cap, cutoff2, prm);
-    return cudaGetLastError();
-  });
+  if (tile_rows < 0) tile_rows = packed_tile_rows(row_cap, n_rows);
+  if (tile_rows > kMaxTileRows || packed_smem(tile_rows, row_cap) > kMaxSmem)
+    return cudaErrorInvalidValue;
+  return launch_packed(x, y, z, slot_id, slot_cell, cell_offsets, active, fx,
+                       fy, fz, pot, n_rows, nx, ny, row_cap, tile_rows,
+                       cutoff2, kind, PairParams{p0, p1, p2, p3, n_extra},
+                       stream);
 }

@@ -13,8 +13,10 @@ it launches its kernel or raises. ``<wrapper>.launches`` counts the
 launches. All three launch work per real particle and visit only the real
 sources of each target's window, in ascending slot order: kernels B and C
 compact each staged neighbour row in shared memory (``pencil_smem_bytes``
-at the chunk width ``chunk_cells``), kernel D reads packed rows. All three
-are bound by operations, not bytes (see the note in the CUDA source).
+at the chunk width ``chunk_cells``); kernel D takes a tile of
+``packed_tile_rows`` consecutive pencils a block and stages each dz plane's
+rows of them as one segment, shared by the tile's pencils
+(``packed_smem_bytes``). See the note in the CUDA source.
 """
 
 from __future__ import annotations
@@ -59,6 +61,56 @@ def chunk_cells(nx: int, m_c: int) -> int:
 # the largest m_c whose block of one cell fits a block's shared memory
 MAX_M_C = ((MAX_SMEM - pencil_smem_bytes(1, 0))
            // (pencil_smem_bytes(1, 1) - pencil_smem_bytes(1, 0)))
+
+# kernel D (csrc/xpencil.cu: kPackedThreads, kPackedTargets, kMaxTileRows,
+# kPackedSmem, kMinTiles)
+PACKED_THREADS = 384
+PACKED_TARGETS = 2 * PACKED_THREADS      # the targets of a block
+MAX_TILE_ROWS = 32                       # a warp's lanes hold a tile's list
+PACKED_SMEM = 88 * 1024                  # two blocks an SM
+MIN_TILES = 2 * 132                      # two tiles an H100 SM
+
+
+def packed_smem_bytes(tile_rows: int, row_cap: int) -> int:
+    """Shared memory of one kernel D block (``csrc/xpencil.cu::
+    packed_smem``): at ``tile_rows >= 1`` pencils a tile, two mbarriers
+    (16 B), two staging buffers of x, y, z and id (32 B a slot) over the
+    ``tile_rows + 2`` rows of a dz plane and the sums of the block's
+    ``PACKED_TARGETS`` targets (16 B each); at 0, one pencil a tile, one
+    buffer of one row."""
+    if tile_rows > 0:
+        return 16 + 32 * (tile_rows + 2) * row_cap + 16 * PACKED_TARGETS
+    return 16 * row_cap
+
+
+def packed_split(tile_rows: int, row_cap: int) -> int:
+    """The targets a kernel D block takes (``csrc/xpencil.cu::
+    packed_split``): a tile's slots, ``tile_rows`` (or 1) times
+    ``row_cap``, split evenly into the fewest parts of at most
+    ``PACKED_TARGETS`` (``tile_rows >= 1``) or ``PACKED_THREADS`` (0)."""
+    slots = max(tile_rows, 1) * row_cap
+    cap = PACKED_TARGETS if tile_rows > 0 else PACKED_THREADS
+    parts = -(-slots // cap)
+    return -(-slots // parts)
+
+
+def packed_tile_rows(row_cap: int, n_rows: int) -> int:
+    """Kernel D's pencils a tile (``csrc/xpencil.cu::packed_tile_rows``):
+    the most, up to ``MAX_TILE_ROWS``, whose block needs at most
+    ``PACKED_SMEM`` bytes and that leave at least ``MIN_TILES`` tiles of the
+    ``n_rows`` entries (at least 1); 0 where a block of one pencil exceeds
+    ``MAX_SMEM`` (``row_cap`` > 2293)."""
+    if packed_smem_bytes(1, row_cap) > MAX_SMEM:
+        return 0
+    r = MAX_TILE_ROWS
+    while r > 1 and (packed_smem_bytes(r, row_cap) > PACKED_SMEM
+                     or r * MIN_TILES > n_rows):
+        r -= 1
+    return r
+
+
+# the largest row_cap kernel D takes: one row of 16 B a slot (tile_rows 0)
+MAX_ROW_CAP = MAX_SMEM // 16
 
 
 def _dense_planes(x, y, z, slot_id, nx: int, m_c: int, what: str):
@@ -182,7 +234,8 @@ def xpencil_packed_forces(planes: Dict[str, torch.Tensor],
                           cell_offsets: torch.Tensor,
                           active_zy: Optional[torch.Tensor], *, nx: int,
                           ny: int, m_c: int, kernel: PairKernel,
-                          cutoff2: float) -> Tuple[torch.Tensor, ...]:
+                          cutoff2: float, tile_rows: Optional[int] = None
+                          ) -> Tuple[torch.Tensor, ...]:
     """Kernel D: the packed-row X-pencil over the listed pencil rows.
 
     Args:
@@ -193,12 +246,23 @@ def xpencil_packed_forces(planes: Dict[str, torch.Tensor],
         ``Occupancy.active`` list), or None for every row in id order.
       m_c: the dense bound the plain version re-expands windows to; the
         kernel reads windows from the offsets and does not need it.
+      tile_rows: the kernel's pencils a tile (0: one, staged a row at a
+        time in one buffer), or None for ``packed_tile_rows(row_cap,
+        n_rows)``. The result does not depend on it.
     Returns:
       (fx, fy, fz, pot), each ``(n_rows, row_cap)``: row ``a`` holds the
       packed-slot forces of pencil ``active_zy[a]``; padding slots are 0.
     """
     x, y, z = planes["x"], planes["y"], planes["z"]
     nzp, nyp, row_cap = x.shape
+    if tile_rows is not None and not (
+            0 <= tile_rows <= MAX_TILE_ROWS
+            and packed_smem_bytes(tile_rows, row_cap) <= MAX_SMEM):
+        raise ValueError(
+            f"tile_rows={tile_rows} is not a tile of kernel D: 0 <= "
+            f"tile_rows <= {MAX_TILE_ROWS}, and a block stages "
+            f"{packed_smem_bytes(tile_rows, row_cap)} bytes of shared "
+            f"memory, at most {MAX_SMEM}")
     if x.device.type == "cpu":
         if active_zy is None:
             active_zy = torch.arange((nzp - 2) * ny, dtype=torch.int32)
@@ -212,11 +276,11 @@ def xpencil_packed_forces(planes: Dict[str, torch.Tensor],
     if nyp != ny + 2 or nzp < 3 or row_cap < 1:
         raise ValueError(f"packed planes of shape {tuple(x.shape)} do not "
                          f"match ny={ny}")
-    if 16 * row_cap > MAX_SMEM:
+    if row_cap > MAX_ROW_CAP:
         raise ValueError(
-            f"row_cap={row_cap} does not fit kernel D: a block stages one "
-            f"packed row of 16*row_cap bytes in shared memory, at most "
-            f"{MAX_SMEM} (row_cap <= {MAX_SMEM // 16})")
+            f"row_cap={row_cap} does not fit kernel D: a block stages at "
+            f"least one packed row of 16*row_cap bytes in shared memory, at "
+            f"most {MAX_SMEM} (row_cap <= {MAX_ROW_CAP})")
     tensors = [
         ("x", x, torch.float32, x.shape), ("y", y, torch.float32, x.shape),
         ("z", z, torch.float32, x.shape),
@@ -233,7 +297,8 @@ def xpencil_packed_forces(planes: Dict[str, torch.Tensor],
     launch("xpencil.cu", "xpencil_packed_f32", x, x.data_ptr(), y.data_ptr(),
            z.data_ptr(), slot_id.data_ptr(), slot_cell.data_ptr(),
            cell_offsets.data_ptr(), act_ptr, *(o.data_ptr() for o in outs),
-           n_rows, nx, ny, nzp - 2, row_cap, float(cutoff2), *form)
+           n_rows, nx, ny, nzp - 2, row_cap,
+           -1 if tile_rows is None else tile_rows, float(cutoff2), *form)
     xpencil_packed_forces.launches += 1
     return outs
 

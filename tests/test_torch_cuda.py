@@ -22,12 +22,16 @@ from repro_torch.core.interactions import PairKernel
 from repro_torch.core.binning import (bin_particles, build_sfc_clusters,
                                       sfc_device_slot_tables, sfc_n_clusters,
                                       sfc_pair_count, sfc_to_particles)
+from repro_torch.core.binning import CellBins, pack_slots_plain
 from repro_torch.kernels.allin import allin_forces, halo_bytes
+from repro_torch.kernels.pack import pack_slots
 from repro_torch.kernels.prefix_sum import prefix_sum
 from repro_torch.kernels.sfc import cell_sfc_forces, sfc_warp_smem_bytes
 from repro_torch.kernels.window_attn import (route, window_attention,
                                              window_attention_plain)
-from repro_torch.kernels.xpencil import (MAX_M_C, MAX_SMEM, chunk_cells,
+from repro_torch.kernels.xpencil import (MAX_M_C, MAX_ROW_CAP, MAX_SMEM,
+                                         MAX_TILE_ROWS, chunk_cells,
+                                         packed_smem_bytes, packed_tile_rows,
                                          pencil_smem_bytes, xpencil_forces,
                                          xpencil_packed_forces,
                                          xpencil_sparse_forces)
@@ -142,7 +146,8 @@ def test_sparse_kernel_matches_plain(gen, periodic):
 @pytest.mark.parametrize("periodic", [False, True])
 @pytest.mark.parametrize("ppc", [4, 40])
 def test_packed_kernel_matches_plain(gen, periodic, ppc):
-    """ppc 40 gives row_cap above 256: several blocks share a row."""
+    """ppc 40 gives a row_cap above 256, the block size of the first
+    kernel D."""
     dom = Domain.cubic(8, periodic=periodic)
     pos = dom.sample_uniform(8 ** 3 * ppc, generator=gen, device="cuda")
     m_c, row_cap = suggest_m_c(dom, pos), suggest_row_cap(dom, pos)
@@ -173,12 +178,13 @@ def test_dense_compact_packed_equal_and_launch(gen, periodic):
     for compact, layout, want in (
             (False, "dense", {"prefix_sum": 1, "xpencil_forces": 1}),
             (True, "dense", {"prefix_sum": 1, "xpencil_sparse_forces": 1}),
-            (False, "packed", {"prefix_sum": 2, "xpencil_packed_forces": 1}),
-            (True, "packed", {"prefix_sum": 2,
+            (False, "packed", {"prefix_sum": 2, "pack_slots": 1,
+                               "xpencil_packed_forces": 1}),
+            (True, "packed", {"prefix_sum": 2, "pack_slots": 1,
                               "xpencil_packed_forces": 1})):
         p = plan(dom, kern, positions=pos, compact=compact, layout=layout)
-        counters = (prefix_sum, xpencil_forces, xpencil_sparse_forces,
-                    xpencil_packed_forces)
+        counters = (prefix_sum, pack_slots, xpencil_forces,
+                    xpencil_sparse_forces, xpencil_packed_forces)
         for c in counters:
             c.launches = 0
         runs[(compact, layout)] = p.execute(state)
@@ -228,19 +234,24 @@ def _punch_holes(slot_id, m_c, gen, frac=0.35):
     return s.view(slot_id.shape), int(pick.sum())
 
 
-def _pack_stably(planes, sid, nx, m_c):
+def _pack_stably(planes, sid, nx, m_c, row_cap=None):
     """Kernel D's packed rows of dense planes whose cells may hold holes:
-    each padded row's real slots in slot order -> (packed planes, slot_id,
-    slot_cell, cell_offsets, the packed position of every dense slot)."""
+    each padded row's real slots in slot order, the first ``row_cap`` of
+    them (None: the fullest row's count), as ``pack_rows`` drops a row's
+    tail -> (packed planes, slot_id, slot_cell, cell_offsets, the packed
+    position of every dense slot, the dense slot_id with the dropped slots
+    emptied)."""
     nzp, nyp, w = sid.shape
     occ = sid >= 0
     rank = occ.int().cumsum(-1) - 1
     row_counts = occ.sum(-1, dtype=torch.int32)
-    row_cap = max(int(row_counts.max()), 1)
+    if row_cap is None:
+        row_cap = max(int(row_counts.max()), 1)
     cell_occ = occ.view(nzp, nyp, nx + 2, m_c).sum(-1, dtype=torch.int32)
     off = cell_occ.cumsum(-1, dtype=torch.int32) - cell_occ
     cell_offsets = torch.cat([off, row_counts[..., None]], -1).contiguous()
-    dest = torch.where(occ, rank, row_cap).long()
+    keep = occ & (rank < row_cap)
+    dest = torch.where(keep, rank, row_cap).long()
 
     def pack(plane, fill):
         out = torch.full((nzp, nyp, row_cap + 1), fill, dtype=plane.dtype,
@@ -251,10 +262,75 @@ def _pack_stably(planes, sid, nx, m_c):
     cell = (torch.arange(w, device=sid.device, dtype=torch.int32)
             // m_c).expand(nzp, nyp, w)
     return ({c: pack(planes[c], 1.0e8) for c in "xyz"}, pack(sid, -1),
-            pack(cell.contiguous(), 1), cell_offsets, rank)
+            pack(cell.contiguous(), 1), cell_offsets, rank,
+            torch.where(keep, sid, -1))
 
 
-def _check_b_c_d(dom, planes, sid, m_c, kern, what):
+def _d_lists(nz, ny, gen):
+    """Active lists for kernel D: a run of pencils across a z boundary,
+    lone pencils in random order, every pencil in order, repeats and
+    padding entries (pencil 0)."""
+    n = nz * ny
+    ids = torch.arange(n, dtype=torch.int32, device="cuda")
+    lone = ids[torch.randperm(n, generator=gen, device="cuda")][:n // 2]
+    return torch.cat([ids[max(ny - 2, 0):ny + 3], lone, ids, lone[:3],
+                      torch.zeros(5, dtype=torch.int32, device="cuda")])
+
+
+def _check_d(dom, planes, sid, m_c, kern, what, gen, row_cap=None,
+             tiles=None):
+    """Kernel D over the stably packed rows of dense planes: against its
+    plain version (per element, term sizes), 0 in every padding slot,
+    bit-equal per particle to kernel B on the dense planes less the slots
+    the packed rows drop, the same bits at each tile size (``tiles``, None:
+    every one that fits), and the same rows over the active lists of
+    ``_d_lists``. -> D's outputs."""
+    nx, ny, nz = dom.ncells
+    kw = dict(nx=nx, ny=ny, m_c=m_c, kernel=kern, cutoff2=1.0)
+    p_planes, p_sid, p_cell, p_off, rank, kept = _pack_stably(
+        planes, sid, nx, m_c, row_cap)
+    cap = p_sid.shape[-1]
+    args = (p_planes, p_sid, p_cell, p_off)
+    plain_args = (p_planes["x"], p_planes["y"], p_planes["z"], p_sid, p_cell,
+                  p_off, torch.arange(nz * ny, dtype=torch.int32,
+                                      device="cuda"))
+    d = xpencil_packed_forces(*args, None, **kw)
+    want = S.xpencil_packed_planes(*plain_args, **kw)
+    fsize, usize = (S.xpencil_packed_planes(*plain_args, nx=nx, ny=ny,
+                                            m_c=m_c, kernel=k, cutoff2=1.0)[3]
+                    for k in _term_sizes(kern))
+    n_real = p_off[1:-1, 1:-1, -1].clamp(max=cap).reshape(-1, 1)
+    pad = torch.arange(cap, device="cuda") >= n_real
+    for g, w, part in zip(d, want, ("fx", "fy", "fz", "pot")):
+        assert g.shape == (nz * ny, cap)
+        _term_close(g, w, usize if part == "pot" else fsize,
+                    f"D {part} {what}")
+        assert not bool(g[pad].any()), f"D {part} {what}: padding not 0"
+
+    b = xpencil_forces(planes, kept, nx=nx, m_c=m_c, kernel=kern,
+                       cutoff2=1.0)
+    pos = rank[1:-1, 1:-1, m_c:-m_c].clamp(0, cap - 1).long()
+    real = kept[1:-1, 1:-1, m_c:-m_c] >= 0
+    for g, bb in zip(d, b):
+        per_slot = g.view(nz, ny, -1).gather(-1, pos)
+        assert torch.equal(per_slot[real], bb[real]), f"D vs B {what}"
+
+    if tiles is None:
+        tiles = [r for r in range(MAX_TILE_ROWS + 1)
+                 if packed_smem_bytes(r, cap) <= MAX_SMEM]
+    for r in tiles:
+        got = xpencil_packed_forces(*args, None, tile_rows=r, **kw)
+        assert all(torch.equal(g, w) for g, w in zip(got, d)), (what, r)
+    act = _d_lists(nz, ny, gen)
+    for r in sorted({0, 1, 3, packed_tile_rows(cap, act.shape[0])}
+                    & set(tiles)):
+        got = xpencil_packed_forces(*args, act, tile_rows=r, **kw)
+        assert all(torch.equal(g, w.view(nz * ny, -1)[act.long()])
+                   for g, w in zip(got, d)), (what, "active list", r)
+    return d
+
+
+def _check_b_c_d(dom, planes, sid, m_c, kern, what, gen):
     """Kernel B against its plain version and, bit for bit, against itself
     at every chunk width, kernel C (every pencil, shuffled, plus padding)
     and kernel D over the same real particles packed stably."""
@@ -292,13 +368,7 @@ def _check_b_c_d(dom, planes, sid, m_c, kern, what):
                                     cx_cells=nx - 1, **kw)
         assert all(torch.equal(g, w) for g, w in zip(got, c)), what
 
-    p_planes, p_sid, p_cell, p_off, rank = _pack_stably(planes, sid, nx, m_c)
-    d = xpencil_packed_forces(p_planes, p_sid, p_cell, p_off, None, nx=nx,
-                              ny=ny, **kw)
-    pos = rank[1:-1, 1:-1, m_c:-m_c].clamp(min=0).long()
-    for g, bb in zip(d, b):
-        per_slot = g.view(nz, ny, -1).gather(-1, pos)
-        assert torch.equal(per_slot[real], bb[real]), f"D vs B {what}"
+    _check_d(dom, planes, sid, m_c, kern, what, gen)
     return b
 
 
@@ -326,7 +396,7 @@ def test_xpencil_kernels_with_holes(gen, periodic, m_c, name):
     sid, n_holes = _punch_holes(bins.slot_id, m_c, gen)
     assert n_holes > 50
     _check_b_c_d(dom, bins.planes, sid, m_c, PAIR_KINDS[name](),
-                 f"holes m_c={m_c} periodic={periodic}")
+                 f"holes m_c={m_c} periodic={periodic}", gen)
 
 
 @pytest.mark.parametrize("periodic", [False, True])
@@ -346,7 +416,7 @@ def test_xpencil_kernels_on_edge_scenes(gen, periodic, m_c, scene):
     else:
         sid = torch.full_like(sid, -1)
     b = _check_b_c_d(dom, bins.planes, sid, m_c, make_lennard_jones(),
-                     f"{scene} m_c={m_c} periodic={periodic}")
+                     f"{scene} m_c={m_c} periodic={periodic}", gen)
     if scene == "empty_grid":
         assert not any(bool(o.any()) for o in b)
 
@@ -356,7 +426,7 @@ def test_xpencil_kernels_one_cell_wide(gen, periodic):
     dom, bins = _scene(gen, (1, 4, 3), 5, 12, periodic, full_cell=True)
     sid, _ = _punch_holes(bins.slot_id, 12, gen)
     _check_b_c_d(dom, bins.planes, sid, 12, make_gravity(),
-                 f"nx=1 periodic={periodic}")
+                 f"nx=1 periodic={periodic}", gen)
 
 
 def test_xpencil_kernels_above_1024_slots_a_cell(gen):
@@ -370,13 +440,152 @@ def test_xpencil_kernels_above_1024_slots_a_cell(gen):
     bins = bin_particles(dom, pos, m_c=m_c)
     assert int((bins.slot_id >= 0).view(-1, m_c).sum(-1).max()) == m_c
     _check_b_c_d(dom, bins.planes, bins.slot_id, m_c, make_low_flop(),
-                 "m_c=1100")
+                 "m_c=1100", gen)
     big = MAX_M_C + 1
     planes = {c: torch.zeros((3, 3, 3 * big), device="cuda") for c in "xyz"}
     with pytest.raises(ValueError, match="shared memory"):
         xpencil_forces(planes, torch.full((3, 3, 3 * big), -1,
                                           dtype=torch.int32, device="cuda"),
                        nx=1, m_c=big, kernel=make_low_flop(), cutoff2=1.0)
+
+
+# -- kernel D: real targets, rows shared across neighbouring pencils -------
+
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("cap", ["fullest", "bulk", "cp_async", "overflow",
+                                 "overflow_cp_async"])
+def test_packed_kernel_row_caps(gen, periodic, cap):
+    """Kernel D (``_check_d``) at a row_cap that is a multiple of 4 (TMA
+    bulk copies) and one that is not (cp.async), and below the fullest row
+    (its tail dropped, its offsets running past row_cap); holes in the
+    cells and a full cell."""
+    dom, bins = _scene(gen, (7, 5, 4), 4, 24, periodic, full_cell=True)
+    sid, n_holes = _punch_holes(bins.slot_id, 24, gen)
+    assert n_holes > 50
+    full = int((sid >= 0).sum(-1).max())
+    row_cap = {"fullest": None, "bulk": -(-full // 4) * 4 + 4,
+               "cp_async": -(-full // 4) * 4 + 5,
+               "overflow": (full - 6) // 4 * 4,
+               "overflow_cp_async": (full - 6) // 4 * 4 + 1}[cap]
+    if row_cap is not None:
+        assert (row_cap % 4 == 0) == (cap in ("bulk", "overflow"))
+        assert (row_cap < full) == cap.startswith("overflow")
+    _check_d(dom, bins.planes, sid, 24, make_lennard_jones(),
+             f"row_cap {cap} periodic={periodic}", gen, row_cap)
+
+
+def test_packed_kernel_past_48kb_and_at_its_limit(gen):
+    """Kernel D with more than 48 KB of shared memory a block: row_cap 700
+    at its tile (one pencil, two buffers of three rows and 768 sums, 79,504
+    B) and every other that fits, row_cap 4000 (one row a step, 64,000 B)
+    and MAX_ROW_CAP (232,448 B); one slot more, or a tile that does not
+    fit, raises."""
+    dom, bins = _scene(gen, (4, 3, 3), 4, 16, True)
+    kern = make_lennard_jones()
+    assert packed_smem_bytes(0, MAX_ROW_CAP) == MAX_SMEM == 232448
+    for row_cap, tiles in ((700, None), (4000, None), (MAX_ROW_CAP, [0])):
+        r = packed_tile_rows(row_cap, 9)
+        assert packed_smem_bytes(r, row_cap) > 48 * 1024
+        assert (r == 0) == (row_cap > 700)
+        _check_d(dom, bins.planes, bins.slot_id, 16, kern,
+                 f"row_cap {row_cap}", gen, row_cap, tiles)
+    xpencil_packed_forces.launches = 0
+    for row_cap, kw in ((MAX_ROW_CAP + 1, {}),
+                        (700, {"tile_rows": MAX_TILE_ROWS + 1}),
+                        (700, {"tile_rows": 9})):
+        args = _pack_stably(bins.planes, bins.slot_id, 4, 16, row_cap)[:4]
+        with pytest.raises(ValueError, match="row_cap|tile_rows"):
+            xpencil_packed_forces(*args, None, nx=4, ny=3, m_c=16,
+                                  kernel=kern, cutoff2=1.0, **kw)
+    assert xpencil_packed_forces.launches == 0
+
+
+def test_packed_kernel_over_occupancy_lists(gen):
+    """Kernel D over the blob's occupancy list (runs of consecutive
+    pencils, padding entries) equals its rows over every pencil, at the
+    plan's row_cap."""
+    dom, pos = _blob(gen, 12, 4000, sigma_frac=0.1)
+    m_c, row_cap = suggest_m_c(dom, pos), suggest_row_cap(dom, pos)
+    bins = bin_particles(dom, pos, m_c=m_c)
+    packed = pack_rows(dom, bins, row_cap)
+    n_act = int((bins.counts.view(12, 12, 12).sum(-1) > 0).sum())
+    occ = pencil_occupancy(dom, bins.counts, n_act + 9)
+    args = (packed.planes, packed.slot_id, packed.slot_cell,
+            packed.cell_offsets)
+    kw = dict(nx=12, ny=12, m_c=m_c, kernel=make_lennard_jones(),
+              cutoff2=1.0)
+    every = xpencil_packed_forces(*args, None, **kw)
+    for r in (None, 0, 1, 2, 5):
+        got = xpencil_packed_forces(*args, occ.active, tile_rows=r, **kw)
+        for g, e in zip(got, every):
+            assert torch.equal(g, e[occ.active.long()]), r
+
+
+# -- the pack kernel ---------------------------------------------------------
+
+@pytest.mark.parametrize("scene", ["open", "periodic", "row_cap_overflow",
+                                   "m_c_overflow", "blob", "fields"])
+def test_pack_kernel_equals_plain(gen, scene):
+    """The pack kernel's planes, ids, cells and particle slots torch.equal
+    to the plain scatters' on the same bins (an overflowing row_cap,
+    particles the dense binning dropped, the blob, extra float and int
+    fields), and ``pack_rows`` on the card to ``pack_rows`` on the CPU."""
+    if scene == "blob":
+        dom, pos = _blob(gen, 16, 20000, sigma_frac=0.1)
+    else:
+        dom = Domain(box=(7.0, 5.0, 4.0), ncells=(7, 5, 4), cutoff=1.0,
+                     periodic=scene == "periodic")
+        pos = dom.sample_uniform(500, generator=gen, device="cuda")
+    nx, ny, nz = dom.ncells
+    m_c = 3 if scene == "m_c_overflow" else suggest_m_c(dom, pos)
+    row_cap = 12 if scene == "row_cap_overflow" else suggest_row_cap(dom,
+                                                                      pos)
+    fields = None
+    if scene == "fields":
+        fields = {"mass": torch.rand(pos.shape[0], generator=gen,
+                                     device="cuda"),
+                  "tag": torch.arange(pos.shape[0], dtype=torch.int32,
+                                      device="cuda")}
+    bins = bin_particles(dom, pos, fields, m_c=m_c)
+    total = bins.slot_id.numel()
+    assert bool((bins.particle_slot == total).any()) == (
+        scene == "m_c_overflow")
+    occ = bins.slot_id.view(nz + 2, ny + 2, nx + 2, m_c) >= 0
+    cc = occ.sum(-1, dtype=torch.int32)
+    offsets = cc.cumsum(-1, dtype=torch.int32) - cc
+    row_counts = cc.sum(-1, dtype=torch.int32)
+    assert (int(row_counts.max()) > row_cap) == (scene == "row_cap_overflow")
+    kw = dict(nx=nx, ny=ny, row_cap=row_cap)
+    got = pack_slots(bins, offsets, row_counts, **kw)
+    want = pack_slots_plain(bins, offsets, row_counts, **kw)
+    assert sorted(got[0]) == sorted(want[0]) == sorted(bins.planes)
+    for name in want[0]:
+        g, w = got[0][name], want[0][name]
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+    for g, w, name in zip(got[1:], want[1:], ("slot_id", "slot_cell",
+                                               "particle_slot")):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+
+    pack_slots.launches = 0
+    on_card = pack_rows(dom, bins, row_cap)
+    assert pack_slots.launches == 1
+    on_cpu = pack_rows(dom, CellBins(
+        planes={k: v.cpu() for k, v in bins.planes.items()},
+        slot_id=bins.slot_id.cpu(), counts=bins.counts.cpu(),
+        offsets=bins.offsets.cpu(), particle_slot=bins.particle_slot.cpu(),
+        m_c=m_c), row_cap)
+    assert pack_slots.launches == 1
+    for name in ("slot_id", "slot_cell", "cell_offsets", "row_counts",
+                 "particle_slot"):
+        assert torch.equal(getattr(on_card, name).cpu(),
+                           getattr(on_cpu, name)), name
+    for name in on_cpu.planes:
+        assert torch.equal(on_card.planes[name].cpu(), on_cpu.planes[name])
+    if scene == "fields":
+        bins.planes["mass"] = bins.planes["mass"].double()
+        with pytest.raises(ValueError, match="4-byte"):
+            pack_slots(bins, offsets, row_counts, **kw)
+        assert pack_slots.launches == 1
 
 
 @pytest.mark.parametrize("periodic", [False, True])
