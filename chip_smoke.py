@@ -38,6 +38,19 @@ the main paths through ``plan(...).execute()`` and checks and times them:
     layout="sfc"``) on both dense scenes and on the blob, and a plan sized
     on the blob, run on the uniform scene through ``execute_or_replan``,
     whose ``pair_cap`` grows.
+  * batch: ``plan(...).execute_batch`` on stacked systems, (e) 8 systems
+    at division 32 and (f) 64 at division 16 (each 1,048,576 particles in
+    all) and 16 periodic at division 16, one of them padding throughout,
+    each system drawn from its own generator; for every ``"cuda"`` path
+    (dense, compacted, packed, packed + compacted, All-in-SM, SFC) each
+    system ``torch.equal`` to ``execute()`` on it alone, every kernel of
+    the path launched once a batch (kernel A once a scan), the batched
+    kernels against their batched plain versions (on (e) and the periodic
+    scene) and, system by system, equal to a launch on one system alone
+    (kernel D also at tiles that do not divide a system's rows), the CUDA
+    launches of a call under ``torch.profiler`` the same at 16 and 64
+    systems; the batch, the loop of ``execute()`` calls and each batched
+    kernel beside B times one system's launch timed by CUDA events;
   * kernel G (sliding-window attention) against its plain version over a
     sweep of batch, GQA ratio, head_dim, window, softcap and dtype, and at
     the gemma2-2b shape, each case on the route ``route(dtype, D)`` names
@@ -105,6 +118,30 @@ CHUNK_WIDTHS = (8, 16, 32, 64)   # kernels B, C timed at these widths too
 ALLIN_THREADS = (256, 512, 1024)  # kernel E timed at these block sizes too
 SFC_CLUSTERINGS = ((4, "morton"), (8, "hilbert"))   # csize, curve
 SFC_PLAIN_BATCH = 2048           # clusters per chunk of F's plain version
+
+# execute_batch: B systems of division**3 * per cell particles each through
+# one chain of launches; (e) and (f) hold 1,048,576 particles in all, the
+# dense division-64 scene's count. The periodic (f) has one system that is
+# padding throughout. Kernels are held against their plain versions on the
+# scenes marked so; (f)'s launches are counted under torch.profiler at
+# BATCH_PROFILED systems.
+BATCH_SCENES = (  # name, B, division, per cell, periodic, kernel checks
+    ("e", 8, 32, 4, False, True),
+    ("f", 64, 16, 4, False, False),
+    ("f periodic", 16, 16, 4, True, True),
+)
+BATCH_PATHS = (   # label, plan options, kernels launched once a batch
+    ("dense", {}, ("prefix_sum", "xpencil_forces")),
+    ("compact", {"compact": True}, ("prefix_sum", "xpencil_sparse_forces")),
+    ("packed", {"layout": "packed"},
+     ("prefix_sum", "pack_slots", "xpencil_packed_forces")),
+    ("packed+compact", {"layout": "packed", "compact": True},
+     ("prefix_sum", "pack_slots", "xpencil_packed_forces")),
+    ("allin", {"strategy": "allin"}, ("prefix_sum", "allin_forces")),
+    ("sfc", {"strategy": "cell_dense", "layout": "sfc"},
+     ("prefix_sum", "cell_sfc_forces")),
+)
+BATCH_PROFILED = (16, 64)
 
 # bf16 dense tensor-core peak of the H100 SXM at 700 W (NVIDIA data sheet):
 # kernel G's operations bound on bf16 inputs
@@ -785,7 +822,7 @@ def main(argv=None) -> int:
                                           packed_to_particles, scatter_rows,
                                           sfc_device_slot_tables,
                                           sfc_n_clusters, sfc_pair_count,
-                                          sfc_to_particles)
+                                          sfc_to_particles, system)
     from repro_torch.core.interactions import PairKernel
     from repro_torch.kernels import _build
     from repro_torch.core.binning import pack_slots_plain
@@ -923,8 +960,8 @@ def main(argv=None) -> int:
         nx, ny, _ = dom.ncells
         args = (packed.planes, packed.slot_id, packed.slot_cell,
                 packed.cell_offsets)
-        rows = (full_pencil_occupancy(dom, dev).active if active is None
-                else active)
+        rows = (full_pencil_occupancy(dom, dev).active.expand(
+            *packed.slot_id.shape[:-3], -1) if active is None else active)
         return check_kernel(
             f"xpencil_packed {label}", name, kern,
             lambda k: xpencil_packed_forces(*args, active, nx=nx, ny=ny,
@@ -1028,7 +1065,8 @@ def main(argv=None) -> int:
         """The per-row exclusive cell offsets and row counts that
         ``pack_rows`` hands the pack kernel."""
         nx, ny, nz = dom.ncells
-        occ = bins.slot_id.view(nz + 2, ny + 2, nx + 2, bins.m_c) >= 0
+        occ = bins.slot_id.view(*bins.slot_id.shape[:-3], nz + 2, ny + 2,
+                                nx + 2, bins.m_c) >= 0
         cc = occ.sum(-1, dtype=torch.int32)
         return cc.cumsum(-1, dtype=torch.int32) - cc, cc.sum(-1,
                                                           dtype=torch.int32)
@@ -1106,6 +1144,12 @@ def main(argv=None) -> int:
     scan_ms, cumsum_ms = (statistics.mean(turns[k]) for k in ("A", "cumsum"))
     scan_plain_ms = cuda_ms(lambda: plain_prefix.paper_prefix_sum(x),
                             reps=20)
+    # the process's first profiler session can miss a launch while the
+    # card's tracing starts: open one before any launch is counted
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.ones(1, device=dev).add_(1)
+        torch.cuda.synchronize()
     scan_dev_ms, scan_launches, _ = device_time(lambda: prefix_sum(x),
                                                 reps=20)
     cumsum_dev_ms, cumsum_launches, _ = device_time(
@@ -1932,6 +1976,224 @@ def main(argv=None) -> int:
         f"pair_cap {ps0.pair_cap} -> {ps1.pair_cap}, m_c {ps0.m_c} kept, "
         f"launches {launches_r}; result equals a fresh plan's")
 
+    # -- batch: B stacked systems through one chain of launches --------------
+    def stacked_systems(index, n_sys, division, ppc, periodic):
+        """B uniform systems of division**3 * ppc particles, each drawn from
+        its own generator seeded from --seed, the scene and its index; the
+        periodic scene's system 1 is padding throughout."""
+        dom = Domain.cubic(division, cutoff=1.0, periodic=periodic)
+        pos = []
+        for i in range(n_sys):
+            g = torch.Generator(device=dev)
+            g.manual_seed(args.seed * 1_000_003 + 10_007 * index + i)
+            pos.append(dom.sample_uniform(division ** 3 * ppc, generator=g,
+                                          device=dev))
+        pos = torch.stack(pos)
+        valid = None
+        if periodic:
+            valid = torch.ones(pos.shape[:2], dtype=torch.bool, device=dev)
+            valid[1] = False
+        return dom, ParticleState(pos, valid=valid)
+
+    def covering_plan(dom, states, **kw):
+        """A plan whose bounds are measured on the first system, grown
+        through the replan contract while some system overflows one. ->
+        (plan, bounds grown)"""
+        each = [system(states, i) for i in range(states.positions.shape[0])]
+        p = p0 = plan(dom, kern, positions=each[0].positions, **kw)
+        grown = True
+        while grown:
+            grown = False
+            for st in each:
+                while p.check_overflow(st):
+                    p, grown = p.replan(st), True
+        return p, p is not p0
+
+    def batch_kernels(label, p, dom, states, check, what):
+        """The kernels of path ``label`` on the batch's layout data: each
+        against its batched plain version (``check``), each system's rows
+        equal to a launch on that system alone (the first and the last),
+        the batched launch timed beside one system's alone. -> {kernel:
+        record}"""
+        bins = p.bin(states)
+        n_sys = bins.slot_id.shape[0]
+        nx, ny = dom.nx, dom.ny
+        kw = dict(kernel=kern, cutoff2=1.0)
+        runs = {}                         # kernel -> (run(i), check())
+        if label == "dense":
+            def run(i=None):
+                bn = bins if i is None else system(bins, i)
+                return xpencil_forces(bn.planes, bn.slot_id, nx=nx,
+                                      m_c=p.m_c, **kw)
+            runs["xpencil_forces"] = (run, lambda: check_kernel_b(
+                bins, nx, "lennard_jones", kern, what))
+        elif label == "compact":
+            act = pencil_occupancy(dom, bins.counts, p.max_active).active
+
+            def run(i=None):
+                bn = bins if i is None else system(bins, i)
+                return xpencil_sparse_forces(
+                    bn.planes, bn.slot_id, act if i is None else act[i],
+                    nx=nx, ny=ny, m_c=p.m_c, **kw)
+            runs["xpencil_sparse_forces"] = (run, lambda: check_kernel_c(
+                dom, bins, act, "lennard_jones", kern, what))
+        elif label.startswith("packed"):
+            pk = p.pack(bins)
+            act = (pencil_occupancy(dom, bins.counts, p.max_active).active
+                   if p.compact else None)
+
+            def run(i=None, **tile):
+                q = pk if i is None else system(pk, i)
+                a = act if act is None or i is None else act[i]
+                return xpencil_packed_forces(
+                    q.planes, q.slot_id, q.slot_cell, q.cell_offsets, a,
+                    nx=nx, ny=ny, m_c=p.m_c, **kw, **tile)
+            runs["xpencil_packed_forces"] = (run, lambda: check_kernel_d(
+                dom, pk, act, "lennard_jones", kern, what))
+            offsets, row_counts = pack_inputs(dom, bins)
+
+            def run_pack(i=None):
+                bn = bins if i is None else system(bins, i)
+                o, r = ((offsets, row_counts) if i is None
+                        else (offsets[i], row_counts[i]))
+                planes, *rest = pack_slots(bn, o, r, nx=nx, ny=ny,
+                                           row_cap=p.row_cap)
+                return (*planes.values(), *rest)
+            runs["pack_slots"] = (run_pack, lambda: check_pack(
+                dom, bins, p.row_cap, what))
+        elif label == "allin":
+            def run(i=None):
+                bn = bins if i is None else system(bins, i)
+                return allin_forces(bn.planes, bn.slot_id, box=p.box,
+                                    m_c=p.m_c, **kw)
+            runs["allin_forces"] = (run, lambda: check_kernel_e(
+                bins, p.box, "lennard_jones", kern, what))
+        else:
+            sfc = p.clusters(bins)
+            tgt, src = sfc_device_slot_tables(dom, p.m_c, sfc.csize,
+                                              sfc.curve, dev)
+
+            def run(i=None):
+                bn = bins if i is None else system(bins, i)
+                return cell_sfc_forces(
+                    bn.planes, bn.slot_id,
+                    sfc.codes if i is None else sfc.codes[i], tgt, src,
+                    m_c=p.m_c, **kw)
+            runs["cell_sfc_forces"] = (run, lambda: check_kernel_f(
+                dom, bins, sfc, "lennard_jones", kern, what))
+        out = {}
+        for name, (run, check_fn) in runs.items():
+            rec = {}
+            if check:
+                res = check_fn()
+                rec["max_abs_err"] = (res[0] if name == "pack_slots"
+                                      else res[4])
+                if name != "pack_slots":
+                    rec["max_term_rel_err"] = res[5]
+                    rec["plain_ms"] = res[2]
+            got = run()
+            for i in (0, n_sys - 1):
+                assert_equal_results(
+                    tuple(g[i] for g in got), run(i),
+                    f"{what} {name}: system {i} of the batch vs alone")
+            if name == "xpencil_packed_forces":
+                # tiles that do not divide a system's rows: a tiling of the
+                # flat batch list would put them across two systems
+                n_rows = dom.nz * dom.ny if act is None else act.shape[-1]
+                tiles = sorted(
+                    r for r in {0, 1, 3, 5, 7, 13, MAX_TILE_ROWS,
+                                packed_tile_rows(p.row_cap, n_sys * n_rows)}
+                    if packed_smem_bytes(r, p.row_cap) <= MAX_SMEM)
+                for r in tiles:
+                    assert_equal_results(run(tile_rows=r), got,
+                                         f"{what} kernel D at tile_rows {r}")
+                rec["tile_rows"] = packed_tile_rows(p.row_cap,
+                                                    n_sys * n_rows)
+                rec["tile_rows_checked"] = tiles
+            rec["ms"] = cuda_ms(run, reps)
+            rec["alone_ms"] = cuda_ms(lambda: run(0), reps)
+            rec["systems_times_alone_ms"] = n_sys * rec["alone_ms"]
+            out[name] = rec
+        return out
+
+    batch_records = []
+    batch_checks = 0
+    for index, (name, n_sys, division, ppc, periodic, check) in enumerate(
+            BATCH_SCENES):
+        dom, states = stacked_systems(index, n_sys, division, ppc, periodic)
+        each = [system(states, i) for i in range(n_sys)]
+        rec = dict(scene=name, systems=n_sys, division=division, ppc=ppc,
+                   periodic=periodic, n_per_system=division ** 3 * ppc,
+                   n_total=n_sys * division ** 3 * ppc,
+                   padding_systems=[1] if periodic else [], paths={})
+        for label, kw, need in BATCH_PATHS:
+            what = f"batch {name} {label}"
+            p, grown = covering_plan(dom, states, **kw)
+            reset_launches()
+            fb, ub = p.execute_batch(states)
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            want = {k: 1 for k in need}
+            if p.layout == "packed":
+                want["prefix_sum"] = 2      # binning's scan and pack_rows'
+            if launches != want:
+                raise AssertionError(f"{what}: launches {launches}, want "
+                                     f"{want} for the whole batch")
+            if not (bool(fb.isfinite().all()) and bool(ub.isfinite().all())):
+                raise AssertionError(f"{what}: non-finite output")
+            for i, st in enumerate(each):
+                assert_equal_results((fb[i], ub[i]), p.execute(st),
+                                     f"{what}: system {i} vs execute()")
+                batch_checks += 1
+            if periodic and (bool(fb[1].any()) or bool(ub[1].any())):
+                raise AssertionError(f"{what}: the padding system is not 0")
+            batch_ms = cuda_ms(lambda: p.execute_batch(states), reps)
+            loop_ms = cuda_ms(lambda: [p.execute(st) for st in each], 3,
+                              warmup=1)
+            path = dict(
+                launches=launches, m_c=p.m_c, max_active=p.max_active,
+                row_cap=p.row_cap, pair_cap=p.pair_cap, box=p.box,
+                bounds_grown_past_first_system=grown, batch_ms=batch_ms,
+                per_system_ms=batch_ms / n_sys, loop_ms=loop_ms,
+                loop_per_system_ms=loop_ms / n_sys,
+                execute_ms=cuda_ms(lambda: p.execute(each[0]), reps),
+                loop_over_batch=loop_ms / batch_ms,
+                kernels=batch_kernels(label, p, dom, states, check, what))
+            if name == "f":
+                # every CUDA launch of one call, under torch.profiler
+                profiled = {}
+                for b in BATCH_PROFILED:
+                    sub = ParticleState(states.positions[:b])
+                    dev_ms, n_launch, _ = device_time(
+                        lambda: p.execute_batch(sub), reps=3)
+                    profiled[b] = dict(launches=n_launch, device_ms=dev_ms)
+                dev_ms, n_launch, _ = device_time(
+                    lambda: p.execute(each[0]), reps=3)
+                profiled[1] = dict(launches=n_launch, device_ms=dev_ms,
+                                   call="execute()")
+                counts = {profiled[b]["launches"] for b in BATCH_PROFILED}
+                if len(counts) != 1:
+                    raise AssertionError(f"{what}: CUDA launches a batch "
+                                         f"depend on B: {profiled}")
+                path["profiled"] = profiled
+                path["device_busy_share"] = (
+                    profiled[n_sys]["device_ms"] / batch_ms
+                    if n_sys in profiled else None)
+            rec["paths"][label] = path
+            log(f"batch {name} {label}: " + json.dumps(path))
+        batch_records.append(rec)
+    batch_by_kernel, batch_launches = {}, {}
+    for rec in batch_records:
+        for label, path in rec["paths"].items():
+            for kname, krec in path["kernels"].items():
+                batch_by_kernel.setdefault(kname, {})[
+                    f"{rec['scene']} {label}"] = krec
+            for kname, n in path["launches"].items():
+                batch_launches.setdefault(kname, set()).add(n)
+    log(f"batch: {len(BATCH_SCENES)} scenes x {len(BATCH_PATHS)} paths, "
+        f"every system equal to execute() bit for bit ({batch_checks} "
+        f"checks), each kernel launched once a batch")
+
     # -- kernel G against its plain version; gemma2-2b serving ---------------
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2102,6 +2364,11 @@ def main(argv=None) -> int:
          "sass": g_sass,
          "shapes": lm["shapes"], "checks_passed": g_checks + 1},
     ]}
+    for entry in report["kernels"]:
+        if entry["name"] in batch_launches:
+            entry["launches_per_execute_batch"] = sorted(
+                batch_launches[entry["name"]])
+            entry["execute_batch"] = batch_by_kernel.get(entry["name"])
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(report))
     print(smi[0])

@@ -3,6 +3,7 @@
     state = ParticleState(positions)
     p = plan(domain, kernel, positions=positions, strategy="xpencil")
     forces, potential = p.execute(state)
+    forces, potential = p.execute_batch(ParticleState(stacked))  # (B, N, 3)
 
 Strategies: ``par_part``, ``cell_dense``, ``xpencil``, ``allin`` and the
 ``naive_n2`` oracle. The ``"cuda"`` backend runs ``xpencil`` (dense,
@@ -16,7 +17,8 @@ with no visible card it raises instead of falling back. On the CPU the
 because the tensors they are given lie on the CPU.
 
 The backend registry maps ``(backend, strategy, layout)`` to one normalized
-signature ``(plan, layout_data, state) -> (forces (N,3), pot (N,))``, where
+signature ``(plan, layout_data, states) -> (forces (B, N, 3), pot (B, N))``
+over stacked systems, where
 the layout data is a ``CellBins`` ("dense"), a ``PackedRows`` ("packed")
 or an ``SfcClusters`` ("sfc"). It is the port's own registry: the JAX
 package's registry is never touched. This module registers the
@@ -26,11 +28,17 @@ ones.
 Every static bound (``m_c``, ``max_active``, ``row_cap``, ``pair_cap``)
 follows one replan contract, stated on :meth:`InteractionPlan.replan`; the
 ``allin`` sub-box ``box`` follows ``m_c``.
+
+Every backend takes layout data with a leading system axis: ``execute`` is
+the batch of one, run through :meth:`InteractionPlan.execute_batch`'s body
+and squeezed. The ``"cuda"`` backends launch each kernel once for the whole
+batch; the ``"reference"`` backends, plain PyTorch, run system by system.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -42,7 +50,7 @@ from .binning import (CellBins, PackedRows, SfcClusters, bin_particles,
                       full_pencil_occupancy, pack_rows, packed_to_particles,
                       padded_row_counts, pencil_counts, pencil_occupancy,
                       sfc_n_clusters, sfc_pair_count, sfc_to_particles,
-                      subbox_counts, subbox_occupancy)
+                      subbox_counts, subbox_occupancy, system)
 from .domain import Domain
 from .interactions import PairKernel, make_lennard_jones
 
@@ -78,7 +86,9 @@ class ParticleState:
     ``fields`` maps names to (N,) tensors binned alongside x/y/z. ``valid``
     is an optional (N,) bool mask marking padding rows (False): they are
     excluded from binning and interact with nothing, so executing a padded
-    state gives the real rows the same bits as the unpadded state.
+    state gives the real rows the same bits as the unpadded state. For
+    :meth:`InteractionPlan.execute_batch`, B systems stack on a leading
+    axis: positions (B, N, 3), fields and ``valid`` (B, N).
     """
 
     positions: torch.Tensor                              # (N, 3)
@@ -222,31 +232,79 @@ class InteractionPlan:
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """-> (forces (N, 3), per-particle potential (N,)). Total potential
         energy is ``0.5 * potential.sum()`` (each pair counted twice)."""
+        self._check_state(state, batched=False)
+        if self.strategy == "naive_n2":
+            fx, fy, fz, pot = S.naive_n2(self.domain, state.positions,
+                                         self.kernel)
+            return torch.stack([fx, fy, fz], dim=-1), pot
+        forces, pot = self._execute_stacked(ParticleState(
+            state.positions[None], {k: v[None] for k, v in
+                                    state.fields.items()},
+            None if state.valid is None else state.valid[None]))
+        return forces[0], pot[0]
+
+    __call__ = execute
+
+    def execute_batch(self, states: ParticleState
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Batched hot path (port of JAX's ``execute_batch``).
+
+        ``states`` holds B independent systems stacked on a leading axis:
+        positions ``(B, N, 3)``, each field ``(B, N)``, ``valid`` ``(B,
+        N)``, all sharing this plan's domain and static bounds, each bound
+        holding per system (``max_active`` units, ``row_cap`` slots a row,
+        ``pair_cap`` codes, each system's). Returns ``(forces (B, N, 3),
+        potential (B, N))``, bit-identical to ``execute`` on each system.
+
+        On ``"cuda"`` one chain of launches covers the batch, its length
+        independent of B: kernel A scans the B * n_cells counts once, and
+        each force kernel and the pack kernel launch once. The
+        ``"reference"`` schedules, plain PyTorch, and the ``naive_n2``
+        oracle run system by system."""
+        self._check_state(states, batched=True)
+        if self.strategy == "naive_n2":
+            outs = [self.execute(system(states, b))
+                    for b in range(states.positions.shape[0])]
+            return tuple(torch.stack(o) for o in zip(*outs))
+        return self._execute_stacked(states)
+
+    def _check_state(self, state: ParticleState, batched: bool) -> None:
+        pos = state.positions
+        want = ("(B, N, 3) with B >= 1" if batched
+                else "(N, 3) (stacked systems go to execute_batch)")
+        if pos.dim() != 2 + batched or pos.shape[-1] != 3 or (
+                batched and pos.shape[0] < 1):
+            raise ValueError(f"state.positions must be {want}, got "
+                             f"{tuple(pos.shape)}")
         for name, t in state.tensors().items():
+            if name != "positions" and tuple(t.shape) != tuple(pos.shape[:-1]):
+                raise ValueError(
+                    f"state.{name} has shape {tuple(t.shape)}, the positions "
+                    f"{tuple(pos.shape)}: want {tuple(pos.shape[:-1])}")
             if t.device != self.device:
                 raise ValueError(
                     f"state.{name} is on {t.device}, the plan runs on "
                     f"{self.device}; move the state first")
-        if self.strategy == "naive_n2":
-            if state.valid is not None:
-                raise ValueError(
-                    "naive_n2 bypasses binning and cannot mask padded "
-                    "(valid=) rows; use a cell schedule")
-            fx, fy, fz, pot = S.naive_n2(self.domain, state.positions,
-                                         self.kernel)
-            return torch.stack([fx, fy, fz], dim=-1), pot
-        bins = self.bin(state)
+        if self.strategy == "naive_n2" and state.valid is not None:
+            raise ValueError(
+                "naive_n2 bypasses binning and cannot mask padded "
+                "(valid=) rows; use a cell schedule")
+
+    def _execute_stacked(self, states: ParticleState
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The body of ``execute`` and ``execute_batch``: bin, lay out and
+        run the backend on systems stacked on a leading axis."""
+        bins = self.bin(states)
         if self.layout == "packed":
             return get_backend(self.backend, self.strategy, "packed")(
-                self, self.pack(bins), state)
+                self, self.pack(bins), states)
         if self.layout == "sfc":
             return get_backend(self.backend, self.strategy, "sfc")(
-                self, self.clusters(bins), state)
-        return get_backend(self.backend, self.strategy)(self, bins, state)
-
-    __call__ = execute
+                self, self.clusters(bins), states)
+        return get_backend(self.backend, self.strategy)(self, bins, states)
 
     def bin(self, state: ParticleState) -> CellBins:
+        """The state's bins; stacked states give stacked bins."""
         return bin_particles(self.domain, state.positions, state.fields,
                              m_c=self.m_c, valid=state.valid)
 
@@ -544,7 +602,20 @@ def suggest_pair_cap(domain: Domain, positions: Optional[torch.Tensor] = None,
 # reference backend: the plain PyTorch schedules of core.strategies
 # --------------------------------------------------------------------------
 
+def _each_system(fn: Callable) -> Callable:
+    """A reference backend over stacked systems: ``fn`` on each system's
+    views of the layout data and state, in order, its results stacked. The
+    schedules are plain PyTorch, so looping on the host is what they do."""
+    @functools.wraps(fn)
+    def run(p: InteractionPlan, data, states: ParticleState):
+        outs = [fn(p, system(data, b), system(states, b))
+                for b in range(states.positions.shape[0])]
+        return tuple(torch.stack(o) for o in zip(*outs))
+    return run
+
+
 @register_backend("reference", "par_part")
+@_each_system
 def _ref_par_part(p: InteractionPlan, bins: CellBins, state: ParticleState):
     fx, fy, fz, pot = S.par_part(p.domain, bins, state.positions, p.kernel,
                                  p.batch_size)
@@ -556,6 +627,7 @@ def _ref_cell_schedule(name: str) -> Callable:
     occupancy-compacted variant when the plan asks for it."""
     dense_fn, sparse_fn = S.STRATEGIES[name], S.SPARSE_STRATEGIES[name]
 
+    @_each_system
     def impl(p: InteractionPlan, bins: CellBins, state: ParticleState):
         kwargs = {"batch_size": p.batch_size}
         if name == "allin":
@@ -582,6 +654,7 @@ register_backend("reference", "allin", compact=True)(
 
 
 @register_backend("reference", "xpencil", compact=True, layout="packed")
+@_each_system
 def _ref_xpencil_packed(p: InteractionPlan, packed: PackedRows,
                         state: ParticleState):
     """Packed rows; active-row iteration when the plan is compacted, every
@@ -594,6 +667,7 @@ def _ref_xpencil_packed(p: InteractionPlan, packed: PackedRows,
 
 
 @register_backend("reference", "cell_dense", compact=True, layout="sfc")
+@_each_system
 def _ref_cell_sfc(p: InteractionPlan, sfc: SfcClusters,
                   state: ParticleState):
     """SFC clusters; ``compact=True`` changes nothing: the pair list is

@@ -24,12 +24,22 @@ package's. Where JAX's semantics do not carry over by themselves:
   * Torch slices alias where JAX's ``.at`` copies; every ghost fill below
     reads a freshly computed tensor, so the x -> y -> z order of the JAX
     code holds even on 1-cell-thick axes.
+
+Stacked systems (the port of JAX's ``vmap`` over ``bin_particles``):
+positions ``(B, N, 3)`` are binned in the launches of one system, and every
+output gains a leading system axis. The cell key is ``b * n_cells + cell``,
+so one count, one scan and one stable sort cover the batch; each system's
+ranks, slots and ids (``slot_id`` holds indices in [0, N)) equal what
+binning it alone gives. Dump slots and gather clamps stay per system. The
+occupancy, packing, SFC and scatter-back functions below take the same
+optional leading axis.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -49,7 +59,8 @@ GHOST_ID_BUMP = 1_000_000_000
 
 @dataclasses.dataclass
 class CellBins:
-    """Dense cell-slot state. All planes share shape (nz+2, ny+2, (nx+2)*m_c)."""
+    """Dense cell-slot state. All planes share shape (nz+2, ny+2, (nx+2)*m_c);
+    stacked systems add a leading axis to every tensor."""
 
     planes: Dict[str, torch.Tensor]   # SoA field planes ("x","y","z",...)
     slot_id: torch.Tensor             # int32 particle index per slot, -1 empty
@@ -57,6 +68,36 @@ class CellBins:
     offsets: torch.Tensor             # (n_cells,) int32 exclusive prefix
     particle_slot: torch.Tensor       # (N,) int32 flat slot of each particle
     m_c: int
+
+
+def _system_of(value, b: int):
+    if isinstance(value, torch.Tensor):
+        return value[b]
+    if isinstance(value, dict):
+        return {k: _system_of(v, b) for k, v in value.items()}
+    if dataclasses.is_dataclass(value):
+        return system(value, b)
+    return value
+
+
+def system(data, b: int):
+    """System ``b`` of stacked data (``CellBins``, ``PackedRows``,
+    ``SfcClusters``, ``Occupancy`` or a ``ParticleState``): every tensor
+    indexed on its leading axis, as views; bounds and names kept."""
+    return dataclasses.replace(data, **{
+        f.name: _system_of(getattr(data, f.name), b)
+        for f in dataclasses.fields(data)})
+
+
+def _system_bases(lead: Tuple[int, ...], stride: int,
+                  device) -> torch.Tensor:
+    """(*lead, 1) int64 start of each system's block of ``stride``
+    elements in a flat buffer over the batch. Callers skip it for one
+    system, whose block starts the buffer, so that ``execute`` launches
+    what it launched before batches existed."""
+    n_sys = math.prod(lead)
+    return torch.arange(0, n_sys * stride, stride,
+                        device=device).view(*lead, 1)
 
 
 def padded_shape(domain: Domain, m_c: int) -> Tuple[int, int, int]:
@@ -85,77 +126,100 @@ def bin_particles(domain: Domain, positions: torch.Tensor,
     """Bin particles into the dense slot layout.
 
     Args:
-      positions: (N, 3) float32 tensor.
+      positions: (N, 3) float32 tensor, or (B, N, 3) for B systems stacked
+        on a leading axis (fields and ``valid`` then (B, N)); stacked
+        systems are binned in one chain of launches, and every output gains
+        the leading axis.
       fields: optional extra per-particle scalars to bin alongside x/y/z.
       m_c: max-particles-per-cell bound (paper's M_C); particles past it in
         a cell are dropped and read back as exactly 0.
       valid: optional (N,) bool mask; False rows are excluded from counts
         and never land in a slot.
     """
+    if positions.dim() == 2:          # one system: the batch of one
+        return system(bin_particles(
+            domain, positions[None],
+            {k: v[None] for k, v in (fields or {}).items()}, m_c=m_c,
+            valid=None if valid is None else valid[None]), 0)
     # imported here: the kernels package registers into core.api, which
     # imports this module
     from ..kernels.prefix_sum import prefix_sum
 
     dev = positions.device
-    n = positions.shape[0]
+    n_sys, n = positions.shape[:2]
     nx, ny, nz = domain.ncells
     n_cells = domain.n_cells
     shape = padded_shape(domain, m_c)
     total = shape[0] * shape[1] * shape[2]
-    if total >= 2 ** 31:
-        raise ValueError(f"{total} slots exceed the int32 slot index; "
-                         "use a smaller m_c or grid")
+    if n_sys * total >= 2 ** 31:
+        raise ValueError(f"{n_sys} x {total} slots exceed the int32 slot "
+                         "index; use a smaller m_c, grid or batch")
+    n_keys = n_sys * n_cells          # one key per (system, cell)
 
-    coords = domain.cell_coords(positions)          # (N, 3) int32
-    cids = domain.linearize(coords)                 # (N,)
-
+    coords = domain.cell_coords(positions)          # (B, N, 3) int32
+    key = domain.linearize(coords)                  # (B, N)
+    if valid is not None:
+        # invalid rows carry weight 0 in their system's cell 0 and sort
+        # past every cell of every system
+        key = torch.where(valid, key, 0)
+    if n_sys > 1:                                   # b * n_cells + cid
+        key = key + torch.arange(0, n_keys, n_cells, dtype=torch.int32,
+                                 device=dev)[:, None]
     if valid is None:
-        weights = torch.ones((n,), dtype=torch.int32, device=dev)
-        sort_key = cids
+        weights = torch.ones((n_sys, n), dtype=torch.int32, device=dev)
+        sort_key = key
     else:
-        # invalid rows carry weight 0 in cell 0 and sort past every cell
         weights = valid.to(torch.int32)
-        cids = torch.where(valid, cids, torch.zeros_like(cids))
-        sort_key = torch.where(valid, cids, torch.full_like(cids, n_cells))
+        sort_key = torch.where(valid, key, n_keys)
 
-    counts = _segment_count(cids, weights, n_cells)
-    offsets = exclusive_prefix_sum(counts, scan=prefix_sum)
+    counts = _segment_count(key.reshape(-1), weights.reshape(-1), n_keys)
+    start = exclusive_prefix_sum(counts, scan=prefix_sum)
 
-    # rank of each particle within its cell via one stable sort
-    sorted_key, order = torch.sort(sort_key, stable=True)
-    rank = (torch.arange(n, dtype=torch.int32, device=dev)
-            - offsets[torch.clamp(sorted_key, 0, n_cells - 1).long()])
+    # rank of each particle within its cell via one stable sort: it keeps
+    # each system's order, so ranks are those of a per-system sort
+    sorted_key, order = torch.sort(sort_key.reshape(-1), stable=True)
+    rank = (torch.arange(n_sys * n, dtype=torch.int32, device=dev)
+            - start[torch.clamp(sorted_key, 0, n_keys - 1).long()])
 
-    cxyz = coords[order].long()
+    cxyz = coords.reshape(-1, 3)[order].long()
     row_len = (nx + 2) * m_c
     slot_col = (cxyz[:, 0] + 1) * m_c + rank
     flat = ((cxyz[:, 2] + 1) * (ny + 2) + (cxyz[:, 1] + 1)) * row_len + slot_col
-    keep = (rank < m_c) & (sorted_key < n_cells)
-    flat = torch.where(keep, flat, torch.full_like(flat, total))
+    keep = (rank < m_c) & (sorted_key < n_keys)
+    # ``total`` is each system's dump slot of dropped rows (particle_slot);
+    # in the batch's planes they all go to one dump slot, cut off below
+    flat = torch.where(keep, flat, total)
+    dest, ids = flat, order
+    if n_sys > 1:
+        owner = order // n                           # system of each row
+        dest = torch.where(keep, flat + owner * total, n_sys * total)
+        ids = order - owner * n
 
     def scatter(sorted_values: torch.Tensor, fill, dtype) -> torch.Tensor:
-        # slot ``total`` is the dump slot of dropped rows, cut off below
-        plane = torch.full((total + 1,), fill, dtype=dtype, device=dev)
-        plane[flat] = sorted_values.to(dtype)
-        return plane[:total].view(shape)
+        plane = torch.full((n_sys * total + 1,), fill, dtype=dtype, device=dev)
+        plane[dest] = sorted_values.to(dtype)
+        return plane[:n_sys * total].view(n_sys, *shape)
 
     pdt = positions.dtype
-    sorted_pos = positions[order]
+    sorted_pos = positions.reshape(-1, 3)[order]
     planes = {
         "x": scatter(sorted_pos[:, 0], EMPTY_POS, pdt),
         "y": scatter(sorted_pos[:, 1], EMPTY_POS, pdt),
         "z": scatter(sorted_pos[:, 2], EMPTY_POS, pdt),
     }
     for k, v in (fields or {}).items():
-        planes[k] = scatter(v[order], 0.0, v.dtype)
+        planes[k] = scatter(v.reshape(-1)[order], 0.0, v.dtype)
 
-    slot_id = scatter(order, -1, torch.int32)
+    slot_id = scatter(ids, -1, torch.int32)
 
-    particle_slot = torch.empty((n,), dtype=torch.int32, device=dev)
+    particle_slot = torch.empty((n_sys * n,), dtype=torch.int32, device=dev)
     particle_slot[order] = flat.to(torch.int32)
 
-    bins = CellBins(planes=planes, slot_id=slot_id, counts=counts,
-                    offsets=offsets, particle_slot=particle_slot, m_c=m_c)
+    start = start.view(n_sys, n_cells)
+    bins = CellBins(planes=planes, slot_id=slot_id,
+                    counts=counts.view(n_sys, n_cells),
+                    offsets=start - start[:, :1] if n_sys > 1 else start,
+                    particle_slot=particle_slot.view(n_sys, n), m_c=m_c)
     if domain.any_periodic:
         _fill_periodic_ghosts(domain, bins)
     return bins
@@ -165,7 +229,8 @@ def _fill_periodic_ghosts(domain: Domain, bins: CellBins) -> None:
     """Copy wrapped interior slabs into the ghost ring (minimum image), per
     periodic axis, in place. Axes go x, then y, then z, each reading what the
     previous one wrote; every right-hand side is a new tensor, so a source
-    that overlaps its target (1-cell-thick axes) is read before the write."""
+    that overlaps its target (1-cell-thick axes) is read before the write.
+    Planes may carry leading system axes."""
     nx, ny, nz = domain.ncells
     m_c = bins.m_c
     lx, ly, lz = domain.box
@@ -177,18 +242,18 @@ def _fill_periodic_ghosts(domain: Domain, bins: CellBins) -> None:
     for field, plane in bins.planes.items():
         if px:
             dx = lx if field == "x" else 0.0
-            left = shifted(plane[:, :, nx * m_c:(nx + 1) * m_c], -dx)
-            right = shifted(plane[:, :, m_c:2 * m_c], dx)
-            plane[:, :, 0:m_c] = left
-            plane[:, :, (nx + 1) * m_c:] = right
+            left = shifted(plane[..., nx * m_c:(nx + 1) * m_c], -dx)
+            right = shifted(plane[..., m_c:2 * m_c], dx)
+            plane[..., 0:m_c] = left
+            plane[..., (nx + 1) * m_c:] = right
         if py:
             dy = ly if field == "y" else 0.0
-            plane[:, 0, :] = shifted(plane[:, ny, :], -dy)
-            plane[:, ny + 1, :] = shifted(plane[:, 1, :], dy)
+            plane[..., 0, :] = shifted(plane[..., ny, :], -dy)
+            plane[..., ny + 1, :] = shifted(plane[..., 1, :], dy)
         if pz:
             dz = lz if field == "z" else 0.0
-            plane[0, :, :] = shifted(plane[nz, :, :], -dz)
-            plane[nz + 1, :, :] = shifted(plane[1, :, :], dz)
+            plane[..., 0, :, :] = shifted(plane[..., nz, :, :], -dz)
+            plane[..., nz + 1, :, :] = shifted(plane[..., 1, :, :], dz)
 
     # Ghost slots mirror the interior ids bumped by GHOST_ID_BUMP; the bump
     # is computed from the plane as it stands before each axis's writes.
@@ -199,42 +264,45 @@ def _fill_periodic_ghosts(domain: Domain, bins: CellBins) -> None:
 
     if px:
         big = bump(s)
-        s[:, :, 0:m_c] = big[:, :, nx * m_c:(nx + 1) * m_c]
-        s[:, :, (nx + 1) * m_c:] = big[:, :, m_c:2 * m_c]
+        s[..., 0:m_c] = big[..., nx * m_c:(nx + 1) * m_c]
+        s[..., (nx + 1) * m_c:] = big[..., m_c:2 * m_c]
     if py:
         big = bump(s)
-        s[:, 0, :] = big[:, ny, :]
-        s[:, ny + 1, :] = big[:, 1, :]
+        s[..., 0, :] = big[..., ny, :]
+        s[..., ny + 1, :] = big[..., 1, :]
     if pz:
         big = bump(s)
-        s[0, :, :] = big[nz, :, :]
-        s[nz + 1, :, :] = big[1, :, :]
+        s[..., 0, :, :] = big[..., nz, :, :]
+        s[..., nz + 1, :, :] = big[..., 1, :, :]
 
 
 def gather_to_particles(bins: CellBins, plane: torch.Tensor) -> torch.Tensor:
     """Read a per-slot plane back to particle order (inverse of scatter).
-    Indices clamp to the last slot, as JAX's gather does: dropped particles
-    carry ``particle_slot == total`` and read the last ghost slot."""
-    flat = plane.reshape(-1)
-    idx = torch.clamp(bins.particle_slot, max=flat.shape[0] - 1).long()
-    return flat[idx]
+    Indices clamp to the last slot of the particle's own system, as JAX's
+    gather does: dropped particles carry ``particle_slot == total`` and read
+    their system's last ghost slot."""
+    lead = bins.particle_slot.shape[:-1]
+    flat = plane.reshape(*lead, -1)
+    idx = torch.clamp(bins.particle_slot, max=flat.shape[-1] - 1).long()
+    return torch.gather(flat, -1, idx)
 
 
 def interior(domain: Domain, plane: torch.Tensor, m_c: int) -> torch.Tensor:
     """View of the non-ghost region, reshaped to (nz, ny, nx, m_c)."""
     nx, ny, nz = domain.ncells
-    core = plane[1:nz + 1, 1:ny + 1, m_c:(nx + 1) * m_c]
-    return core.reshape(nz, ny, nx, m_c)
+    core = plane[..., 1:nz + 1, 1:ny + 1, m_c:(nx + 1) * m_c]
+    return core.reshape(*plane.shape[:-3], nz, ny, nx, m_c)
 
 
 def interior_to_padded(domain: Domain, plane: torch.Tensor,
                        m_c: int) -> torch.Tensor:
     """(nz, ny, nx, m_c) interior tensor -> padded plane (ghosts zero)."""
     nx, ny, nz = domain.ncells
-    padded = torch.zeros(padded_shape(domain, m_c), dtype=plane.dtype,
-                         device=plane.device)
-    padded[1:nz + 1, 1:ny + 1, m_c:(nx + 1) * m_c] = \
-        plane.reshape(nz, ny, nx * m_c)
+    lead = plane.shape[:-4]
+    padded = torch.zeros((*lead, *padded_shape(domain, m_c)),
+                         dtype=plane.dtype, device=plane.device)
+    padded[..., 1:nz + 1, 1:ny + 1, m_c:(nx + 1) * m_c] = \
+        plane.reshape(*lead, nz, ny, nx * m_c)
     return padded
 
 
@@ -242,9 +310,11 @@ def dense_to_particles(domain: Domain, bins: CellBins, fx, fy, fz, pot
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense (nz, ny, nx, m_c) schedule outputs -> per-particle
     (forces (N, 3), potential (N,)), the backend-registry output contract."""
+    lead = bins.particle_slot.shape[:-1]
     out = []
     for plane in (fx, fy, fz, pot):
-        shaped = plane.reshape(domain.nz, domain.ny, domain.nx, bins.m_c)
+        shaped = plane.reshape(*lead, domain.nz, domain.ny, domain.nx,
+                               bins.m_c)
         out.append(gather_to_particles(
             bins, interior_to_padded(domain, shaped, bins.m_c)))
     return torch.stack(out[:3], dim=-1), out[3]
@@ -279,6 +349,8 @@ class Occupancy:
     unit_counts: torch.Tensor     # (n_units,) int32 particles per work unit
     active: torch.Tensor          # (max_active,) int32 unit ids, 0-padded
     n_active: torch.Tensor        # () int32 true number of active units
+    # (stacked systems: each with a leading system axis, each bound per
+    # system)
     max_active: int
     n_units: int
 
@@ -292,7 +364,7 @@ class Occupancy:
         ``n_units``, the dump row of a ``(n_units + 1, ...)`` scatter."""
         slot = torch.arange(self.max_active, dtype=torch.int32,
                             device=self.active.device)
-        return torch.where(slot < self.n_active, self.active,
+        return torch.where(slot < self.n_active[..., None], self.active,
                            torch.full_like(self.active, self.n_units))
 
     @property
@@ -302,16 +374,21 @@ class Occupancy:
 
 def _compact(flag: torch.Tensor, values: torch.Tensor, cap: int,
              fill: int) -> torch.Tensor:
-    """(cap,) the ``values`` whose ``flag`` is set, in order, then ``fill``;
-    no host sync. A running count gives each flagged value its place, and
+    """(cap,) the ``values`` whose ``flag`` (last axis; leading axes are
+    systems, each compacted on its own) is set, in order, then ``fill``; no
+    host sync. A running count gives each flagged value its place, and
     unflagged or overflowing values go to a dump slot that is cut off."""
-    place = torch.cumsum(flag.to(torch.int32), 0, dtype=torch.int32) - 1
-    dest = torch.where(flag & (place < cap), place,
-                       torch.full_like(place, cap)).long()
-    buf = torch.full((cap + 1,), fill, dtype=values.dtype,
+    lead = flag.shape[:-1]
+    n_sys = math.prod(lead)
+    place = torch.cumsum(flag.to(torch.int32), -1, dtype=torch.int32) - 1
+    kept = flag & (place < cap)
+    if n_sys > 1:
+        place = place + _system_bases(lead, cap, flag.device)
+    dest = torch.where(kept, place, n_sys * cap).reshape(-1).long()
+    buf = torch.full((n_sys * cap + 1,), fill, dtype=values.dtype,
                      device=values.device)
-    buf[dest] = values
-    return buf[:cap]
+    buf[dest] = values.expand(flag.shape).reshape(-1)
+    return buf[:n_sys * cap].view(*lead, cap)
 
 
 def _compact_active(unit_counts: torch.Tensor, max_active: int,
@@ -320,7 +397,7 @@ def _compact_active(unit_counts: torch.Tensor, max_active: int,
     ids = torch.arange(n_units, dtype=torch.int32, device=unit_counts.device)
     return Occupancy(unit_counts=unit_counts,
                      active=_compact(flag, ids, max_active, 0),
-                     n_active=flag.sum(dtype=torch.int32),
+                     n_active=flag.sum(-1, dtype=torch.int32),
                      max_active=max_active, n_units=n_units)
 
 
@@ -328,10 +405,20 @@ def scatter_rows(rows: torch.Tensor, idx: torch.Tensor,
                  n_units: int) -> torch.Tensor:
     """(max_active, W) compact rows -> (n_units, W), zero where no row
     lands; rows whose ``idx`` is ``n_units`` (``scatter_indices``'s
-    padding) go to a dump row that is cut off."""
-    out = rows.new_zeros((n_units + 1, rows.shape[-1]))
-    out[idx.long()] = rows
-    return out[:n_units]
+    padding) go to a dump row that is cut off. Leading axes of ``idx``
+    (and ``rows``) are systems, each scattered into its own rows."""
+    lead = idx.shape[:-1]
+    n_sys = math.prod(lead)
+    width = rows.shape[-1]
+    dest = idx
+    if n_sys > 1:
+        dest = torch.where(idx < n_units,
+                           idx + _system_bases(lead, n_units, idx.device),
+                           n_sys * n_units)
+    dest = dest.reshape(-1).long()
+    out = rows.new_zeros((n_sys * n_units + 1, width))
+    out[dest] = rows.reshape(-1, width)
+    return out[:n_sys * n_units].view(*lead, n_units, width)
 
 
 def full_pencil_occupancy(domain: Domain,
@@ -350,14 +437,16 @@ def full_pencil_occupancy(domain: Domain,
 
 
 def counts_grid(domain: Domain, counts: torch.Tensor) -> torch.Tensor:
-    """(n_cells,) linear cell counts -> (nz, ny, nx) grid (X fastest)."""
-    return counts.reshape(domain.nz, domain.ny, domain.nx)
+    """(n_cells,) linear cell counts -> (nz, ny, nx) grid (X fastest);
+    leading system axes kept."""
+    return counts.reshape(*counts.shape[:-1], domain.nz, domain.ny,
+                          domain.nx)
 
 
 def pencil_counts(domain: Domain, counts: torch.Tensor) -> torch.Tensor:
     """(n_cells,) cell counts -> (nz*ny,) int32 particles per (z, y)
     X-pencil; unit id = z * ny + y."""
-    return counts_grid(domain, counts).sum(-1, dtype=torch.int32).reshape(-1)
+    return counts_grid(domain, counts).sum(-1, dtype=torch.int32).flatten(-2)
 
 
 def pencil_occupancy(domain: Domain, counts: torch.Tensor,
@@ -374,9 +463,9 @@ def subbox_counts(domain: Domain, counts: torch.Tensor,
     id = iz*(gy*gx) + iy*gx + ix, the sub-box order of the allin schedule."""
     nx, ny, nz = domain.ncells
     bx, by, bz = box
-    grid = counts_grid(domain, counts).reshape(nz // bz, bz, ny // by, by,
-                                               nx // bx, bx)
-    return grid.sum((1, 3, 5), dtype=torch.int32).reshape(-1)
+    grid = counts_grid(domain, counts).reshape(
+        *counts.shape[:-1], nz // bz, bz, ny // by, by, nx // bx, bx)
+    return grid.sum((-5, -3, -1), dtype=torch.int32).flatten(-3)
 
 
 def subbox_occupancy(domain: Domain, counts: torch.Tensor,
@@ -430,10 +519,12 @@ class PackedRows:
     particle_slot: torch.Tensor       # (N,) int32 interior packed slot
     row_cap: int
     m_c: int
+    # (stacked systems: each tensor with a leading system axis)
 
     @property
     def overflowed(self) -> torch.Tensor:
-        """True when some row held more than ``row_cap`` particles."""
+        """True when some row (of any system) held more than ``row_cap``
+        particles."""
         return self.row_counts.max() > self.row_cap
 
 
@@ -456,9 +547,9 @@ def pack_rows(domain: Domain, bins: CellBins, row_cap: int) -> PackedRows:
     Per padded row, the occupied slots give per-cell counts, the §6 scan
     turns them into start offsets, and every occupied dense slot (cell c,
     rank r) moves to packed position ``offsets[c] + r``. The scan is one
-    rank-1 exclusive scan over all rows' counts (kernel A on a CUDA tensor)
-    minus each row's first entry: exact in int32 and equal to a per-row
-    scan. Slots past ``row_cap`` are dropped. The moves are
+    rank-1 exclusive scan over all rows' counts, of every stacked system
+    (kernel A on a CUDA tensor), minus each row's first entry: exact in
+    int32 and equal to a per-row scan. Slots past ``row_cap`` are dropped. The moves are
     ``kernels.pack.pack_slots`` (one kernel on a CUDA tensor,
     :func:`pack_slots_plain` on a CPU one).
     """
@@ -467,7 +558,7 @@ def pack_rows(domain: Domain, bins: CellBins, row_cap: int) -> PackedRows:
 
     nx, ny, nz = domain.ncells
     m_c = bins.m_c
-    shape4 = (nz + 2, ny + 2, nx + 2, m_c)
+    shape4 = (*bins.slot_id.shape[:-3], nz + 2, ny + 2, nx + 2, m_c)
 
     occupied = bins.slot_id.view(shape4) >= 0
     cell_counts_p = occupied.sum(-1, dtype=torch.int32)    # (nzp, nyp, nx+2)
@@ -491,8 +582,13 @@ def pack_slots_plain(bins: CellBins, offsets: torch.Tensor,
     ``slot_id``, ``slot_cell`` and ``particle_slot`` of
     :func:`pack_rows` from the dense bins and each row's exclusive cell
     ``offsets`` (``row_counts`` is unused: the scatters drop what they do
-    not write), in JAX's scatters."""
-    del row_counts
+    not write), in JAX's scatters. Stacked bins run system by system."""
+    if bins.slot_id.dim() == 4:
+        outs = [pack_slots_plain(system(bins, b), offsets[b], row_counts[b],
+                                 nx=nx, ny=ny, row_cap=row_cap)
+                for b in range(bins.slot_id.shape[0])]
+        return ({k: torch.stack([o[0][k] for o in outs]) for k in bins.planes},
+                *(torch.stack([o[i] for o in outs]) for i in (1, 2, 3)))
     m_c = bins.m_c
     nzp, nyp = bins.slot_id.shape[:2]
     dev = bins.slot_id.device
@@ -548,13 +644,16 @@ def unpack_scatter(domain: Domain, packed: PackedRows,
     ``rows`` holds one value per *interior* packed slot, ``(nz * ny,
     row_cap)`` in pencil-id order. Particles past ``row_cap`` read a zero
     pad slot; particles the dense binning dropped point past the array and
-    are clamped onto the last pad slot, as JAX's gather clamps."""
+    are clamped onto the last pad slot of their own system, as JAX's
+    gather clamps."""
     nz, ny = domain.nz, domain.ny
-    per_row = rows.reshape(nz * ny, packed.row_cap)
-    padded = torch.cat([per_row, per_row.new_zeros((nz * ny, 1))], dim=-1)
-    flat = padded.reshape(-1)
-    idx = torch.clamp(packed.particle_slot, max=flat.shape[0] - 1).long()
-    return flat[idx]
+    lead = packed.particle_slot.shape[:-1]
+    per_row = rows.reshape(*lead, nz * ny, packed.row_cap)
+    padded = torch.cat([per_row, per_row.new_zeros((*lead, nz * ny, 1))],
+                       dim=-1)
+    flat = padded.reshape(*lead, -1)
+    idx = torch.clamp(packed.particle_slot, max=flat.shape[-1] - 1).long()
+    return torch.gather(flat, -1, idx)
 
 
 def packed_to_particles(domain: Domain, packed: PackedRows, fx, fy, fz, pot
@@ -849,6 +948,8 @@ class SfcClusters:
     codes: torch.Tensor           # (pair_cap,) int32 sorted pair codes
     n_pairs: torch.Tensor         # () int32 true (untruncated) pair count
     cluster_counts: torch.Tensor  # (n_clusters,) int32 particles per cluster
+    # (stacked systems: each tensor with a leading system axis, pair_cap
+    # codes a system)
     pair_cap: int
     csize: int
     curve: str
@@ -874,19 +975,21 @@ def build_sfc_clusters(domain: Domain, bins: CellBins, pair_cap: int,
     tables = sfc_device_tables(domain, csize, curve, dev)
     n_clusters = tables["tgt_pcell"].shape[0]
     nx, ny, nz = domain.ncells
-    occ = (bins.slot_id.view(nz + 2, ny + 2, nx + 2, bins.m_c) >= 0).sum(
-        -1, dtype=torch.int32).reshape(-1)
-    occ_ext = torch.cat([occ, occ.new_zeros(1)])
-    cluster_counts = occ_ext[tables["tgt_pcell"].long()].sum(
+    lead = bins.slot_id.shape[:-3]
+    occ = (bins.slot_id.view(*lead, nz + 2, ny + 2, nx + 2, bins.m_c) >= 0
+           ).sum(-1, dtype=torch.int32).reshape(*lead, -1)
+    occ_ext = torch.cat([occ, occ.new_zeros((*lead, 1))], dim=-1)
+    cluster_counts = occ_ext[..., tables["tgt_pcell"].long()].sum(
         -1, dtype=torch.int32)
-    src_counts = occ_ext[tables["src_pcell"].long()].sum(-1, dtype=torch.int32)
-    bits = ((cluster_counts[:, None] > 0) & (src_counts > 0)).reshape(-1)
+    src_counts = occ_ext[..., tables["src_pcell"].long()].sum(
+        -1, dtype=torch.int32)
+    bits = ((cluster_counts[..., None] > 0) & (src_counts > 0)).flatten(-2)
     a = torch.arange(n_clusters, dtype=torch.int32, device=dev)
     k = torch.arange(27, dtype=torch.int32, device=dev)
     candidates = (a[:, None] * 32 + k).reshape(-1)
     codes = _compact(bits, candidates, pair_cap, n_clusters * 32)
     return SfcClusters(bins=bins, codes=codes,
-                       n_pairs=bits.sum(dtype=torch.int32),
+                       n_pairs=bits.sum(-1, dtype=torch.int32),
                        cluster_counts=cluster_counts, pair_cap=pair_cap,
                        csize=csize, curve=curve)
 
@@ -968,6 +1071,8 @@ def sfc_to_particles(domain: Domain, sfc: SfcClusters, fx, fy, fz, pot
     cc = tables["cell_cluster"][cid].long()
     cp = tables["cell_pos"][cid].long()
     flat = torch.where(valid, cc * (csize * m_c) + cp * m_c + r, 0)
-    out = [torch.where(valid, plane.reshape(-1)[flat], 0.0)
+    lead = ds.shape[:-1]
+    out = [torch.where(valid, torch.gather(plane.reshape(*lead, -1), -1, flat),
+                       0.0)
            for plane in (fx, fy, fz, pot)]
     return torch.stack(out[:3], dim=-1), out[3]

@@ -24,7 +24,9 @@
 
 ``xpencil_planes``, ``xpencil_sparse_planes``, ``xpencil_packed_planes``,
 ``allin_planes`` and ``cell_sfc_tiles`` are the plain versions of the CUDA
-kernels B, C, D, E and F (``repro_torch.kernels``), with their signatures.
+kernels B, C, D, E and F (``repro_torch.kernels``), with their signatures:
+like the kernels they take an optional leading system axis, and run their
+per-system body once for each system, in order.
 JAX's ``lax.map`` over units becomes a Python loop over chunks of
 ``batch_size`` units, which bounds peak memory; the last chunk is ragged,
 so JAX's padding of the active list to whole chunks (``_chunked_active``)
@@ -35,6 +37,7 @@ compaction, packing and clustering change no computed value.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -46,6 +49,24 @@ from .domain import Domain
 from .interactions import PairKernel, pair_contribution
 
 ForceOut = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def each_system(*ranks: Optional[int]):
+    """Let a per-system plain version take stacked systems: ``ranks[i]`` is
+    the rank of positional argument i for one system (None: shared by every
+    system). Called with one more axis on its first argument, the body runs
+    once per system, in order, and its outputs are stacked."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def run(*args, **kw):
+            if args[0].dim() == ranks[0]:
+                return fn(*args, **kw)
+            outs = [fn(*(a if r is None else a[b]
+                         for a, r in zip(args, ranks)), **kw)
+                    for b in range(args[0].shape[0])]
+            return tuple(torch.stack(o) for o in zip(*outs))
+        return run
+    return deco
 
 
 def naive_n2(domain: Domain, positions: torch.Tensor, kernel: PairKernel,
@@ -202,6 +223,7 @@ def xpencil(domain: Domain, bins: CellBins, kernel: PairKernel,
     return tuple(o.reshape(nz, ny, nx, bins.m_c) for o in out)
 
 
+@each_system(3, 3, 3, 3)
 def xpencil_planes(x, y, z, slot_id, *, nx: int, m_c: int,
                    kernel: PairKernel, cutoff2: float,
                    batch_size: int = 64) -> ForceOut:
@@ -222,6 +244,7 @@ def xpencil_planes(x, y, z, slot_id, *, nx: int, m_c: int,
     return tuple(o.reshape(nz, ny, nx * m_c) for o in out)
 
 
+@each_system(3, 3, 3, 3, 1)
 def xpencil_sparse_planes(x, y, z, slot_id, active_zy, *, nx: int, ny: int,
                           m_c: int, kernel: PairKernel, cutoff2: float,
                           batch_size: int = 64) -> ForceOut:
@@ -381,6 +404,7 @@ def _assemble_boxes(blocks: torch.Tensor, grid: Tuple[int, int, int],
                                                gx * bx * m_c)
 
 
+@each_system(3, 3, 3, 3)
 def allin_planes(x, y, z, slot_id, *, box: Tuple[int, int, int], m_c: int,
                  kernel: PairKernel, cutoff2: float,
                  batch_size: int = 8) -> ForceOut:
@@ -481,6 +505,7 @@ def _packed_window(off, rows, scell, tcell, nx: int, m_c: int):
     return out
 
 
+@each_system(3, 3, 3, 3, 3, 3, 1)
 def xpencil_packed_planes(x, y, z, slot_id, slot_cell, cell_offsets,
                           active_zy, *, nx: int, ny: int, m_c: int,
                           kernel: PairKernel, cutoff2: float,
@@ -542,6 +567,7 @@ def xpencil_packed(domain: Domain, packed: PackedRows, kernel: PairKernel,
 # SFC cluster schedule: the compressed cluster-pair list (layout="sfc")
 # --------------------------------------------------------------------------
 
+@each_system(3, 3, 3, 3, 1, None, None)
 def cell_sfc_tiles(x, y, z, slot_id, codes, tgt_base, src_base, *, m_c: int,
                    kernel: PairKernel, cutoff2: float,
                    batch_size: int = 64) -> ForceOut:

@@ -35,18 +35,18 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 # source file -> {C symbol: argtypes}; every restype is c_int
 SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     "allin.cu": {
-        # x, y, z, slot_id, fx, fy, fz, pot, visits, nx, ny, nz, m_c, bx,
-        # by, bz, threads, cutoff2, kind, p0, p1, p2, p3, n_extra, stream
+        # x, y, z, slot_id, fx, fy, fz, pot, visits, n_sys, nx, ny, nz, m_c,
+        # bx, by, bz, threads, cutoff2, kind, p0, p1, p2, p3, n_extra, stream
         "allin_forces_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                             _I, _I, _I, _I, _I, _F, _I, _F, _F, _F, _F, _I,
-                             _P),
+                             _I, _I, _I, _I, _I, _I, _F, _I, _F, _F, _F, _F,
+                             _I, _P),
     },
     "pack.cu": {
         # src, dst (arrays of n_fields pointers), fill (n_fields unsigned),
         # n_fields, slot_id, offsets, row_counts, dense_slot, psid, pcell,
-        # pslot, nx, ny, nz, m_c, row_cap, n_particles, stream
+        # pslot, n_sys, nx, ny, nz, m_c, row_cap, n_particles, stream
         "pack_rows_f32": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                          _I, _I, _I, _I, _P),
+                          _I, _I, _I, _I, _I, _P),
     },
     "prefix_sum.cu": {
         # in, out, status, n, capacity, stream
@@ -54,33 +54,34 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     },
     "sfc.cu": {
         # x, y, z, slot_id, codes, tgt_base, src_base, fx, fy, fz, pot,
-        # visits, n_codes, n_clusters, csize, m_c, total, cutoff2, kind, p0,
-        # p1, p2, p3, n_extra, stream
+        # visits, n_sys, n_codes, n_clusters, csize, m_c, total, cutoff2,
+        # kind, p0, p1, p2, p3, n_extra, stream
         "cell_sfc_forces_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                _P, _I, _I, _I, _I, _I, _F, _I, _F, _F, _F,
-                                _F, _I, _P),
+                                _P, _I, _I, _I, _I, _I, _I, _F, _I, _F, _F,
+                                _F, _F, _I, _P),
     },
     "xpencil.cu": {
-        # x, y, z, slot_id, fx, fy, fz, pot, nx, ny, nz, m_c, cutoff2,
-        # kind, p0, p1, p2, p3, n_extra, stream
+        # x, y, z, slot_id, fx, fy, fz, pot, n_sys, nx, ny, nz, m_c,
+        # cutoff2, kind, p0, p1, p2, p3, n_extra, stream
         "xpencil_forces_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                               _I, _F, _I, _F, _F, _F, _F, _I, _P),
-        # x, y, z, slot_id, active, fx, fy, fz, pot, n_rows, nx, ny, nz,
-        # m_c, cutoff2, kind, p0, p1, p2, p3, n_extra, stream
+                               _I, _I, _F, _I, _F, _F, _F, _F, _I, _P),
+        # x, y, z, slot_id, active, fx, fy, fz, pot, n_sys, n_rows, nx, ny,
+        # nz, m_c, cutoff2, kind, p0, p1, p2, p3, n_extra, stream
         "xpencil_sparse_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                               _I, _I, _I, _F, _I, _F, _F, _F, _F, _I, _P),
-        # x, y, z, slot_id, active (or NULL), fx, fy, fz, pot, n_rows, nx,
-        # ny, nz, m_c, cx_cells, cutoff2, kind, p0, p1, p2, p3, n_extra,
-        # stream
+                               _I, _I, _I, _I, _F, _I, _F, _F, _F, _F, _I,
+                               _P),
+        # x, y, z, slot_id, active (or NULL), fx, fy, fz, pot, n_sys,
+        # n_rows, nx, ny, nz, m_c, cx_cells, cutoff2, kind, p0, p1, p2, p3,
+        # n_extra, stream
         "xpencil_chunked_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                _I, _I, _I, _I, _F, _I, _F, _F, _F, _F, _I,
-                                _P),
+                                _I, _I, _I, _I, _I, _F, _I, _F, _F, _F, _F,
+                                _I, _P),
         # x, y, z, slot_id, slot_cell, cell_offsets, active, fx, fy, fz,
-        # pot, n_rows, nx, ny, nz, row_cap, tile_rows, cutoff2, kind, p0, p1,
-        # p2, p3, n_extra, stream
+        # pot, n_sys, n_rows, nx, ny, nz, row_cap, tile_rows, cutoff2, kind,
+        # p0, p1, p2, p3, n_extra, stream
         "xpencil_packed_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _I, _I, _F, _I, _F, _F, _F,
-                               _F, _I, _P),
+                               _I, _I, _I, _I, _I, _I, _I, _F, _I, _F, _F,
+                               _F, _F, _I, _P),
     },
     "window_attn.cu": {
         # q, k, v, o, B, H, KH, S, D, window, softcap, scale, bf16, stream

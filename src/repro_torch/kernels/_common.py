@@ -1,5 +1,9 @@
 """What every kernel wrapper shares: argument checks, the pair kernel's
-CUDA form, output allocation and the launch through ``_build``."""
+CUDA form, output allocation and the launch through ``_build``.
+
+Every particle kernel takes stacked systems: its tensors may carry one
+leading system axis (``InteractionPlan.execute_batch``), and one launch
+covers all of them."""
 
 from __future__ import annotations
 
@@ -12,6 +16,7 @@ from ..core.strategies import SMEM_BUDGET_BYTES
 from . import _build
 
 MAX_SMEM = SMEM_BUDGET_BYTES   # bytes of shared memory a block may opt in to
+MAX_SYSTEMS = 65535            # csrc/pair.cuh: kMaxSystems, a grid y/z extent
 
 
 def check_tensors(device: torch.device, tensors, what: str) -> None:
@@ -24,6 +29,20 @@ def check_tensors(device: torch.device, tensors, what: str) -> None:
                 f"{what}: {name} must be a contiguous {dtype} tensor of "
                 f"shape {tuple(shape)} on {device}, got {t.dtype} "
                 f"{tuple(t.shape)} on {t.device}")
+
+
+def systems(t: torch.Tensor, rank: int, what: str
+            ) -> Tuple[Tuple[int, ...], int]:
+    """(leading shape, number of systems) of ``t``, whose shape for one
+    system has ``rank`` axes: () and 1, or (B,) and B for B stacked
+    systems; raise on more leading axes or more than MAX_SYSTEMS."""
+    lead = tuple(t.shape[:-rank])
+    n_sys = lead[0] if lead else 1
+    if t.dim() not in (rank, rank + 1) or not 1 <= n_sys <= MAX_SYSTEMS:
+        raise ValueError(f"{what}: a tensor of shape {tuple(t.shape)} is not "
+                         f"one system of rank {rank} or 1 to {MAX_SYSTEMS} "
+                         "stacked on a leading axis")
+    return lead, n_sys
 
 
 def cuda_form(kernel: PairKernel):

@@ -6,7 +6,9 @@
 On CPU tensors the wrapper runs its plain version (the same schedule in
 PyTorch, ``repro_torch.core.strategies.allin_planes``); on CUDA tensors it
 launches the kernel or raises. ``allin_forces.launches`` counts the
-launches. Kernel E stages its sub-box's halo block in shared memory with
+launches. The planes may carry a leading axis of stacked systems; one
+launch then covers them all, each block reading its own system's halo.
+Kernel E stages its sub-box's halo block in shared memory with
 each cell compacted to its real particles (``halo_bytes``, no more) and
 visits only the real sources of each real target's 27 cells, in kernel B's
 order; the staging and the two blocks, or one, that the halo leaves an SM
@@ -23,7 +25,7 @@ import torch
 from ..core.interactions import PairKernel
 from ..core.strategies import allin_planes
 from ._common import (MAX_SMEM, check_tensors, cuda_form, launch, new_outputs,
-                      visit_counter)
+                      systems, visit_counter)
 
 MAX_THREADS = 1024     # csrc/allin.cu::kAllinMaxThreads, the launch bound
 SM_SMEM = 233472       # bytes of shared memory an H100 SM holds (228 KB)
@@ -52,7 +54,8 @@ def allin_forces(planes: Dict[str, torch.Tensor], slot_id: torch.Tensor, *,
     """Kernel E: the All-in-SM schedule over padded planes.
 
     Args:
-      planes: "x", "y", "z" float32 planes of shape (nz+2, ny+2, (nx+2)*m_c).
+      planes: "x", "y", "z" float32 planes of shape (nz+2, ny+2, (nx+2)*m_c),
+        or (B, nz+2, ...) for B stacked systems (every output then (B, ...)).
       slot_id: matching int32 plane, -1 for empty slots.
       box: interior sub-box (bx, by, bz); must divide (nx, ny, nz)
         (``core.strategies.shrink_to_divisors``).
@@ -65,7 +68,7 @@ def allin_forces(planes: Dict[str, torch.Tensor], slot_id: torch.Tensor, *,
       (fx, fy, fz, pot), each (nz, ny, nx*m_c) over the interior slots.
     """
     x, y, z = planes["x"], planes["y"], planes["z"]
-    nzp, nyp, width = x.shape
+    nzp, nyp, width = x.shape[-3:]
     if m_c < 1 or width % m_c or min(width // m_c, nyp, nzp) < 3:
         raise ValueError(f"planes of shape {tuple(x.shape)} do not match "
                          f"m_c={m_c}")
@@ -85,6 +88,7 @@ def allin_forces(planes: Dict[str, torch.Tensor], slot_id: torch.Tensor, *,
     if x.device.type != "cuda":
         raise ValueError(f"allin_forces runs on cpu or cuda, not {x.device}")
     form = cuda_form(kernel)
+    lead, n_sys = systems(x, 3, "allin_forces")
     smem = halo_bytes(box, m_c)
     if smem > MAX_SMEM:
         raise ValueError(
@@ -95,10 +99,11 @@ def allin_forces(planes: Dict[str, torch.Tensor], slot_id: torch.Tensor, *,
         ("x", x, torch.float32), ("y", y, torch.float32),
         ("z", z, torch.float32), ("slot_id", slot_id, torch.int32))],
         "allin_forces")
-    outs = new_outputs((nz, ny, nx * m_c), x.device)
+    outs = new_outputs((*lead, nz, ny, nx * m_c), x.device)
     launch("allin.cu", "allin_forces_f32", x, x.data_ptr(), y.data_ptr(),
            z.data_ptr(), slot_id.data_ptr(), *(o.data_ptr() for o in outs),
-           visit_counter(visits, x.device), nx, ny, nz, m_c, bx, by, bz,
+           visit_counter(visits, x.device), n_sys, nx, ny, nz, m_c, bx, by,
+           bz,
            threads, float(cutoff2), *form)
     allin_forces.launches += 1
     return outs

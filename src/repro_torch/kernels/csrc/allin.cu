@@ -30,6 +30,11 @@
 // With this order and the one pair_step (pair.cuh), kernel E gives kernel
 // B's bits per target, whatever the box and the thread count.
 //
+// Stacked systems (InteractionPlan.execute_batch): n_sys systems whose
+// planes and outputs follow one another, launched once for all, the grid's
+// y index the system; a block offsets its pointers to its system first, so
+// its halo reads only that system's ghost ring.
+//
 // What bounds it on the card: the staging and the few blocks the halo
 // leaves an SM. E reads each halo slot once per sub-box (216 cells for 64
 // targets at box (4, 4, 4)); its pair work is B's, the real sources of
@@ -60,9 +65,23 @@ allin_kernel(const float* __restrict__ x, const float* __restrict__ y,
              float* __restrict__ fx, float* __restrict__ fy,
              float* __restrict__ fz, float* __restrict__ pot,
              unsigned long long* __restrict__ visits, int nx, int ny,
-             int m_c, int bx, int by, int bz, bool vec, float cutoff2,
-             PairParams prm) {
+             int nz, int m_c, int bx, int by, int bz, bool vec,
+             float cutoff2, PairParams prm) {
   extern __shared__ float4 halo[];      // (bz+2)(by+2)(bx+2) cells of m_c
+  {  // the block's system: its planes and outputs
+    const long long sys = blockIdx.y;
+    const long long planes =
+        sys * (nz + 2) * (ny + 2) * (long long)(nx + 2) * m_c;
+    const long long outs = sys * nz * ny * (long long)nx * m_c;
+    x += planes;
+    y += planes;
+    z += planes;
+    sid += planes;
+    fx += outs;
+    fy += outs;
+    fz += outs;
+    pot += outs;
+  }
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int n_warps = blockDim.x >> 5;
   const int hc = bx + 2;                // halo cells a row
@@ -166,8 +185,9 @@ allin_kernel(const float* __restrict__ x, const float* __restrict__ y,
 }  // namespace
 
 // Kernel E. Planes x, y, z (float32) and slot_id (int32) of shape
-// (nz+2, ny+2, (nx+2)*m_c), contiguous; the sub-box (bx, by, bz) divides
-// (nx, ny, nz); outputs fx, fy, fz, pot (float32) of shape (nz, ny, nx*m_c).
+// (n_sys, nz+2, ny+2, (nx+2)*m_c), contiguous, 1 <= n_sys <= 65535; the
+// sub-box (bx, by, bz) divides (nx, ny, nz); outputs fx, fy, fz, pot
+// (float32) of shape (n_sys, nz, ny, nx*m_c).
 // threads: a block's, a multiple of 32 up to 1024 (fewer if the sub-box has
 // fewer target slots). Needs 16*(bz+2)*(by+2)*(bx+2)*m_c bytes of shared
 // memory, at most 227 KB. visits (uint64, or NULL): adds the number of pair
@@ -175,12 +195,13 @@ allin_kernel(const float* __restrict__ x, const float* __restrict__ y,
 // launch's cudaError_t.
 extern "C" int allin_forces_f32(const void* x, const void* y, const void* z,
                                 const void* slot_id, void* fx, void* fy,
-                                void* fz, void* pot, void* visits, int nx,
-                                int ny, int nz, int m_c, int bx, int by,
-                                int bz, int threads, float cutoff2, int kind,
-                                float p0, float p1, float p2, float p3,
-                                int n_extra, void* stream) {
-  if (m_c < 1 || nx < 1 || ny < 1 || nz < 1 || bx < 1 || by < 1 || bz < 1 ||
+                                void* fz, void* pot, void* visits, int n_sys,
+                                int nx, int ny, int nz, int m_c, int bx,
+                                int by, int bz, int threads, float cutoff2,
+                                int kind, float p0, float p1, float p2,
+                                float p3, int n_extra, void* stream) {
+  if (n_sys < 1 || n_sys > kMaxSystems || m_c < 1 || nx < 1 || ny < 1 ||
+      nz < 1 || bx < 1 || by < 1 || bz < 1 ||
       nx % bx || ny % by || nz % bz || threads < 32 || threads % 32 ||
       threads > kAllinMaxThreads)
     return cudaErrorInvalidValue;
@@ -200,14 +221,14 @@ extern "C" int allin_forces_f32(const void* x, const void* y, const void* z,
     constexpr int K = decltype(kc)::value;
     const cudaError_t err = allow_smem(allin_kernel<K>, smem);
     if (err != cudaSuccess) return err;
-    allin_kernel<K><<<(unsigned)n_blocks, block, smem,
+    allin_kernel<K><<<dim3((unsigned)n_blocks, n_sys), block, smem,
                       static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(x), static_cast<const float*>(y),
         static_cast<const float*>(z), static_cast<const int*>(slot_id),
         static_cast<float*>(fx), static_cast<float*>(fy),
         static_cast<float*>(fz), static_cast<float*>(pot),
-        static_cast<unsigned long long*>(visits), nx, ny, m_c, bx, by, bz,
-        vec, cutoff2, prm);
+        static_cast<unsigned long long*>(visits), nx, ny, nz, m_c, bx, by,
+        bz, vec, cutoff2, prm);
     return cudaGetLastError();
   });
 }

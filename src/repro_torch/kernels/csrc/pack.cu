@@ -15,6 +15,10 @@
 //     to its packed slot, (z * ny + y) * (row_cap + 1) + position, with the
 //     plain version's clamps (a particle the dense binning dropped reads the
 //     first offset of the last padded plane and lands past the rows).
+// Stacked systems (InteractionPlan.execute_batch): n_sys systems whose
+// arrays follow one another, each of one system's size, in one launch whose
+// grid's y index is the system; dense_slot and pslot stay per system.
+//
 // Each dense slot's id is read once, and each packed slot written once:
 // the cells of dense bins hold their particles in their first slots, so
 // the moved slots of a row are exactly its first min(row_count, row_cap).
@@ -31,6 +35,7 @@ namespace {
 
 constexpr int kMaxFields = 16;
 constexpr int kPackThreads = 256;
+constexpr int kMaxSystems = 65535;  // a grid's y extent
 
 // Fields of 4-byte elements (float32 or int32), moved as bits.
 struct Fields {
@@ -49,8 +54,10 @@ pack_rows_kernel(Fields f, const int* __restrict__ sid,
                  int nx, int ny, int m_c, int row_cap, int n_particles) {
   const int t = threadIdx.x;
   const int w = (nx + 2) * m_c;  // dense slots of a padded row
+  const long long sys = blockIdx.y;  // the block's system
   if ((int)blockIdx.x < n_prow) {
-    const long long row = blockIdx.x;
+    // systems follow one another: the row's index over the batch
+    const long long row = sys * n_prow + blockIdx.x;
     const int* off = offsets + row * (nx + 2);
     const long long dbase = row * w, pbase = row * row_cap;
     for (int i = t; i < w; i += kPackThreads) {
@@ -73,6 +80,9 @@ pack_rows_kernel(Fields f, const int* __restrict__ sid,
   }
   const int i = (blockIdx.x - n_prow) * kPackThreads + t;
   if (i >= n_particles) return;
+  offsets += sys * n_prow * (nx + 2);
+  dense_slot += sys * n_particles;
+  pslot += sys * n_particles;
   const int nzp = n_prow / (ny + 2);
   const long long plane = (long long)(ny + 2) * w;
   const long long ds = dense_slot[i];
@@ -87,23 +97,25 @@ pack_rows_kernel(Fields f, const int* __restrict__ sid,
 
 }  // namespace
 
-// The packed layout's moves. sid (int32) and the n_fields planes (4-byte
-// elements) of shape (nz+2, ny+2, (nx+2)*m_c); offsets (int32) of shape
-// (nz+2, ny+2, nx+2), each row's exclusive scan of its cells' occupied
-// slots; row_counts (int32, (nz+2, ny+2)); dense_slot (int32, n_particles),
-// CellBins.particle_slot. Writes the packed planes (fill bits fill[a]),
-// psid, pcell of shape (nz+2, ny+2, row_cap) and pslot (int32,
-// n_particles). At most 16 fields. Allocates nothing and does not
+// The packed layout's moves, for n_sys stacked systems (1 <= n_sys <=
+// 65535; every shape below has a leading n_sys). sid (int32) and the
+// n_fields planes (4-byte elements) of shape (nz+2, ny+2, (nx+2)*m_c);
+// offsets (int32) of shape (nz+2, ny+2, nx+2), each row's exclusive scan of
+// its cells' occupied slots; row_counts (int32, (nz+2, ny+2)); dense_slot
+// (int32, n_particles), CellBins.particle_slot. Writes the packed planes
+// (fill bits fill[a]), psid, pcell of shape (nz+2, ny+2, row_cap) and pslot
+// (int32, n_particles). At most 16 fields. Allocates nothing and does not
 // synchronise; returns the launch's cudaError_t.
 extern "C" int pack_rows_f32(const void* const* src, void* const* dst,
                              const unsigned* fill, int n_fields,
                              const void* sid, const void* offsets,
                              const void* row_counts, const void* dense_slot,
-                             void* psid, void* pcell, void* pslot, int nx,
-                             int ny, int nz, int m_c, int row_cap,
+                             void* psid, void* pcell, void* pslot, int n_sys,
+                             int nx, int ny, int nz, int m_c, int row_cap,
                              int n_particles, void* stream) {
-  if (n_fields < 0 || n_fields > kMaxFields || nx < 1 || ny < 1 || nz < 1 ||
-      m_c < 1 || row_cap < 1 || n_particles < 0)
+  if (n_fields < 0 || n_fields > kMaxFields || n_sys < 1 ||
+      n_sys > kMaxSystems || nx < 1 || ny < 1 || nz < 1 || m_c < 1 ||
+      row_cap < 1 || n_particles < 0)
     return cudaErrorInvalidValue;
   Fields f;
   f.n = n_fields;
@@ -114,7 +126,7 @@ extern "C" int pack_rows_f32(const void* const* src, void* const* dst,
   }
   const int n_prow = (nz + 2) * (ny + 2);
   const int blocks = n_prow + (n_particles + kPackThreads - 1) / kPackThreads;
-  pack_rows_kernel<<<blocks, kPackThreads, 0,
+  pack_rows_kernel<<<dim3(blocks, n_sys), kPackThreads, 0,
                      static_cast<cudaStream_t>(stream)>>>(
       f, static_cast<const int*>(sid), static_cast<const int*>(offsets),
       static_cast<const int*>(row_counts),

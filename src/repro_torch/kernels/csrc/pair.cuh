@@ -33,6 +33,8 @@ struct PairParams {
 };
 
 constexpr size_t kMaxSmem = 232448;  // 227 KB a block may opt in to
+// Stacked systems a launch takes: one a grid y or z index, at most 65535.
+constexpr int kMaxSystems = 65535;
 
 __device__ __forceinline__ void lj(float r2, const PairParams& q, float& c,
                                    float& u) {

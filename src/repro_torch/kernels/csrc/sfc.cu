@@ -42,6 +42,12 @@
 // of its schedule that visited every slot. It is not kernel B's bits: B
 // sums one 3*m_c window per (dz, dy) row, F one m_c slab per k.
 //
+// Stacked systems (InteractionPlan.execute_batch): n_sys systems whose
+// planes (total slots each), codes (n_codes each) and tiles follow one
+// another, launched once for all, the grid's y index the system. The slot
+// base tables are one system's, shared by all: a block offsets its pointers
+// to its system first, and the sentinel base stays `total`.
+//
 // What bounds it on the card: the staging. A target's 27 slabs are staged
 // apart (each kept code stages the slabs of its cluster's cells shifted by
 // k, 27*csize*m_c slot ids a cluster), about 2.8x the slot ids B reads per
@@ -116,6 +122,20 @@ sfc_kernel(const float* __restrict__ x, const float* __restrict__ y,
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x;
   const int a = blockIdx.x;
+  {  // the block's system: its planes, codes and tiles
+    const long long sys = blockIdx.y;
+    const long long planes = sys * total;
+    const long long outs = sys * gridDim.x * (long long)csize * m_c;
+    x += planes;
+    y += planes;
+    z += planes;
+    sid += planes;
+    codes += sys * n_codes;
+    fx += outs;
+    fy += outs;
+    fz += outs;
+    pot += outs;
+  }
   const unsigned below = (1u << lane) - 1u;
   const int tile = csize * m_c;
   const int gmax = sfc_group(tile);
@@ -268,11 +288,12 @@ sfc_kernel(const float* __restrict__ x, const float* __restrict__ y,
 }  // namespace
 
 // Kernel F. Planes x, y, z (float32) and slot_id (int32), flat, `total`
-// slots; codes (int32, n_codes) sorted, padded with n_clusters*32;
+// slots a system, n_sys systems (1 <= n_sys <= 65535); codes (int32, n_sys x
+// n_codes) each system's sorted, padded with n_clusters*32;
 // tgt_base (int32, n_clusters x csize) and src_base (int32, n_clusters x 27
 // x csize) the flat slot bases of each cluster's cells, unshifted and
-// shifted by stencil slot k, `total` for the sentinel cell; outputs fx, fy,
-// fz, pot (float32, n_clusters x csize*m_c); visits (uint64, or NULL):
+// shifted by stencil slot k, `total` for the sentinel cell, one system's;
+// outputs fx, fy, fz, pot (float32, n_sys x n_clusters x csize*m_c); visits (uint64, or NULL):
 // adds the number of pair steps taken. A warp needs sfc_warp_smem(csize,
 // m_c) bytes of shared memory, at most 227 KB. Allocates nothing and does
 // not synchronise; returns the launch's cudaError_t.
@@ -281,11 +302,13 @@ extern "C" int cell_sfc_forces_f32(const void* x, const void* y,
                                    const void* codes, const void* tgt_base,
                                    const void* src_base, void* fx, void* fy,
                                    void* fz, void* pot, void* visits,
-                                   int n_codes, int n_clusters, int csize,
-                                   int m_c, int total, float cutoff2, int kind,
-                                   float p0, float p1, float p2, float p3,
-                                   int n_extra, void* stream) {
-  if (m_c < 1 || csize < 1 || (long long)csize * m_c > (1 << 20) ||
+                                   int n_sys, int n_codes, int n_clusters,
+                                   int csize, int m_c, int total,
+                                   float cutoff2, int kind, float p0, float p1,
+                                   float p2, float p3, int n_extra,
+                                   void* stream) {
+  if (n_sys < 1 || n_sys > kMaxSystems || m_c < 1 || csize < 1 ||
+      (long long)csize * m_c > (1 << 20) ||
       n_codes < 1 || n_clusters < 1 || total < 1)
     return cudaErrorInvalidValue;
   const size_t smem = sfc_warp_smem(csize, m_c);
@@ -298,7 +321,7 @@ extern "C" int cell_sfc_forces_f32(const void* x, const void* y,
     constexpr int K = decltype(kc)::value;
     const cudaError_t err = allow_smem(sfc_kernel<K>, smem);
     if (err != cudaSuccess) return err;
-    sfc_kernel<K><<<(unsigned)n_clusters, 32, smem,
+    sfc_kernel<K><<<dim3((unsigned)n_clusters, n_sys), 32, smem,
                     static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(x), static_cast<const float*>(y),
         static_cast<const float*>(z), static_cast<const int*>(slot_id),

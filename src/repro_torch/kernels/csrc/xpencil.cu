@@ -94,6 +94,15 @@
 // divergence of window lengths within a warp; with the low_flop pair
 // kernel D takes about 80 % of its LJ time (PERF.md, PR 19).
 //
+// Stacked systems (InteractionPlan.execute_batch): every entry point takes
+// n_sys systems whose planes, offsets, lists and outputs follow one another
+// in memory, each of the single system's size, and launches once for all of
+// them: the grid gains the system as its last axis (blockIdx.z), and a
+// block offsets its pointers to its system first. A single system is
+// n_sys = 1 of the same kernel. A kernel D tile is a run of one system's
+// list: it never spans two systems; its size is chosen on the batch's rows
+// (n_sys * n_rows), since kMinTiles counts the tiles of the whole launch.
+//
 // One accumulation step (pair_step, in pair.cuh, shared with kernel E)
 // serves all three, so the compiler rounds and fuses each pair term the
 // same way in each kernel. Each neighbour row is summed into
@@ -260,26 +269,41 @@ __device__ __forceinline__ int compact(int n, int stride, int* mark,
 }
 
 // Kernels B (act == nullptr: row r is pencil r) and C (row r is pencil
-// act[r]). Grid (n_rows, x-chunks of cx_cells); 128 threads; dynamic shared
-// memory pencil_smem(cx_cells, m_c). bulk: load rows with TMA bulk copies
-// (m_c % 4 == 0, planes 16-byte aligned), else with 4-byte cp.async.
+// act[r]). Grid (n_rows, x-chunks of cx_cells, systems); 128 threads;
+// dynamic shared memory pencil_smem(cx_cells, m_c). bulk: load rows with
+// TMA bulk copies (m_c % 4 == 0, planes 16-byte aligned), else with 4-byte
+// cp.async.
 template <int KIND>
 __global__ void __launch_bounds__(kPencilThreads)
 xpencil_kernel(const float* __restrict__ x, const float* __restrict__ y,
                const float* __restrict__ z, const int* __restrict__ sid,
                const int* __restrict__ act, float* __restrict__ fx,
                float* __restrict__ fy, float* __restrict__ fz,
-               float* __restrict__ pot, int nx, int ny, int m_c, int cx_cells,
-               bool bulk, float cutoff2, PairParams prm) {
+               float* __restrict__ pot, int nx, int ny, int nz, int m_c,
+               int cx_cells, bool bulk, float cutoff2, PairParams prm) {
   constexpr int kT = kTargetsPerThread;
   extern __shared__ __align__(16) unsigned char smem[];
+  const long long row_len = (long long)(nx + 2) * m_c;
+  {  // the block's system: its planes, list and output rows
+    const long long sys = blockIdx.z, n_rows = gridDim.x;
+    const long long planes = sys * (nz + 2) * (ny + 2) * row_len;
+    const long long outs = sys * n_rows * nx * m_c;
+    x += planes;
+    y += planes;
+    z += planes;
+    sid += planes;
+    if (act) act += sys * n_rows;
+    fx += outs;
+    fy += outs;
+    fz += outs;
+    pot += outs;
+  }
   const int row_out = blockIdx.x;
   const int zy = act ? act[row_out] : row_out;
   const int zz = zy / ny, yy = zy - zz * ny;
   const int x0 = blockIdx.y * cx_cells;
   const int cx = min(cx_cells, nx - x0);
   const int len = (cx + 2) * m_c;  // staged slots of a neighbour row
-  const long long row_len = (long long)(nx + 2) * m_c;
   const int t = threadIdx.x;
 
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
@@ -426,8 +450,8 @@ xpencil_kernel(const float* __restrict__ x, const float* __restrict__ y,
 
 // Kernel D over packed rows of row_cap slots (act == nullptr: entry a is
 // pencil a; else entry a is pencil act[a]). Grid (tiles of tile_rows
-// consecutive entries, or one at tile_rows 0; parts of split targets);
-// kPackedThreads threads; dynamic shared memory packed_smem(tile_rows,
+// consecutive entries of a system's n_rows, or one at tile_rows 0; parts of
+// split targets; systems); kPackedThreads threads; dynamic shared memory packed_smem(tile_rows,
 // row_cap). bulk (tile_rows > 0, row_cap % 4 == 0, planes 16-byte aligned):
 // TMA bulk copies, else 4-byte cp.async.
 template <int KIND>
@@ -441,10 +465,27 @@ xpencil_packed_kernel(const float* __restrict__ x,
                       const int* __restrict__ act, float* __restrict__ fx,
                       float* __restrict__ fy, float* __restrict__ fz,
                       float* __restrict__ pot, int n_rows, int nx, int ny,
-                      int row_cap, int tile_rows, int split, bool bulk,
+                      int nz, int row_cap, int tile_rows, int split, bool bulk,
                       float cutoff2, PairParams prm) {
   constexpr unsigned kAll = 0xffffffffu;
   extern __shared__ __align__(16) unsigned char smem[];
+  {  // the block's system: its packed planes, offsets, list and outputs
+    const long long sys = blockIdx.z;
+    const long long rows = (long long)(nz + 2) * (ny + 2);
+    const long long planes = sys * rows * row_cap;
+    x += planes;
+    y += planes;
+    z += planes;
+    sid += planes;
+    scell += planes;
+    off += sys * rows * (nx + 3);
+    if (act) act += sys * n_rows;
+    const long long outs = sys * n_rows * row_cap;
+    fx += outs;
+    fy += outs;
+    fz += outs;
+    pot += outs;
+  }
   const bool planes = tile_rows > 0;
   const int n_buf = planes ? 2 : 1;
   const int n_dy = planes ? 3 : 1;     // dy partials a step computes
@@ -705,16 +746,19 @@ int chunk_cells(int nx, int m_c) {
 
 cudaError_t launch_pencils(const void* x, const void* y, const void* z,
                            const void* slot_id, const int* act, void* fx,
-                           void* fy, void* fz, void* pot, int n_rows, int nx,
-                           int ny, int m_c, int cx_cells, float cutoff2,
-                           int kind, PairParams prm, void* stream) {
+                           void* fy, void* fz, void* pot, int n_sys,
+                           int n_rows, int nx, int ny, int nz, int m_c,
+                           int cx_cells, float cutoff2, int kind,
+                           PairParams prm, void* stream) {
   if (cx_cells < 1 || cx_cells > nx) return cudaErrorInvalidValue;
   if (n_rows == 0) return cudaSuccess;
   const size_t smem = pencil_smem(cx_cells, m_c);
+  // a system's planes hold (nz+2)(ny+2)(nx+2)*m_c slots, a multiple of 4
+  // where m_c is: each system's rows keep the alignment of the first's
   const bool bulk =
       m_c % 4 == 0 && ((uintptr_t)x | (uintptr_t)y | (uintptr_t)z |
                        (uintptr_t)slot_id) % 16 == 0;
-  const dim3 grid(n_rows, (nx + cx_cells - 1) / cx_cells);
+  const dim3 grid(n_rows, (nx + cx_cells - 1) / cx_cells, n_sys);
   return by_kind(kind, [&](auto kc) {
     constexpr int K = decltype(kc)::value;
     const cudaError_t err = allow_smem(xpencil_kernel<K>, smem);
@@ -724,7 +768,7 @@ cudaError_t launch_pencils(const void* x, const void* y, const void* z,
         static_cast<const float*>(x), static_cast<const float*>(y),
         static_cast<const float*>(z), static_cast<const int*>(slot_id), act,
         static_cast<float*>(fx), static_cast<float*>(fy),
-        static_cast<float*>(fz), static_cast<float*>(pot), nx, ny, m_c,
+        static_cast<float*>(fz), static_cast<float*>(pot), nx, ny, nz, m_c,
         cx_cells, bulk, cutoff2, prm);
     return cudaGetLastError();
   });
@@ -746,9 +790,9 @@ int packed_tile_rows(int row_cap, int n_rows) {
 cudaError_t launch_packed(const void* x, const void* y, const void* z,
                           const void* slot_id, const void* slot_cell,
                           const void* cell_offsets, const void* active,
-                          void* fx, void* fy, void* fz, void* pot, int n_rows,
-                          int nx, int ny, int row_cap, int tile_rows,
-                          float cutoff2, int kind,
+                          void* fx, void* fy, void* fz, void* pot, int n_sys,
+                          int n_rows, int nx, int ny, int nz, int row_cap,
+                          int tile_rows, float cutoff2, int kind,
                           PairParams prm, void* stream) {
   if (n_rows == 0) return cudaSuccess;
   const size_t smem = packed_smem(tile_rows, row_cap);
@@ -759,7 +803,7 @@ cudaError_t launch_packed(const void* x, const void* y, const void* z,
   const int per_block = tile_rows > 0 ? tile_rows : 1;
   const int split = packed_split(tile_rows, row_cap);
   const dim3 grid((n_rows + per_block - 1) / per_block,
-                  (per_block * row_cap + split - 1) / split);
+                  (per_block * row_cap + split - 1) / split, n_sys);
   return by_kind(kind, [&](auto kc) {
     constexpr int K = decltype(kc)::value;
     const cudaError_t err = allow_smem(xpencil_packed_kernel<K>, smem);
@@ -772,50 +816,52 @@ cudaError_t launch_packed(const void* x, const void* y, const void* z,
         static_cast<const int*>(cell_offsets),
         static_cast<const int*>(active), static_cast<float*>(fx),
         static_cast<float*>(fy), static_cast<float*>(fz),
-        static_cast<float*>(pot), n_rows, nx, ny, row_cap, tile_rows, split,
-        bulk, cutoff2, prm);
+        static_cast<float*>(pot), n_rows, nx, ny, nz, row_cap, tile_rows,
+        split, bulk, cutoff2, prm);
     return cudaGetLastError();
   });
 }
 
-bool pencil_args_ok(int nx, int ny, int nz, int m_c) {
-  return m_c >= 1 && nx >= 1 && ny >= 1 && nz >= 1 &&
-         pencil_smem(1, m_c) <= kMaxSmem;
+bool pencil_args_ok(int n_sys, int nx, int ny, int nz, int m_c) {
+  return n_sys >= 1 && n_sys <= kMaxSystems && m_c >= 1 && nx >= 1 &&
+         ny >= 1 && nz >= 1 && pencil_smem(1, m_c) <= kMaxSmem;
 }
 
 }  // namespace
 
 // Kernel B. Planes x, y, z (float32) and slot_id (int32) of shape
-// (nz+2, ny+2, (nx+2)*m_c), contiguous; outputs fx, fy, fz, pot (float32)
-// of shape (nz, ny, nx*m_c). A block needs pencil_smem(1, m_c) bytes of
-// shared memory at the least, at most 227 KB: m_c <= 1570. Allocates
-// nothing and does not synchronise; returns the launch's cudaError_t.
+// (n_sys, nz+2, ny+2, (nx+2)*m_c), contiguous; outputs fx, fy, fz, pot
+// (float32) of shape (n_sys, nz, ny, nx*m_c); 1 <= n_sys <= 65535. A block
+// needs pencil_smem(1, m_c) bytes of shared memory at the least, at most
+// 227 KB: m_c <= 1570. Allocates nothing and does not synchronise; returns
+// the launch's cudaError_t.
 extern "C" int xpencil_forces_f32(const void* x, const void* y, const void* z,
                                   const void* slot_id, void* fx, void* fy,
-                                  void* fz, void* pot, int nx, int ny, int nz,
-                                  int m_c, float cutoff2, int kind, float p0,
-                                  float p1, float p2, float p3, int n_extra,
-                                  void* stream) {
-  if (!pencil_args_ok(nx, ny, nz, m_c)) return cudaErrorInvalidValue;
-  return launch_pencils(x, y, z, slot_id, nullptr, fx, fy, fz, pot, ny * nz,
-                        nx, ny, m_c, chunk_cells(nx, m_c), cutoff2, kind,
-                        PairParams{p0, p1, p2, p3, n_extra}, stream);
+                                  void* fz, void* pot, int n_sys, int nx,
+                                  int ny, int nz, int m_c, float cutoff2,
+                                  int kind, float p0, float p1, float p2,
+                                  float p3, int n_extra, void* stream) {
+  if (!pencil_args_ok(n_sys, nx, ny, nz, m_c)) return cudaErrorInvalidValue;
+  return launch_pencils(x, y, z, slot_id, nullptr, fx, fy, fz, pot, n_sys,
+                        ny * nz, nx, ny, nz, m_c, chunk_cells(nx, m_c),
+                        cutoff2, kind, PairParams{p0, p1, p2, p3, n_extra},
+                        stream);
 }
 
-// Kernel C. Planes as for kernel B; active (int32, n_rows) holds interior
-// pencil ids z*ny + y in [0, nz*ny); outputs of shape (n_rows, nx*m_c), row a
-// for pencil active[a].
+// Kernel C. Planes as for kernel B; active (int32, (n_sys, n_rows)) holds
+// each system's interior pencil ids z*ny + y in [0, nz*ny); outputs of
+// shape (n_sys, n_rows, nx*m_c), row a of system s for pencil active[s, a].
 extern "C" int xpencil_sparse_f32(const void* x, const void* y, const void* z,
                                   const void* slot_id, const void* active,
                                   void* fx, void* fy, void* fz, void* pot,
-                                  int n_rows, int nx, int ny, int nz, int m_c,
-                                  float cutoff2, int kind, float p0, float p1,
-                                  float p2, float p3, int n_extra,
-                                  void* stream) {
-  if (!pencil_args_ok(nx, ny, nz, m_c) || n_rows < 0)
+                                  int n_sys, int n_rows, int nx, int ny,
+                                  int nz, int m_c, float cutoff2, int kind,
+                                  float p0, float p1, float p2, float p3,
+                                  int n_extra, void* stream) {
+  if (!pencil_args_ok(n_sys, nx, ny, nz, m_c) || n_rows < 0)
     return cudaErrorInvalidValue;
   return launch_pencils(x, y, z, slot_id, static_cast<const int*>(active), fx,
-                        fy, fz, pot, n_rows, nx, ny, m_c,
+                        fy, fz, pot, n_sys, n_rows, nx, ny, nz, m_c,
                         chunk_cells(nx, m_c), cutoff2, kind,
                         PairParams{p0, p1, p2, p3, n_extra}, stream);
 }
@@ -827,44 +873,47 @@ extern "C" int xpencil_sparse_f32(const void* x, const void* y, const void* z,
 extern "C" int xpencil_chunked_f32(const void* x, const void* y,
                                    const void* z, const void* slot_id,
                                    const void* active, void* fx, void* fy,
-                                   void* fz, void* pot, int n_rows, int nx,
-                                   int ny, int nz, int m_c, int cx_cells,
-                                   float cutoff2, int kind, float p0, float p1,
-                                   float p2, float p3, int n_extra,
-                                   void* stream) {
-  if (!pencil_args_ok(nx, ny, nz, m_c) || n_rows < 0 ||
+                                   void* fz, void* pot, int n_sys, int n_rows,
+                                   int nx, int ny, int nz, int m_c,
+                                   int cx_cells, float cutoff2, int kind,
+                                   float p0, float p1, float p2, float p3,
+                                   int n_extra, void* stream) {
+  if (!pencil_args_ok(n_sys, nx, ny, nz, m_c) || n_rows < 0 ||
       (active == nullptr && n_rows != nz * ny))
     return cudaErrorInvalidValue;
   return launch_pencils(x, y, z, slot_id, static_cast<const int*>(active), fx,
-                        fy, fz, pot, n_rows, nx, ny, m_c, cx_cells, cutoff2,
-                        kind, PairParams{p0, p1, p2, p3, n_extra}, stream);
+                        fy, fz, pot, n_sys, n_rows, nx, ny, nz, m_c, cx_cells,
+                        cutoff2, kind, PairParams{p0, p1, p2, p3, n_extra},
+                        stream);
 }
 
 // Kernel D. Packed planes x, y, z (float32), slot_id and slot_cell (int32)
-// of shape (nz+2, ny+2, row_cap), cell_offsets (int32) of shape
-// (nz+2, ny+2, nx+3), active (int32, n_rows) interior pencil ids or NULL for
-// every pencil in id order (n_rows = nz*ny); outputs of shape (n_rows,
-// row_cap). tile_rows: pencils a block, 0 <= tile_rows <= kMaxTileRows with
-// packed_smem(tile_rows, row_cap) <= kMaxSmem, or -1 for
-// packed_tile_rows(row_cap, n_rows); the bits do not depend on it.
-// At tile_rows 0 a block needs 16*row_cap bytes: row_cap <= 14528.
+// of shape (n_sys, nz+2, ny+2, row_cap), cell_offsets (int32) of shape
+// (n_sys, nz+2, ny+2, nx+3), active (int32, (n_sys, n_rows)) each system's
+// interior pencil ids or NULL for every pencil in id order (n_rows =
+// nz*ny); outputs of shape (n_sys, n_rows, row_cap). tile_rows: pencils a
+// block, 0 <= tile_rows <= kMaxTileRows with packed_smem(tile_rows,
+// row_cap) <= kMaxSmem, or -1 for packed_tile_rows(row_cap, n_sys *
+// n_rows), the batch's rows; the bits do not depend on it. At tile_rows 0
+// a block needs 16*row_cap bytes: row_cap <= 14528.
 extern "C" int xpencil_packed_f32(const void* x, const void* y, const void* z,
                                   const void* slot_id, const void* slot_cell,
                                   const void* cell_offsets, const void* active,
                                   void* fx, void* fy, void* fz, void* pot,
-                                  int n_rows, int nx, int ny, int nz,
-                                  int row_cap, int tile_rows,
+                                  int n_sys, int n_rows, int nx, int ny,
+                                  int nz, int row_cap, int tile_rows,
                                   float cutoff2, int kind, float p0, float p1,
                                   float p2, float p3, int n_extra,
                                   void* stream) {
-  if (row_cap < 1 || nx < 1 || ny < 1 || nz < 1 || n_rows < 0 ||
+  if (n_sys < 1 || n_sys > kMaxSystems || row_cap < 1 || nx < 1 || ny < 1 ||
+      nz < 1 || n_rows < 0 || (long long)n_sys * n_rows > 0x7fffffffLL ||
       (active == nullptr && n_rows != nz * ny))
     return cudaErrorInvalidValue;
-  if (tile_rows < 0) tile_rows = packed_tile_rows(row_cap, n_rows);
+  if (tile_rows < 0) tile_rows = packed_tile_rows(row_cap, n_sys * n_rows);
   if (tile_rows > kMaxTileRows || packed_smem(tile_rows, row_cap) > kMaxSmem)
     return cudaErrorInvalidValue;
   return launch_packed(x, y, z, slot_id, slot_cell, cell_offsets, active, fx,
-                       fy, fz, pot, n_rows, nx, ny, row_cap, tile_rows,
-                       cutoff2, kind, PairParams{p0, p1, p2, p3, n_extra},
-                       stream);
+                       fy, fz, pot, n_sys, n_rows, nx, ny, nz, row_cap,
+                       tile_rows, cutoff2, kind,
+                       PairParams{p0, p1, p2, p3, n_extra}, stream);
 }

@@ -6,7 +6,9 @@
 run a force kernel and scatter its result back to particle order;
 ``prefix_sum`` is the paper's §6 scan; ``window_attention`` (kernel G) is
 the sliding-window attention of the LM's local layers. Each wrapper runs
-its plain PyTorch version on CPU tensors.
+its plain PyTorch version on CPU tensors. The particle entry points take
+stacked layout data (a leading system axis, ``InteractionPlan.
+execute_batch``) as they take one system's, in the same launches.
 """
 
 from __future__ import annotations
@@ -59,7 +61,8 @@ def xpencil_sparse_interactions(domain: Domain, bins: CellBins,
         bins.planes, bins.slot_id, occ.active, nx=nx, ny=ny, m_c=bins.m_c,
         kernel=kernel, cutoff2=float(domain.cutoff) ** 2)
     idx = occ.scatter_indices()
-    fx, fy, fz, pot = (scatter_rows(r, idx, nz * ny).view(nz, ny, -1)
+    fx, fy, fz, pot = (scatter_rows(r, idx, nz * ny).view(*idx.shape[:-1],
+                                                          nz, ny, -1)
                        for r in rows)
     return dense_to_particles(domain, bins, fx, fy, fz, pot)
 

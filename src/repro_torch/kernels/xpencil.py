@@ -10,7 +10,8 @@
 On CPU tensors each wrapper runs its plain version (the same schedule in
 PyTorch, ``repro_torch.core.strategies.xpencil_*planes``); on CUDA tensors
 it launches its kernel or raises. ``<wrapper>.launches`` counts the
-launches. All three launch work per real particle and visit only the real
+launches. Every tensor may carry a leading axis of stacked systems; one
+launch then covers them all (a kernel D tile never spans two systems). All three launch work per real particle and visit only the real
 sources of each target's window, in ascending slot order: kernels B and C
 compact each staged neighbour row in shared memory (``pencil_smem_bytes``
 at the chunk width ``chunk_cells``); kernel D takes a tile of
@@ -28,7 +29,8 @@ import torch
 from ..core.interactions import PairKernel
 from ..core.strategies import (xpencil_packed_planes, xpencil_planes,
                                xpencil_sparse_planes)
-from ._common import MAX_SMEM, check_tensors, cuda_form, launch, new_outputs
+from ._common import (MAX_SMEM, check_tensors, cuda_form, launch,
+                      new_outputs, systems)
 
 # kernels B and C (csrc/xpencil.cu: kPencilWarps, kMaxChunkCells, kChunkSmem)
 PENCIL_WARPS = 4              # 128 threads a block
@@ -99,7 +101,8 @@ def packed_tile_rows(row_cap: int, n_rows: int) -> int:
     the most, up to ``MAX_TILE_ROWS``, whose block needs at most
     ``PACKED_SMEM`` bytes and that leave at least ``MIN_TILES`` tiles of the
     ``n_rows`` entries (at least 1); 0 where a block of one pencil exceeds
-    ``MAX_SMEM`` (``row_cap`` > 2293)."""
+    ``MAX_SMEM`` (``row_cap`` > 2293). A launch over stacked systems sizes
+    its tile on the batch's entries, ``n_sys * n_rows``."""
     if packed_smem_bytes(1, row_cap) > MAX_SMEM:
         return 0
     r = MAX_TILE_ROWS
@@ -120,7 +123,7 @@ def _dense_planes(x, y, z, slot_id, nx: int, m_c: int, what: str):
             f"m_c={m_c} does not fit the CUDA X-pencil kernel: a block of "
             f"one cell stages {pencil_smem_bytes(1, m_c)} bytes of shared "
             f"memory, at most {MAX_SMEM} (1 <= m_c <= {MAX_M_C})")
-    nzp, nyp, width = x.shape
+    nzp, nyp, width = x.shape[-3:]
     if width != (nx + 2) * m_c or nzp < 3 or nyp < 3:
         raise ValueError(f"planes of shape {tuple(x.shape)} do not match "
                          f"nx={nx}, m_c={m_c}")
@@ -148,7 +151,8 @@ def xpencil_forces(planes: Dict[str, torch.Tensor], slot_id: torch.Tensor, *,
     """Kernel B: the X-pencil schedule over padded planes.
 
     Args:
-      planes: "x", "y", "z" float32 planes of shape (nz+2, ny+2, (nx+2)*m_c).
+      planes: "x", "y", "z" float32 planes of shape (nz+2, ny+2, (nx+2)*m_c),
+        or (B, nz+2, ...) for B stacked systems (every output then (B, ...)).
       slot_id: matching int32 plane, -1 for empty slots (anywhere in a cell).
       cx_cells: the kernel's chunk width in cells, or None for
         ``chunk_cells(nx, m_c)``; the result does not depend on it.
@@ -163,17 +167,18 @@ def xpencil_forces(planes: Dict[str, torch.Tensor], slot_id: torch.Tensor, *,
     if x.device.type != "cuda":
         raise ValueError(f"xpencil_forces runs on cpu or cuda, not {x.device}")
     form = cuda_form(kernel)
+    lead, n_sys = systems(x, 3, "xpencil_forces")
     nz, ny = _dense_planes(x, y, z, slot_id, nx, m_c, "xpencil_forces")
-    outs = new_outputs((nz, ny, nx * m_c), x.device)
+    outs = new_outputs((*lead, nz, ny, nx * m_c), x.device)
     ptrs = (x.data_ptr(), y.data_ptr(), z.data_ptr(), slot_id.data_ptr())
     if cx_cells is None:
         launch("xpencil.cu", "xpencil_forces_f32", x, *ptrs,
-               *(o.data_ptr() for o in outs), nx, ny, nz, m_c,
+               *(o.data_ptr() for o in outs), n_sys, nx, ny, nz, m_c,
                float(cutoff2), *form)
     else:
         launch("xpencil.cu", "xpencil_chunked_f32", x, *ptrs, None,
-               *(o.data_ptr() for o in outs), nz * ny, nx, ny, nz, m_c,
-               cx_cells, float(cutoff2), *form)
+               *(o.data_ptr() for o in outs), n_sys, nz * ny, nx, ny, nz,
+               m_c, cx_cells, float(cutoff2), *form)
     xpencil_forces.launches += 1
     return outs
 
@@ -189,7 +194,8 @@ def xpencil_sparse_forces(planes: Dict[str, torch.Tensor],
       planes / slot_id: dense padded planes as in :func:`xpencil_forces`.
       active_zy: (n_rows,) int32 interior pencil ids ``z * ny + y``, each in
         [0, nz * ny) (``Occupancy.active``; its padding, pencil 0,
-        recomputes pencil 0 and is dropped by the caller's scatter).
+        recomputes pencil 0 and is dropped by the caller's scatter);
+        (B, n_rows) for stacked planes, one list a system.
       cx_cells: the chunk width, as in :func:`xpencil_forces`.
     Returns:
       (fx, fy, fz, pot), each ``(n_rows, nx*m_c)``: row ``a`` holds the
@@ -205,25 +211,26 @@ def xpencil_sparse_forces(planes: Dict[str, torch.Tensor],
         raise ValueError(
             f"xpencil_sparse_forces runs on cpu or cuda, not {x.device}")
     form = cuda_form(kernel)
+    lead, n_sys = systems(x, 3, "xpencil_sparse_forces")
     nz, nyy = _dense_planes(x, y, z, slot_id, nx, m_c,
                             "xpencil_sparse_forces")
     if nyy != ny:
         raise ValueError(f"planes of shape {tuple(x.shape)} do not match "
                          f"ny={ny}")
-    n_rows = active_zy.shape[0]
+    n_rows = active_zy.shape[-1]
     check_tensors(x.device,
-                  [("active_zy", active_zy, torch.int32, (n_rows,))],
+                  [("active_zy", active_zy, torch.int32, (*lead, n_rows))],
                   "xpencil_sparse_forces")
-    outs = new_outputs((n_rows, nx * m_c), x.device)
+    outs = new_outputs((*lead, n_rows, nx * m_c), x.device)
     ptrs = (x.data_ptr(), y.data_ptr(), z.data_ptr(), slot_id.data_ptr(),
             active_zy.data_ptr())
     if cx_cells is None:
         launch("xpencil.cu", "xpencil_sparse_f32", x, *ptrs,
-               *(o.data_ptr() for o in outs), n_rows, nx, ny, nz, m_c,
+               *(o.data_ptr() for o in outs), n_sys, n_rows, nx, ny, nz, m_c,
                float(cutoff2), *form)
     else:
         launch("xpencil.cu", "xpencil_chunked_f32", x, *ptrs,
-               *(o.data_ptr() for o in outs), n_rows, nx, ny, nz, m_c,
+               *(o.data_ptr() for o in outs), n_sys, n_rows, nx, ny, nz, m_c,
                cx_cells, float(cutoff2), *form)
     xpencil_sparse_forces.launches += 1
     return outs
@@ -244,17 +251,19 @@ def xpencil_packed_forces(planes: Dict[str, torch.Tensor],
         ``(nz+2, ny+2, nx+3)`` int32.
       active_zy: (n_rows,) int32 interior pencil ids (an
         ``Occupancy.active`` list), or None for every row in id order.
+        Stacked systems add a leading axis to every array, lists included.
       m_c: the dense bound the plain version re-expands windows to; the
         kernel reads windows from the offsets and does not need it.
       tile_rows: the kernel's pencils a tile (0: one, staged a row at a
         time in one buffer), or None for ``packed_tile_rows(row_cap,
-        n_rows)``. The result does not depend on it.
+        n_sys * n_rows)``. A tile is a run of one system's list, never of
+        two. The result does not depend on it.
     Returns:
       (fx, fy, fz, pot), each ``(n_rows, row_cap)``: row ``a`` holds the
       packed-slot forces of pencil ``active_zy[a]``; padding slots are 0.
     """
     x, y, z = planes["x"], planes["y"], planes["z"]
-    nzp, nyp, row_cap = x.shape
+    nzp, nyp, row_cap = x.shape[-3:]
     if tile_rows is not None and not (
             0 <= tile_rows <= MAX_TILE_ROWS
             and packed_smem_bytes(tile_rows, row_cap) <= MAX_SMEM):
@@ -265,7 +274,8 @@ def xpencil_packed_forces(planes: Dict[str, torch.Tensor],
             f"memory, at most {MAX_SMEM}")
     if x.device.type == "cpu":
         if active_zy is None:
-            active_zy = torch.arange((nzp - 2) * ny, dtype=torch.int32)
+            active_zy = torch.arange((nzp - 2) * ny, dtype=torch.int32
+                                     ).expand(*x.shape[:-3], -1)
         return xpencil_packed_planes(x, y, z, slot_id, slot_cell,
                                      cell_offsets, active_zy, nx=nx, ny=ny,
                                      m_c=m_c, kernel=kernel, cutoff2=cutoff2)
@@ -273,6 +283,7 @@ def xpencil_packed_forces(planes: Dict[str, torch.Tensor],
         raise ValueError(
             f"xpencil_packed_forces runs on cpu or cuda, not {x.device}")
     form = cuda_form(kernel)
+    lead, n_sys = systems(x, 3, "xpencil_packed_forces")
     if nyp != ny + 2 or nzp < 3 or row_cap < 1:
         raise ValueError(f"packed planes of shape {tuple(x.shape)} do not "
                          f"match ny={ny}")
@@ -286,18 +297,20 @@ def xpencil_packed_forces(planes: Dict[str, torch.Tensor],
         ("z", z, torch.float32, x.shape),
         ("slot_id", slot_id, torch.int32, x.shape),
         ("slot_cell", slot_cell, torch.int32, x.shape),
-        ("cell_offsets", cell_offsets, torch.int32, (nzp, nyp, nx + 3))]
+        ("cell_offsets", cell_offsets, torch.int32,
+         (*lead, nzp, nyp, nx + 3))]
     if active_zy is None:
         n_rows, act_ptr = (nzp - 2) * ny, None
     else:
-        n_rows, act_ptr = active_zy.shape[0], active_zy.data_ptr()
-        tensors.append(("active_zy", active_zy, torch.int32, (n_rows,)))
+        n_rows, act_ptr = active_zy.shape[-1], active_zy.data_ptr()
+        tensors.append(("active_zy", active_zy, torch.int32,
+                        (*lead, n_rows)))
     check_tensors(x.device, tensors, "xpencil_packed_forces")
-    outs = new_outputs((n_rows, row_cap), x.device)
+    outs = new_outputs((*lead, n_rows, row_cap), x.device)
     launch("xpencil.cu", "xpencil_packed_f32", x, x.data_ptr(), y.data_ptr(),
            z.data_ptr(), slot_id.data_ptr(), slot_cell.data_ptr(),
            cell_offsets.data_ptr(), act_ptr, *(o.data_ptr() for o in outs),
-           n_rows, nx, ny, nzp - 2, row_cap,
+           n_sys, n_rows, nx, ny, nzp - 2, row_cap,
            -1 if tile_rows is None else tile_rows, float(cutoff2), *form)
     xpencil_packed_forces.launches += 1
     return outs

@@ -22,7 +22,7 @@ from repro_torch.core.interactions import PairKernel
 from repro_torch.core.binning import (bin_particles, build_sfc_clusters,
                                       sfc_device_slot_tables, sfc_n_clusters,
                                       sfc_pair_count, sfc_to_particles)
-from repro_torch.core.binning import CellBins, pack_slots_plain
+from repro_torch.core.binning import CellBins, pack_slots_plain, system
 from repro_torch.kernels.allin import allin_forces, halo_bytes
 from repro_torch.kernels.pack import pack_slots
 from repro_torch.kernels.prefix_sum import prefix_sum
@@ -1081,3 +1081,190 @@ def _to_cpu(tree):
     if isinstance(tree, dict):
         return {k: _to_cpu(v) for k, v in tree.items()}
     return tree.cpu()
+
+
+# -- stacked systems: one launch a batch, each system as if launched alone --
+
+def _stacked_scene(gen, periodic, b=3, n=200, ncells=(5, 4, 3)):
+    """B uniform systems with a fifth of their rows padding, system 1
+    padding throughout."""
+    dom = Domain(box=tuple(float(v) for v in ncells), ncells=ncells,
+                 cutoff=1.0, periodic=periodic)
+    pos = torch.stack([dom.sample_uniform(n, generator=gen, device="cuda")
+                       for _ in range(b)])
+    valid = torch.rand((b, n), generator=gen, device="cuda") > 0.2
+    valid[1] = False
+    return dom, ParticleState(pos, valid=valid)
+
+
+def _pack_inputs(dom, bins):
+    """Each padded row's exclusive cell offsets and its occupied slots."""
+    nx, ny, nz = dom.ncells
+    occ = bins.slot_id.view(*bins.slot_id.shape[:-3], nz + 2, ny + 2,
+                            nx + 2, bins.m_c) >= 0
+    cc = occ.sum(-1, dtype=torch.int32)
+    return cc.cumsum(-1, dtype=torch.int32) - cc, cc.sum(-1, dtype=torch.int32)
+
+
+BATCH_WRAPPERS = {"B": xpencil_forces, "C": xpencil_sparse_forces,
+                  "D": xpencil_packed_forces, "E": allin_forces,
+                  "F": cell_sfc_forces, "pack": pack_slots}
+
+
+def _kernel_outputs(which, dom, bins, kern, plain=False, **kw):
+    """Kernel ``which`` (or its plain version) on one system's or stacked
+    ``bins``, the layout it reads built from them -> its outputs."""
+    nx, ny, nz = dom.ncells
+    m_c = bins.m_c
+    xyz = (bins.planes["x"], bins.planes["y"], bins.planes["z"])
+    args = dict(kernel=kern, cutoff2=1.0)
+    if which == "B":
+        if plain:
+            return S.xpencil_planes(*xyz, bins.slot_id, nx=nx, m_c=m_c, **args)
+        return xpencil_forces(bins.planes, bins.slot_id, nx=nx, m_c=m_c,
+                              **args, **kw)
+    if which == "C":
+        act = pencil_occupancy(dom, bins.counts, nz * ny - 2).active
+        if plain:
+            return S.xpencil_sparse_planes(*xyz, bins.slot_id, act, nx=nx,
+                                           ny=ny, m_c=m_c, **args)
+        return xpencil_sparse_forces(bins.planes, bins.slot_id, act, nx=nx,
+                                     ny=ny, m_c=m_c, **args, **kw)
+    if which == "D":
+        pk = pack_rows(dom, bins, 40)
+        act = pencil_occupancy(dom, bins.counts, nz * ny - 2).active
+        parts = (pk.slot_id, pk.slot_cell, pk.cell_offsets, act)
+        if plain:
+            return S.xpencil_packed_planes(pk.planes["x"], pk.planes["y"],
+                                           pk.planes["z"], *parts, nx=nx,
+                                           ny=ny, m_c=m_c, **args)
+        return xpencil_packed_forces(pk.planes, *parts, nx=nx, ny=ny,
+                                     m_c=m_c, **args, **kw)
+    if which == "E":
+        box = (1, 2, 3)
+        if plain:
+            return S.allin_planes(*xyz, bins.slot_id, box=box, m_c=m_c,
+                                  **args)
+        return allin_forces(bins.planes, bins.slot_id, box=box, m_c=m_c,
+                            **args, **kw)
+    if which == "F":
+        sfc = build_sfc_clusters(dom, bins, 27 * sfc_n_clusters(dom))
+        tgt, src = sfc_device_slot_tables(dom, m_c, sfc.csize, sfc.curve,
+                                          bins.slot_id.device)
+        if plain:
+            return S.cell_sfc_tiles(*xyz, bins.slot_id, sfc.codes, tgt, src,
+                                    m_c=m_c, **args)
+        return cell_sfc_forces(bins.planes, bins.slot_id, sfc.codes, tgt, src,
+                               m_c=m_c, **args, **kw)
+    offsets, row_counts = _pack_inputs(dom, bins)
+    fn = pack_slots_plain if plain else pack_slots
+    planes, *rest = fn(bins, offsets, row_counts, nx=nx, ny=ny, row_cap=40)
+    return (*planes.values(), *rest)
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("which", sorted(BATCH_WRAPPERS))
+def test_batched_kernel_matches_plain_and_single_launches(gen, periodic,
+                                                          which):
+    """One launch for three systems (one of them all padding), within
+    1e-4 of the batched plain version (the pack kernel: equal) and equal
+    bit for bit, system by system, to a launch on that system alone."""
+    dom, states = _stacked_scene(gen, periodic)
+    bins = bin_particles(dom, states.positions, m_c=24, valid=states.valid)
+    kern = make_low_flop()
+    wrapper = BATCH_WRAPPERS[which]
+    wrapper.launches = 0
+    got = _kernel_outputs(which, dom, bins, kern)
+    torch.cuda.synchronize()
+    assert wrapper.launches == 1
+    want = _kernel_outputs(which, dom, bins, kern, plain=True)
+    for g, w in zip(got, want, strict=True):
+        assert g.shape[0] == 3 and g.shape == w.shape
+        if which == "pack":
+            assert torch.equal(g, w)
+        else:
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+            assert not bool(g[1].any())        # the all-padding system
+    for i in range(3):
+        one = _kernel_outputs(which, dom, system(bins, i), kern)
+        for g, o in zip(got, one, strict=True):
+            assert torch.equal(g[i], o), (which, i)
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+def test_packed_kernel_tiles_across_a_system_boundary(gen, periodic):
+    """Every tile that fits, most of which do not divide a system's 12 rows
+    (a tiling of the flat batch list would put those across two systems),
+    over every row and over active lists: each system's rows equal a
+    launch on that system alone."""
+    dom, states = _stacked_scene(gen, periodic, b=4)
+    bins = bin_particles(dom, states.positions, m_c=24, valid=states.valid)
+    pk = pack_rows(dom, bins, 40)
+    kern = make_low_flop()
+    for act in (None, pencil_occupancy(dom, bins.counts, 10).active):
+        kw = dict(nx=5, ny=4, m_c=24, kernel=kern, cutoff2=1.0)
+        alone = [xpencil_packed_forces(
+            system(pk, i).planes, system(pk, i).slot_id,
+            system(pk, i).slot_cell, system(pk, i).cell_offsets,
+            None if act is None else act[i], **kw) for i in range(4)]
+        for r in range(MAX_TILE_ROWS + 1):
+            if packed_smem_bytes(r, 40) > MAX_SMEM:
+                continue
+            got = xpencil_packed_forces(pk.planes, pk.slot_id, pk.slot_cell,
+                                        pk.cell_offsets, act, tile_rows=r,
+                                        **kw)
+            for i in range(4):
+                assert all(torch.equal(g[i], w)
+                           for g, w in zip(got, alone[i])), (r, i)
+
+
+def _covering_plan(dom, states, **kw):
+    each = [system(states, b) for b in range(states.positions.shape[0])]
+    p = plan(dom, positions=each[0].positions, **kw)
+    grown = True
+    while grown:
+        grown = False
+        for st in each:
+            while p.check_overflow(st):
+                p, grown = p.replan(st), True
+    return p
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+def test_execute_batch_launches_once_and_equals_loop(gen, periodic):
+    """Every "cuda" path: one launch of its kernels for four systems
+    (kernel A once per scan), each system's result equal bit for bit to
+    ``execute`` on it alone, the all-padding system's 0."""
+    dom, states = _stacked_scene(gen, periodic, b=4, n=300)
+    counters = (prefix_sum, pack_slots, xpencil_forces, xpencil_sparse_forces,
+                xpencil_packed_forces, allin_forces, cell_sfc_forces)
+    for kw, want in (
+            (dict(), {"prefix_sum": 1, "xpencil_forces": 1}),
+            (dict(compact=True), {"prefix_sum": 1,
+                                  "xpencil_sparse_forces": 1}),
+            (dict(layout="packed"), {"prefix_sum": 2, "pack_slots": 1,
+                                     "xpencil_packed_forces": 1}),
+            (dict(layout="packed", compact=True),
+             {"prefix_sum": 2, "pack_slots": 1, "xpencil_packed_forces": 1}),
+            (dict(strategy="allin"), {"prefix_sum": 1, "allin_forces": 1}),
+            (dict(strategy="cell_dense", layout="sfc"),
+             {"prefix_sum": 1, "cell_sfc_forces": 1})):
+        p = _covering_plan(dom, states, **kw)
+        for c in counters:
+            c.launches = 0
+        fb, ub = p.execute_batch(states)
+        torch.cuda.synchronize()
+        assert {c.__name__: c.launches for c in counters if c.launches} \
+            == want, kw
+        for i in range(4):
+            f, u = p.execute(system(states, i))
+            assert torch.equal(fb[i], f) and torch.equal(ub[i], u), (kw, i)
+        assert not bool(fb[1].any()) and bool(fb[0].isfinite().all())
+
+
+def test_wrappers_refuse_two_leading_axes(gen):
+    plane = torch.zeros((2, 2, 3, 3, 24), device="cuda")
+    with pytest.raises(ValueError, match="stacked on a leading axis"):
+        xpencil_forces({"x": plane, "y": plane, "z": plane},
+                       plane.to(torch.int32), nx=1, m_c=8,
+                       kernel=make_low_flop(), cutoff2=1.0)
