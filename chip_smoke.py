@@ -48,9 +48,19 @@ the main paths through ``plan(...).execute()`` and checks and times them:
     kernels against their batched plain versions (on (e) and the periodic
     scene) and, system by system, equal to a launch on one system alone
     (kernel D also at tiles that do not divide a system's rows), the CUDA
-    launches of a call under ``torch.profiler`` the same at 16 and 64
-    systems; the batch, the loop of ``execute()`` calls and each batched
-    kernel beside B times one system's launch timed by CUDA events;
+    launch calls of a call under ``torch.profiler`` (the same in five
+    sessions) the same at 16 and 64 systems; the batch, the loop of
+    ``execute()`` calls and each batched kernel beside B times one
+    system's launch timed by CUDA events;
+  * autotune: ``plan``'s default ``strategy="auto"`` on the uniform
+    division-64 scene and, with ``layout="packed"`` (and compacted), on the
+    blob, each pick's ``execute()`` equal to its explicit plan and to the
+    dense X-pencil bit for bit, beside every strategy's modelled bytes per
+    interaction; ``tune`` over the ``"cuda"`` backend on both scenes, every
+    kept candidate timed (``core.timing.time_fn``), the winner equal to its
+    explicit plan and timed by ``cuda_ms_queued`` too, a second ``tune`` a
+    cache hit with no timing run; ``strategy="autotune", backend="all"`` at
+    division 16, with the reference schedules timed on the card;
   * kernel G (sliding-window attention) against its plain version over a
     sweep of batch, GQA ratio, head_dim, window, softcap and dtype, and at
     the gemma2-2b shape, each case on the route ``route(dtype, D)`` names
@@ -124,24 +134,27 @@ SFC_PLAIN_BATCH = 2048           # clusters per chunk of F's plain version
 # dense division-64 scene's count. The periodic (f) has one system that is
 # padding throughout. Kernels are held against their plain versions on the
 # scenes marked so; (f)'s launches are counted under torch.profiler at
-# BATCH_PROFILED systems.
+# BATCH_PROFILED systems, in PROFILE_SESSIONS sessions each.
 BATCH_SCENES = (  # name, B, division, per cell, periodic, kernel checks
     ("e", 8, 32, 4, False, True),
     ("f", 64, 16, 4, False, False),
     ("f periodic", 16, 16, 4, True, True),
 )
 BATCH_PATHS = (   # label, plan options, kernels launched once a batch
-    ("dense", {}, ("prefix_sum", "xpencil_forces")),
-    ("compact", {"compact": True}, ("prefix_sum", "xpencil_sparse_forces")),
-    ("packed", {"layout": "packed"},
+    ("dense", {"strategy": "xpencil"}, ("prefix_sum", "xpencil_forces")),
+    ("compact", {"strategy": "xpencil", "compact": True},
+     ("prefix_sum", "xpencil_sparse_forces")),
+    ("packed", {"strategy": "xpencil", "layout": "packed"},
      ("prefix_sum", "pack_slots", "xpencil_packed_forces")),
-    ("packed+compact", {"layout": "packed", "compact": True},
+    ("packed+compact", {"strategy": "xpencil", "layout": "packed",
+                        "compact": True},
      ("prefix_sum", "pack_slots", "xpencil_packed_forces")),
     ("allin", {"strategy": "allin"}, ("prefix_sum", "allin_forces")),
     ("sfc", {"strategy": "cell_dense", "layout": "sfc"},
      ("prefix_sum", "cell_sfc_forces")),
 )
 BATCH_PROFILED = (16, 64)
+PROFILE_SESSIONS = 5      # profiler sessions a count (``launches_in_turns``)
 
 # bf16 dense tensor-core peak of the H100 SXM at 700 W (NVIDIA data sheet):
 # kernel G's operations bound on bf16 inputs
@@ -732,11 +745,9 @@ def set_precision_flags(flags) -> None:
     torch.backends.cudnn.allow_tf32 = flags["cudnn.allow_tf32"]
 
 
-def device_time(fn, reps: int = 1):
-    """(device ms per call, kernel launches per call, [(kernel, ms per
-    call), ...] largest first) of ``fn()`` under ``torch.profiler``: the sum
-    of the CUDA kernels' own times, which excludes the gaps in which the
-    card waits for the host."""
+def profile_calls(fn, reps: int):
+    """``torch.profiler``'s record of ``reps`` calls of ``fn()`` on an idle
+    card."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -744,6 +755,14 @@ def device_time(fn, reps: int = 1):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    return prof
+
+
+def device_kernels(prof, reps: int):
+    """(device ms per call, device records per call, [(kernel, ms per
+    call), ...] largest first) of a profile: the sum of the CUDA kernels'
+    own times, which excludes the gaps in which the card waits for the
+    host."""
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     kernels = sorted(((e.key, e.self_device_time_total / 1e3 / reps)
@@ -754,6 +773,62 @@ def device_time(fn, reps: int = 1):
         # that saw no kernel on the card would pass them untested
         raise AssertionError("torch.profiler recorded no device time")
     return total, sum(e.count for e in events) / reps, kernels
+
+
+def device_time(fn, reps: int = 1, sessions: int = 2):
+    """``device_kernels`` of ``reps`` calls of ``fn()``, from the one of
+    ``sessions`` profiles that holds the most records on the card (the
+    profiler drops some, see ``LAUNCH_CALLS``)."""
+    profs = [profile_calls(fn, reps) for _ in range(sessions)]
+    return device_kernels(max(profs, key=lambda prof: sum(
+        e.count for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA)), reps)
+
+
+# The host's runtime calls that put work on the card. torch.profiler on the
+# H100 keeps every such call but not every record of the work on the card:
+# here a session of a batch path mostly lacked 17 or 19 of its 270-490
+# records, now and then 48-106, once all of them, while its count of
+# launch calls never changed. So a call's launches are counted on the host, where every
+# session agrees; a record on the card carries its call's correlation id,
+# which shows how many of them each session saw.
+LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset",
+                "cuMemcpy", "cuMemset")
+
+
+def launches_in_turns(fns: dict, reps: int, sessions: int) -> dict:
+    """{key: dict(launches, device_ms, records_on_card)} of each
+    ``fns[key]()`` under ``sessions`` profiler sessions a key, the keys in
+    turns. ``launches``: the host's launch calls a call; ``records_on_card``:
+    each session's records on the card a call that answer its own launch
+    calls; ``device_ms``: the median over the sessions that hold any. A
+    session that holds neither a launch call nor a record is left out.
+    Raises when a key's launch calls differ between the other sessions or
+    none of them holds a record on the card."""
+    cuda = torch.autograd.DeviceType.CUDA
+    seen = {k: [] for k in fns}
+    for _ in range(sessions):
+        for k, fn in fns.items():
+            prof = profile_calls(fn, reps)
+            events = prof.events()
+            calls = {e.id for e in events if e.device_type != cuda
+                     and e.name.startswith(LAUNCH_CALLS)}
+            on_card = calls & {e.id for e in events if e.device_type == cuda}
+            ms = sum(e.self_device_time_total for e in prof.key_averages()
+                     if e.device_type == cuda) / 1e3 / reps
+            seen[k].append((len(calls) / reps, len(on_card) / reps, ms))
+    out = {}
+    for k, runs in seen.items():
+        calls = {c for c, n, _ in runs if c or n}
+        held = [ms for _, n, ms in runs if n > 0]
+        if len(calls) != 1 or not held:
+            raise AssertionError(f"{k}: (launch calls, records on the card, "
+                                 f"device ms) a call in {sessions} profiler "
+                                 f"sessions: {runs}")
+        out[k] = dict(launches=calls.pop(),
+                      device_ms=statistics.median(held),
+                      records_on_card=[n for _, n, _ in runs])
+    return out
 
 
 # kernel-name groups of the LM's device time, tried in order
@@ -797,6 +872,217 @@ def slot_pairs_visited(launch) -> int:
     launch(visits)
     torch.cuda.synchronize()
     return int(visits)
+
+
+def path_kernels(p) -> tuple:
+    """The wrappers a ``"cuda"`` plan's ``execute()`` must launch (kernel A
+    in every binning on the card); the reference schedules launch only A."""
+    if p.backend != "cuda":
+        return ("prefix_sum",)
+    if p.layout == "packed":
+        return ("prefix_sum", "pack_slots", "xpencil_packed_forces")
+    if p.layout == "sfc":
+        return ("prefix_sum", "cell_sfc_forces")
+    if p.strategy == "allin":
+        return ("prefix_sum", "allin_forces")
+    return ("prefix_sum", "xpencil_sparse_forces" if p.compact
+            else "xpencil_forces")
+
+
+def autotune_phase(dom, kern, pos_u, pos_b, gen, dev, run_main,
+                   assert_equal_results):
+    """``plan``'s default ``strategy="auto"`` and the measured autotuner
+    (``core.autotune.tune``) on the division-64 uniform scene (1,048,576
+    particles) and the blob, then ``strategy="autotune", backend="all"`` at
+    division 16, where the reference schedules are timed on the card too.
+
+    Each pick and each winner runs through ``execute()`` with the launch
+    counts set to 0 just before, and equals an explicit plan of the same
+    choice bit for bit; the auto picks also equal the dense X-pencil's. A
+    second ``tune`` on the same inputs is a cache hit with no timing run.
+    The tuner's cache is a fresh directory under ``build/``, removed at the
+    end."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.core import (ParticleState, active_unit_count,
+                                  choose_strategy, n_units, plan,
+                                  supports_compact, traffic, tune)
+    from repro_torch.core import autotune as at
+    from repro_torch.core.domain import Domain
+
+    t_phase = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    cache = tempfile.mkdtemp(prefix="autotune_cache_", dir=ROOT / "build")
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = cache
+    out = {"cache_dir": str(pathlib.Path(cache).relative_to(ROOT))}
+
+    def explicit(p, pos):
+        return plan(p.domain, p.kernel, positions=pos, strategy=p.strategy,
+                    backend=p.backend, m_c=p.m_c, batch_size=p.batch_size,
+                    box=p.box, compact=p.compact, max_active=p.max_active,
+                    layout=p.layout, row_cap=p.row_cap, pair_cap=p.pair_cap)
+
+    def modelled(p, pos):
+        ppc = pos.shape[0] / p.domain.n_cells
+        return {name: r.hbm_bytes_per_interaction for name, r in
+                traffic.model(p.domain, p.m_c, ppc).items()}
+
+    # 1. strategy="auto", the default, at full width
+    states = {"uniform": ParticleState(pos_u), "blob": ParticleState(pos_b)}
+    auto = {}
+    for label, pos, kw in (("uniform", pos_u, {}),
+                           ("blob packed", pos_b, {"layout": "packed"}),
+                           ("blob packed compact", pos_b,
+                            {"layout": "packed", "compact": True})):
+        state = states[label.split()[0]]
+        p = plan(dom, kern, positions=pos, **kw)
+        f, u, launches = run_main(p, state, f"auto {label}", path_kernels(p))
+        assert_equal_results((f, u), explicit(p, pos).execute(state),
+                             f"auto {label} vs its explicit plan")
+        dense = plan(dom, kern, positions=pos, m_c=p.m_c,
+                     strategy="xpencil").execute(state)
+        assert_equal_results((f, u), dense,
+                             f"auto {label} ({p.strategy}) vs dense X-pencil")
+        bpi = modelled(p, pos)
+        auto[label] = dict(strategy=p.strategy, layout=p.layout,
+                           compact=p.compact, m_c=p.m_c, box=p.box,
+                           launches=launches,
+                           modelled_bytes_per_interaction=bpi)
+        log(f"auto {label}: picks {p.strategy} (m_c {p.m_c}, box {p.box}); "
+            f"modelled B/interaction {bpi}; launches {launches}; equal to "
+            "its explicit plan and to the dense X-pencil")
+    for label in ("blob packed", "blob packed compact"):
+        if auto[label]["strategy"] != "xpencil":
+            raise AssertionError(f"auto {label}: {auto[label]}")
+    # compact=True on "cuda" would pick allin, which "cuda" runs dense only
+    # (the plan raises; a CPU test holds that)
+    u_mc = auto["uniform"]["m_c"]
+    compact_pick = choose_strategy(dom, u_mc, pos_u.shape[0] / dom.n_cells,
+                                   among=("cell_dense", "xpencil", "allin"))
+    if compact_pick != "allin" or supports_compact("cuda", "allin"):
+        raise AssertionError(f"auto compact=True: picks {compact_pick}, "
+                             f"cuda compacted allin "
+                             f"{supports_compact('cuda', 'allin')}")
+    auto["uniform compact"] = dict(strategy=compact_pick,
+                                   cuda_has_compacted_path=False)
+    out["auto"] = auto
+
+    # 2. tune at full width over the cuda backend
+    def candidate_record(res, c, p_domain, pos):
+        """A timed candidate, with the modelled bytes per interaction the
+        tuner ranked it by (a compacted one at its measured fill)."""
+        def fill_for(c):
+            return (active_unit_count(p_domain, pos, c.strategy, box=c.box)
+                    / n_units(p_domain, c.strategy, box=c.box))
+        return dict(strategy=c.strategy, backend=c.backend, layout=c.layout,
+                    compact=c.compact, m_c=c.m_c, box=c.box,
+                    batch_size=c.batch_size, ms=res.timings[c] * 1e3,
+                    reps=res.reps[c],
+                    modelled_bytes_per_interaction=at._cost(
+                        p_domain, pos.shape[0] / p_domain.n_cells, c,
+                        fill_for))
+
+    tuned = {}
+    for label, pos in (("uniform", pos_u), ("blob", pos_b)):
+        state = states[label]
+        t0 = time.perf_counter()
+        res = tune(dom, kern, pos, backends=("cuda",))
+        tune_s = time.perf_counter() - t0
+        n_space = len(res.timings) + len(res.pruned)
+        if res.cache_hit or len(res.timings) != min(at.DEFAULT_TOP_K,
+                                                    n_space):
+            raise AssertionError(f"tune {label}: {len(res.timings)} timed of "
+                                 f"{n_space}, cache hit {res.cache_hit}")
+        timed = [candidate_record(res, c, dom, pos) for c in
+                 sorted(res.timings, key=res.timings.get)]
+        for rec in timed:
+            log(f"  tune {label}: {rec}")
+        w = res.candidate
+        f, u, launches = run_main(res.plan, state, f"tuned {label}",
+                                  path_kernels(res.plan))
+        assert_equal_results((f, u), explicit(res.plan, pos).execute(state),
+                             f"tuned {label} vs its explicit plan")
+        runs = at.timing_run_count()
+        again = tune(dom, kern, pos, backends=("cuda",))
+        if not again.cache_hit or again.candidate != w or \
+                at.timing_run_count() != runs:
+            raise AssertionError(f"tune {label} again: cache hit "
+                                 f"{again.cache_hit}, {again.candidate}, "
+                                 f"timing runs {runs} -> "
+                                 f"{at.timing_run_count()}")
+        queued = cuda_ms_queued(lambda: res.plan.execute(state), 20)
+        # the model's pick (plan's default) against the stopwatch's, in
+        # turns; then the tuner once more without its cache
+        pa = plan(dom, kern, positions=pos)
+        turns = {"auto": [], "winner": []}
+        for which in ("auto", "winner", "winner", "auto"):
+            q = pa if which == "auto" else res.plan
+            turns[which].append(cuda_ms_queued(lambda: q.execute(state), 20))
+        retune = tune(dom, kern, pos, backends=("cuda",), use_cache=False)
+        rw = retune.candidate
+        tuned[label] = dict(
+            winner=candidate_record(res, w, dom, pos), launches=launches,
+            timed=timed, pruned=len(res.pruned),
+            infeasible=len(res.infeasible), tune_s=tune_s,
+            winner_time_fn_ms=res.timings[w] * 1e3,
+            winner_cuda_ms_queued=queued,
+            winner_time_fn_over_queued=res.timings[w] * 1e3 / queued,
+            second_tune_cache_hit=True,
+            auto_pick=dict(strategy=pa.strategy, m_c=pa.m_c, box=pa.box),
+            auto_ms_queued_in_turns=turns["auto"],
+            winner_ms_queued_in_turns=turns["winner"],
+            retune_winner=candidate_record(retune, rw, dom, pos))
+        log(f"tune {label}: {len(res.timings)} timed, {len(res.pruned)} "
+            f"pruned, {len(res.infeasible)} refused by their kernel, in "
+            f"{tune_s:.1f} s; winner {w.strategy} {w.layout} compact="
+            f"{w.compact} m_c {w.m_c} box {w.box}: time_fn "
+            f"{res.timings[w] * 1e3:.4f} ms ({res.reps[w]} reps), "
+            f"cuda_ms_queued {queued:.4f} ms; launches {launches}; equal to "
+            "its explicit plan; second tune a cache hit, no timing run")
+        log(f"tune {label}: auto pick {pa.strategy} against the winner in "
+            f"turns (queued ms): {turns}; re-tuned without the cache: "
+            f"{rw.strategy} {rw.layout} compact={rw.compact} m_c {rw.m_c} "
+            f"{retune.timings[rw] * 1e3:.4f} ms")
+    out["tune"] = tuned
+
+    # 3. the platform default set ("reference" and "cuda") at division 16
+    dom16 = Domain.cubic(16, cutoff=1.0)
+    pos16 = dom16.sample_uniform(16 ** 3 * 4, generator=gen, device=dev)
+    state16 = ParticleState(pos16)
+    t0 = time.perf_counter()
+    res16 = tune(dom16, kern, pos16)
+    tune16_s = time.perf_counter() - t0
+    runs = at.timing_run_count()
+    p16 = plan(dom16, kern, positions=pos16, strategy="autotune",
+               backend="all")
+    if p16 != res16.plan or at.timing_run_count() != runs or not {
+            c.backend for c in res16.timings} == {"reference", "cuda"}:
+        raise AssertionError(f"autotune backend='all' at division 16: "
+                             f"{p16} vs {res16.plan}, timed backends "
+                             f"{ {c.backend for c in res16.timings} }")
+    f, u, launches = run_main(p16, state16, "autotune all division 16",
+                              path_kernels(p16))
+    assert_equal_results((f, u), explicit(p16, pos16).execute(state16),
+                         "autotune all division 16 vs its explicit plan")
+    timed16 = [candidate_record(res16, c, dom16, pos16) for c in
+               sorted(res16.timings, key=res16.timings.get)]
+    for rec in timed16:
+        log(f"  tune division 16 (reference + cuda): {rec}")
+    out["tune_all_division_16"] = dict(
+        winner=candidate_record(res16, res16.candidate, dom16, pos16),
+        timed=timed16, pruned=len(res16.pruned), tune_s=tune16_s,
+        launches=launches, front_door_equal=True)
+    log(f"tune division 16 over reference + cuda: winner "
+        f"{res16.candidate}, {tune16_s:.1f} s; plan(strategy='autotune', "
+        "backend='all') gives the same plan from the cache")
+
+    shutil.rmtree(cache)
+    os.environ.pop("REPRO_TORCH_AUTOTUNE_CACHE")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"autotune phase: {out['phase_s']:.1f} s")
+    return out
 
 
 def main(argv=None) -> int:
@@ -1150,10 +1436,13 @@ def main(argv=None) -> int:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         torch.ones(1, device=dev).add_(1)
         torch.cuda.synchronize()
-    scan_dev_ms, scan_launches, _ = device_time(lambda: prefix_sum(x),
-                                                reps=20)
-    cumsum_dev_ms, cumsum_launches, _ = device_time(
-        lambda: torch.cumsum(x, 0, dtype=torch.int32), reps=20)
+    scan_prof = launches_in_turns(
+        {"A": lambda: prefix_sum(x),
+         "cumsum": lambda: torch.cumsum(x, 0, dtype=torch.int32)},
+        reps=20, sessions=3)
+    (scan_dev_ms, scan_launches), (cumsum_dev_ms, cumsum_launches) = (
+        (scan_prof[k]["device_ms"], scan_prof[k]["launches"])
+        for k in ("A", "cumsum"))
     if scan_launches != 1:
         raise AssertionError(f"kernel A: {scan_launches} device launches per "
                              f"call under the profiler, want 1")
@@ -1274,7 +1563,8 @@ def main(argv=None) -> int:
     for periodic in (False, True):
         dom = Domain.cubic(8, cutoff=1.0, periodic=periodic)
         pos = dom.sample_uniform(2000, generator=gen, device=dev)
-        f, u = plan(dom, positions=pos).execute(ParticleState(pos))
+        f, u = plan(dom, positions=pos,
+                    strategy="xpencil").execute(ParticleState(pos))
         *nf, nu = S.naive_n2(dom, pos, make_lennard_jones())
         assert_scale_close(f, torch.stack(nf, -1),
                            f"plan vs naive_n2 forces periodic={periodic}")
@@ -1620,16 +1910,16 @@ def main(argv=None) -> int:
     dom = Domain.cubic(division, cutoff=1.0)
     pos_u = dom.sample_uniform(division ** 3 * ppc, generator=gen, device=dev)
     state_u = ParticleState(pos_u)
-    pa = plan(dom, kern, positions=pos_u, layout="packed")
+    pa = plan(dom, kern, positions=pos_u, layout="packed", strategy="xpencil")
     f, u, launches = run_main(pa, state_u, "packed uniform",
                               ("prefix_sum", "pack_slots",
                                "xpencil_packed_forces"))
-    dense_u = plan(dom, kern, m_c=pa.m_c).execute(state_u)
+    dense_u = plan(dom, kern, m_c=pa.m_c, strategy="xpencil").execute(state_u)
     assert_equal_results((f, u), dense_u, "packed vs dense, uniform")
     for layout in ("dense", "packed"):             # kernel C; D, active rows
         assert_equal_results(
             plan(dom, kern, positions=pos_u, m_c=pa.m_c, compact=True,
-                 layout=layout).execute(state_u),
+                 layout=layout, strategy="xpencil").execute(state_u),
             dense_u, f"compact {layout} vs dense, uniform")
     errs, terms, within = reference_checks(pa, state_u, f, u,
                                            "packed uniform", False)
@@ -1662,7 +1952,7 @@ def main(argv=None) -> int:
     pack_err, pack_launch, pack_plain = check_pack(dom, bins, pa.row_cap,
                                                    "main case (a)")
     pack_bound_ms, pack_bound_by = pack_bound(bins, pa.row_cap)
-    pd = plan(dom, kern, m_c=pa.m_c)
+    pd = plan(dom, kern, m_c=pa.m_c, strategy="xpencil")
     exec_turns = in_turns({"packed": lambda: pa.execute(state_u),
                            "dense": lambda: pd.execute(state_u)}, reps)
     new_cases["a"] = dict(
@@ -1670,7 +1960,8 @@ def main(argv=None) -> int:
         m_c=pa.m_c, row_cap=pa.row_cap,
         fullest_row=int(packed.row_counts.max()), launches=launches,
         execute_ms=cuda_ms(lambda: pa.execute(state_u), reps),
-        dense_execute_ms=cuda_ms(lambda: plan(dom, kern, m_c=pa.m_c).execute(
+        dense_execute_ms=cuda_ms(lambda: plan(dom, kern, m_c=pa.m_c,
+                                              strategy="xpencil").execute(
             state_u), reps),
         execute_ms_in_turns=exec_turns[0],
         execute_queued_ms_in_turns=exec_turns[1],
@@ -1724,18 +2015,20 @@ def main(argv=None) -> int:
     pos_b = scenarios.sample_gaussian_blob(dom, n_blob, generator=gen,
                                            device=dev, sigma_frac=sigma_frac)
     state_b = ParticleState(pos_b)
-    pb = plan(dom, kern, positions=pos_b, compact=True)
+    pb = plan(dom, kern, positions=pos_b, compact=True, strategy="xpencil")
     f, u, launches_c = run_main(pb, state_b, "compact blob",
                                 ("prefix_sum", "xpencil_sparse_forces"))
-    pbp = plan(dom, kern, positions=pos_b, compact=True, layout="packed")
+    pbp = plan(dom, kern, positions=pos_b, compact=True, layout="packed",
+               strategy="xpencil")
     fp, up, launches_d = run_main(pbp, state_b, "compact packed blob",
                                   ("prefix_sum", "pack_slots",
                                    "xpencil_packed_forces"))
-    dense_b = plan(dom, kern, m_c=pb.m_c).execute(state_b)
+    dense_b = plan(dom, kern, m_c=pb.m_c, strategy="xpencil").execute(state_b)
     assert_equal_results((f, u), dense_b, "compact vs dense, blob")
     assert_equal_results((fp, up), dense_b, "compact packed vs dense, blob")
     assert_equal_results(plan(dom, kern, m_c=pb.m_c, layout="packed",
-                              row_cap=pbp.row_cap).execute(state_b),
+                              row_cap=pbp.row_cap,
+                              strategy="xpencil").execute(state_b),
                          dense_b, "packed vs dense, blob")
     errs_c, terms_c, within_b = reference_checks(pb, state_b, f, u,
                                                  "compact blob", False)
@@ -1792,7 +2085,8 @@ def main(argv=None) -> int:
         execute_compact_packed_ms=cuda_ms(lambda: pbp.execute(state_b), reps),
         execute_ms_in_turns=execb_turns[0],
         execute_queued_ms_in_turns=execb_turns[1],
-        execute_dense_ms=cuda_ms(lambda: plan(dom, kern, m_c=pb.m_c).execute(
+        execute_dense_ms=cuda_ms(lambda: plan(dom, kern, m_c=pb.m_c,
+                                              strategy="xpencil").execute(
             state_b), reps),
         bin_ms=cuda_ms(lambda: pb.bin(state_b), reps),
         occupancy_ms=cuda_ms(lambda: pencil_occupancy(
@@ -1915,7 +2209,8 @@ def main(argv=None) -> int:
     log("main path (c) on the blob: " + json.dumps(new_cases["c_blob"]))
 
     # -- replan on the card: a plan sized on the uniform scene, run on the blob
-    pu = plan(dom, kern, positions=pos_u, layout="packed", compact=True)
+    pu = plan(dom, kern, positions=pos_u, layout="packed", compact=True,
+              strategy="xpencil")
     counts_b = cell_counts(dom, pos_b)
     over = {"m_c": int(counts_b.max()) > pu.m_c,
             "row_cap": int(padded_row_counts(dom, counts_b).max())
@@ -1928,7 +2223,8 @@ def main(argv=None) -> int:
             raise AssertionError(f"replan: {name} {old} -> {new}, overflowed "
                                  f"{overflowed}")
     fresh = plan(dom, kern, m_c=p1.m_c, layout="packed", compact=True,
-                 max_active=p1.max_active, row_cap=p1.row_cap).execute(state_b)
+                 max_active=p1.max_active, row_cap=p1.row_cap,
+                 strategy="xpencil").execute(state_b)
     assert_equal_results((f, u), fresh, "execute_or_replan vs a fresh plan")
     assert_equal_results((f, u), dense_b, "execute_or_replan vs dense")
     replan = {n: [getattr(pu, n), getattr(p1, n)] for n in over}
@@ -1947,7 +2243,8 @@ def main(argv=None) -> int:
         raise AssertionError(f"allin replan: m_c {pe0.m_c} -> {pe1.m_c}, box "
                              f"{pe0.box} -> {pe1.box} (want {grown_box}), "
                              f"launches {launches_r}")
-    assert_equal_results((f, u), plan(dom, kern, m_c=pe1.m_c).execute(state_b),
+    assert_equal_results((f, u), plan(dom, kern, m_c=pe1.m_c,
+                                      strategy="xpencil").execute(state_b),
                          "replanned allin vs dense X-pencil, blob")
     log(f"allin replan: m_c {pe0.m_c} -> {pe1.m_c}, box {pe0.box} -> "
         f"{pe1.box} ({halo_bytes(pe0.box, pe0.m_c)} -> "
@@ -1975,6 +2272,11 @@ def main(argv=None) -> int:
     log(f"sfc replan: a plan sized on the blob, on the uniform scene: "
         f"pair_cap {ps0.pair_cap} -> {ps1.pair_cap}, m_c {ps0.m_c} kept, "
         f"launches {launches_r}; result equals a fresh plan's")
+
+    # -- autotune: strategy="auto" and the measured tuner on the same scenes --
+    autotune_rec = autotune_phase(dom, kern, pos_u, pos_b, gen, dev, run_main,
+                                  assert_equal_results)
+    log("main path (autotune): " + json.dumps(autotune_rec))
 
     # -- batch: B stacked systems through one chain of launches --------------
     def stacked_systems(index, n_sys, division, ppc, periodic):
@@ -2161,16 +2463,12 @@ def main(argv=None) -> int:
                 kernels=batch_kernels(label, p, dom, states, check, what))
             if name == "f":
                 # every CUDA launch of one call, under torch.profiler
-                profiled = {}
-                for b in BATCH_PROFILED:
-                    sub = ParticleState(states.positions[:b])
-                    dev_ms, n_launch, _ = device_time(
-                        lambda: p.execute_batch(sub), reps=3)
-                    profiled[b] = dict(launches=n_launch, device_ms=dev_ms)
-                dev_ms, n_launch, _ = device_time(
-                    lambda: p.execute(each[0]), reps=3)
-                profiled[1] = dict(launches=n_launch, device_ms=dev_ms,
-                                   call="execute()")
+                fns = {b: (lambda sub=ParticleState(states.positions[:b]):
+                           p.execute_batch(sub)) for b in BATCH_PROFILED}
+                fns[1] = lambda: p.execute(each[0])
+                profiled = launches_in_turns(fns, reps=3,
+                                             sessions=PROFILE_SESSIONS)
+                profiled[1]["call"] = "execute()"
                 counts = {profiled[b]["launches"] for b in BATCH_PROFILED}
                 if len(counts) != 1:
                     raise AssertionError(f"{what}: CUDA launches a batch "

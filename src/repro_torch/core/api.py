@@ -6,10 +6,13 @@
     forces, potential = p.execute_batch(ParticleState(stacked))  # (B, N, 3)
 
 Strategies: ``par_part``, ``cell_dense``, ``xpencil``, ``allin`` and the
-``naive_n2`` oracle. The ``"cuda"`` backend runs ``xpencil`` (dense,
-compacted, packed), ``allin`` (dense only) and ``cell_dense`` in the SFC
-cluster layout (``layout="sfc"``), as the JAX package's ``"pallas"``
-backend does; ``"reference"`` runs every strategy.
+``naive_n2`` oracle; ``"auto"`` (the default) picks the one the
+``core.traffic`` cost model gives the fewest HBM bytes per interaction,
+``"autotune"`` times candidates on the positions (``core.autotune``). The
+``"cuda"`` backend runs ``xpencil`` (dense, compacted, packed), ``allin``
+(dense only) and ``cell_dense`` in the SFC cluster layout
+(``layout="sfc"``), as the JAX package's ``"pallas"`` backend does;
+``"reference"`` runs every strategy.
 
 ``plan`` runs on the CUDA device unless the caller passes ``device="cpu"``;
 with no visible card it raises instead of falling back. On the CPU the
@@ -44,6 +47,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from . import strategies as S
+from . import traffic
 from ._device import resolve_device
 from .binning import (CellBins, PackedRows, SfcClusters, bin_particles,
                       build_sfc_clusters, cell_counts, dense_to_particles,
@@ -58,21 +62,18 @@ STRATEGY_NAMES = ("par_part", "cell_dense", "xpencil", "allin")
 CELL_SCHEDULES = ("cell_dense", "xpencil", "allin")   # have compact=True
 LAYOUT_NAMES = ("dense", "packed", "sfc")
 
-# What the JAX package has and this port does not yet, with the ROADMAP.md
-# Queue 1 item that ports it. Asking for one raises; nothing runs instead.
-_NOT_PORTED = {
-    "strategy": {"auto": 8, "autotune": 8},
-    "backend": {"halo": 11},
-}
+# Backends the JAX package has and this port does not yet, with the
+# ROADMAP.md Queue 1 item that ports each. Asking for one raises; nothing
+# runs instead.
+_NOT_PORTED = {"halo": 11}
 
 
-def _check_ported(strategy: str, backend: str) -> None:
-    for option, value in (("strategy", strategy), ("backend", backend)):
-        item = _NOT_PORTED[option].get(value)
-        if item is not None:
-            raise ValueError(
-                f"{option}={value!r} is not ported to repro_torch yet "
-                f"(ROADMAP.md Queue 1 item {item})")
+def _check_ported(backend: str) -> None:
+    item = _NOT_PORTED.get(backend)
+    if item is not None:
+        raise ValueError(
+            f"backend={backend!r} is not ported to repro_torch yet "
+            f"(ROADMAP.md Queue 1 item {item})")
 
 
 # --------------------------------------------------------------------------
@@ -162,6 +163,16 @@ def get_backend(backend: str, strategy: str,
     return fn
 
 
+def backend_matrix() -> Dict[str, Tuple[str, ...]]:
+    """backend name -> strategies it implements, in any layout."""
+    _register_cuda("cuda")
+    out: Dict[str, list] = {}
+    for b, s, _layout in sorted(_BACKENDS):
+        if s not in out.setdefault(b, []):
+            out[b].append(s)
+    return {b: tuple(s) for b, s in out.items()}
+
+
 # --------------------------------------------------------------------------
 # the plan
 # --------------------------------------------------------------------------
@@ -185,7 +196,7 @@ class InteractionPlan:
     pair_cap: Optional[int] = None    # static sfc pair-list bound
 
     def __post_init__(self):
-        _check_ported(self.strategy, self.backend)
+        _check_ported(self.backend)
         if self.strategy not in ("naive_n2", *STRATEGY_NAMES):
             raise ValueError(f"unknown strategy {self.strategy!r}; have "
                              f"{list(STRATEGY_NAMES)} + ['naive_n2']")
@@ -208,10 +219,10 @@ class InteractionPlan:
             raise ValueError(
                 f"unknown layout {self.layout!r}; have {LAYOUT_NAMES}")
         if self.layout == "packed":
-            if self.strategy != "xpencil":
+            if self.strategy not in S.PACKED_STRATEGIES:
                 raise ValueError(
                     f'layout="packed" is not defined for {self.strategy!r}; '
-                    "packed strategies: ['xpencil']")
+                    f"packed strategies: {sorted(S.PACKED_STRATEGIES)}")
             if not self.row_cap or self.row_cap < 1:
                 raise ValueError(
                     'layout="packed" needs a positive static row_cap bound '
@@ -313,6 +324,9 @@ class InteractionPlan:
 
     def clusters(self, bins: CellBins) -> SfcClusters:
         return build_sfc_clusters(self.domain, bins, pair_cap=self.pair_cap)
+
+    def traffic_report(self, avg_ppc: float) -> traffic.TrafficReport:
+        return traffic.model(self.domain, self.m_c, avg_ppc)[self.strategy]
 
     # -- the replan contract -------------------------------------------------
 
@@ -424,12 +438,13 @@ class InteractionPlan:
 
 def plan(domain: Domain, kernel: Optional[PairKernel] = None, *,
          positions: Optional[torch.Tensor] = None, m_c: Optional[int] = None,
-         strategy: str = "xpencil", backend: str = "cuda",
+         strategy: str = "auto", backend: str = "cuda",
          batch_size: int = 64, device=None, compact: bool = False,
          max_active: Optional[int] = None, layout: str = "dense",
          row_cap: Optional[int] = None,
          box: Optional[Tuple[int, int, int]] = None,
-         pair_cap: Optional[int] = None) -> InteractionPlan:
+         pair_cap: Optional[int] = None,
+         m_c_slack: float = 1.5) -> InteractionPlan:
     """Build an :class:`InteractionPlan`.
 
     Every bound taken or measured here (``m_c``, ``max_active``,
@@ -439,15 +454,28 @@ def plan(domain: Domain, kernel: Optional[PairKernel] = None, *,
     Args:
       domain: the cell grid.
       kernel: pair kernel (default Lennard-Jones).
-      positions: representative positions; required when a bound is None.
+      positions: representative positions; required when a bound is None,
+        and for ``strategy="auto"`` (the fill ratio) and ``"autotune"``.
       m_c: static max-particles-per-cell bound; measured from ``positions``
-        with slack and rounded up to a multiple of 8 when omitted.
+        with slack ``m_c_slack`` and rounded up to a multiple of 8 when
+        omitted.
       strategy: ``"par_part"``, ``"cell_dense"``, ``"xpencil"``, ``"allin"``
-        or the ``"naive_n2"`` oracle.
+        or the ``"naive_n2"`` oracle; ``"auto"`` picks the strategy with
+        the fewest modelled HBM bytes per interaction
+        (:func:`choose_strategy`, ``core.traffic``); ``"autotune"`` times
+        candidate plans on ``positions`` and returns the fastest
+        (``core.autotune.tune``; winners persist in an on-disk cache).
+        With ``compact=True``, ``"auto"`` chooses among the cell
+        schedules; with ``layout="packed"`` or ``"sfc"``, among the
+        strategies that have that layout. Where the pick has no path on
+        ``backend`` (``compact=True`` picks ``allin``, which ``"cuda"``
+        runs dense only), the plan raises: nothing else is chosen.
       backend: ``"cuda"`` (hand-written kernels, for ``xpencil``,
         ``allin`` and ``cell_dense`` with ``layout="sfc"``; their plain
         PyTorch versions on CPU tensors) or ``"reference"`` (plain PyTorch,
-        every strategy).
+        every strategy). With ``strategy="autotune"``, ``"all"`` tunes
+        over the platform default set (``"reference"`` and, on the card,
+        ``"cuda"``).
       device: ``None`` means the CUDA device, and raises when none is
         visible; ``"cpu"`` runs on the CPU.
       compact: occupancy-compacted execution: only the work units that
@@ -470,17 +498,52 @@ def plan(domain: Domain, kernel: Optional[PairKernel] = None, *,
         memory (``strategies.subbox_dims``) when omitted.
       pair_cap: static compressed-pair-list bound for ``layout="sfc"``;
         measured from ``positions`` with slack when omitted.
+      m_c_slack: the slack of the measured ``m_c`` (and, with
+        ``"autotune"``, of its slacked ``m_c`` candidate).
+
+    ``strategy="autotune"`` explores the compacted, packed and sfc
+    candidates itself and ignores ``compact``, ``max_active``, ``layout``,
+    ``row_cap`` and ``pair_cap``; the caller's ``batch_size`` and ``box``
+    join its sweep as candidates.
     """
-    _check_ported(strategy, backend)
+    _check_ported(backend)
     device = resolve_device(device)
     kernel = kernel or make_lennard_jones()
+    if strategy == "autotune":
+        from . import autotune
+        if positions is None:
+            raise ValueError('strategy="autotune" needs positions (the '
+                             "tuner times real executions)")
+        backends = None if backend == "all" else (backend,)
+        batch_sizes = tuple(dict.fromkeys(
+            (batch_size, *autotune.DEFAULT_BATCH_SIZES)))
+        return autotune.tune(domain, kernel, positions, m_c=m_c,
+                             backends=backends, batch_sizes=batch_sizes,
+                             box=box, m_c_slack=m_c_slack,
+                             device=device).plan
     if m_c is None:
         if positions is None:
             raise ValueError("plan() needs either m_c or positions "
                              "(to measure the M_C bound)")
         from .engine import suggest_m_c
-        m_c = suggest_m_c(domain, positions)
-    if layout == "packed" and strategy == "xpencil" and row_cap is None:
+        m_c = suggest_m_c(domain, positions, slack=m_c_slack)
+    if strategy == "auto":
+        if positions is None:
+            raise ValueError('strategy="auto" needs positions (the cost '
+                             "model is parameterized by the fill ratio)")
+        # compact=True narrows the choice to the schedules that have a
+        # compacted path somewhere, layout="packed"/"sfc" to those that
+        # have the layout, as in the JAX package
+        among = CELL_SCHEDULES if compact else None
+        if layout == "packed":
+            among = tuple(S.PACKED_STRATEGIES)
+        if layout == "sfc":
+            among = tuple(S.SFC_STRATEGIES)
+        strategy = choose_strategy(domain, m_c,
+                                   positions.shape[0] / domain.n_cells,
+                                   among=among)
+    if layout == "packed" and strategy in S.PACKED_STRATEGIES and \
+            row_cap is None:
         if positions is None:
             raise ValueError('layout="packed" needs either row_cap or '
                              "positions (to measure the packed-row bound)")
@@ -513,6 +576,26 @@ def plan(domain: Domain, kernel: Optional[PairKernel] = None, *,
     if strategy != "naive_n2":
         get_backend(backend, strategy, layout)        # fail at plan time
     return p
+
+
+def choose_strategy(domain: Domain, m_c: int, avg_ppc: float,
+                    among: Optional[Tuple[str, ...]] = None,
+                    subbox: Optional[Tuple[int, int, int]] = None) -> str:
+    """``strategy="auto"``: minimize modelled HBM bytes per interaction.
+
+    The paper's Fig. 7 argument as a decision rule — the schedule that moves
+    the fewest global-memory bytes per interaction wins in the memory-bound
+    regime the paper targets. Ties break toward the paper's X-pencil.
+    ``among`` restricts the choice (e.g. to the compact-capable schedules).
+    ``subbox`` is the ``allin`` sub-box the model assumes (default: the
+    port's shared-memory sizing, ``strategies.subbox_dims``).
+    """
+    reports = traffic.model(domain, m_c, max(avg_ppc, 1e-3), subbox=subbox)
+    order = {"xpencil": 0, "allin": 1, "cell_dense": 2, "par_part": 3}
+    pool = [r for r in reports.values() if among is None or r.strategy in among]
+    return min(pool,
+               key=lambda r: (r.hbm_bytes_per_interaction,
+                              order[r.strategy])).strategy
 
 
 # --------------------------------------------------------------------------

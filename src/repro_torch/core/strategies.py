@@ -636,4 +636,5 @@ STRATEGIES = {"par_part": par_part, "cell_dense": cell_dense,
               "xpencil": xpencil, "allin": allin}
 SPARSE_STRATEGIES = {"cell_dense": cell_dense_sparse,
                      "xpencil": xpencil_sparse, "allin": allin_sparse}
+PACKED_STRATEGIES = {"xpencil": xpencil_packed}
 SFC_STRATEGIES = {"cell_dense": cell_sfc}

@@ -186,7 +186,8 @@ def test_allin_compact_equals_dense_and_xpencil_bitwise(periodic):
     jdom, pos = blob(6, 200, seed=4, periodic=periodic)
     dom = domain_from_jax(jdom)
     state = state_from_numpy(pos, device="cpu")
-    xp = plan(dom, positions=state.positions, device="cpu").execute(state)
+    xp = plan(dom, positions=state.positions, device="cpu",
+              strategy="xpencil").execute(state)
     for box in (None, (2, 2, 2), (3, 6, 1)):
         for compact, backend in ((False, "reference"), (True, "reference"),
                                  (False, "cuda")):
@@ -292,6 +293,6 @@ def test_replan_remeasures_compact_allin_on_the_new_tiling():
     n_act = active_unit_count(dom, state.positions, "allin", box=p1.box)
     assert p1.max_active >= n_act > 1
     assert not p1.check_overflow(state)
-    dense = plan(dom, m_c=24, device="cpu").execute(state)
+    dense = plan(dom, m_c=24, device="cpu", strategy="xpencil").execute(state)
     for a, b in zip(p1.execute(state), dense):
         assert torch.equal(a, b)

@@ -240,7 +240,7 @@ def test_cuda_backend_enters_each_plain_version_once(case, monkeypatch):
 
 def test_stacked_state_errors():
     dom, states = _stacked((3, 3, 3), 2, 20, seed=10, periodic=False)
-    p = plan(dom, m_c=16, device="cpu")
+    p = plan(dom, m_c=16, device="cpu", strategy="xpencil")
     pos = states.positions
     with pytest.raises(ValueError, match=r"\(B, N, 3\)"):
         p.execute_batch(ParticleState(pos[0]))
@@ -263,7 +263,7 @@ def test_stacked_state_errors():
     big = Domain.cubic(64, cutoff=1.0)
     one = ParticleState(torch.full((117, 1, 3), 10.0))
     with pytest.raises(ValueError, match="117 x 18399744 slots exceed"):
-        plan(big, m_c=64, device="cpu").execute_batch(one)
+        plan(big, m_c=64, device="cpu", strategy="xpencil").execute_batch(one)
 
 
 # ---------------------------------------------------------------------------

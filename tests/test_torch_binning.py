@@ -123,7 +123,7 @@ def test_overflow_drops_bit_equal_and_zero_force(periodic):
     jf, jp = j_plan(jdom, jk, m_c=m_c, strategy="xpencil").execute(
         JState(jnp.asarray(pos)))
     tf, tp = plan(dom, kernel_from_jax(jk), m_c=m_c,
-                  device="cpu").execute(state)
+                  device="cpu", strategy="xpencil").execute(state)
     for f, p in ((np.asarray(jf), np.asarray(jp)), (tf.numpy(), tp.numpy())):
         assert np.all(f[dropped] == 0.0) and np.all(p[dropped] == 0.0)
         assert np.any(f[~dropped] != 0.0)

@@ -137,7 +137,8 @@ def test_cell_dense_compact_equals_dense_bitwise(periodic):
     bins = bin_particles(dom, state.positions, m_c=16)
     occ = pencil_occupancy(dom, bins.counts, dom.nz * dom.ny)
     out = S.cell_dense_sparse(dom, bins, plan(dom, m_c=16,
-                                              device="cpu").kernel, occ)
+                                              device="cpu",
+                                              strategy="xpencil").kernel, occ)
     empty = bins.counts.view(6, 6, 6).sum(-1) == 0
     assert bool(empty.any())
     assert not any(o[empty].any() for o in out)

@@ -106,7 +106,7 @@ def test_xpencil_kernel_matches_plain(gen, periodic, m_c):
 def test_main_path_launches_both_kernels(gen):
     dom = Domain.cubic(6, periodic=True)
     pos = dom.sample_uniform(800, generator=gen, device="cuda")
-    p = plan(dom, positions=pos)
+    p = plan(dom, positions=pos, strategy="xpencil")
     prefix_sum.launches = xpencil_forces.launches = 0
     f, u = p.execute(ParticleState(pos))
     torch.cuda.synchronize()
@@ -182,7 +182,8 @@ def test_dense_compact_packed_equal_and_launch(gen, periodic):
                                "xpencil_packed_forces": 1}),
             (True, "packed", {"prefix_sum": 2, "pack_slots": 1,
                               "xpencil_packed_forces": 1})):
-        p = plan(dom, kern, positions=pos, compact=compact, layout=layout)
+        p = plan(dom, kern, positions=pos, compact=compact, layout=layout,
+                 strategy="xpencil")
         counters = (prefix_sum, pack_slots, xpencil_forces,
                     xpencil_sparse_forces, xpencil_packed_forces)
         for c in counters:
@@ -638,7 +639,7 @@ def test_allin_main_path_launches_kernel_e(gen, periodic):
     torch.cuda.synchronize()
     assert (prefix_sum.launches, allin_forces.launches,
             xpencil_forces.launches) == (1, 1, 0)
-    f_b, u_b = plan(dom, positions=pos).execute(state)
+    f_b, u_b = plan(dom, positions=pos, strategy="xpencil").execute(state)
     assert torch.equal(f, f_b) and torch.equal(u, u_b)
 
 
@@ -1239,12 +1240,13 @@ def test_execute_batch_launches_once_and_equals_loop(gen, periodic):
     counters = (prefix_sum, pack_slots, xpencil_forces, xpencil_sparse_forces,
                 xpencil_packed_forces, allin_forces, cell_sfc_forces)
     for kw, want in (
-            (dict(), {"prefix_sum": 1, "xpencil_forces": 1}),
-            (dict(compact=True), {"prefix_sum": 1,
-                                  "xpencil_sparse_forces": 1}),
-            (dict(layout="packed"), {"prefix_sum": 2, "pack_slots": 1,
-                                     "xpencil_packed_forces": 1}),
-            (dict(layout="packed", compact=True),
+            (dict(strategy="xpencil"), {"prefix_sum": 1,
+                                        "xpencil_forces": 1}),
+            (dict(strategy="xpencil", compact=True),
+             {"prefix_sum": 1, "xpencil_sparse_forces": 1}),
+            (dict(strategy="xpencil", layout="packed"),
+             {"prefix_sum": 2, "pack_slots": 1, "xpencil_packed_forces": 1}),
+            (dict(strategy="xpencil", layout="packed", compact=True),
              {"prefix_sum": 2, "pack_slots": 1, "xpencil_packed_forces": 1}),
             (dict(strategy="allin"), {"prefix_sum": 1, "allin_forces": 1}),
             (dict(strategy="cell_dense", layout="sfc"),

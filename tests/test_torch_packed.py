@@ -208,7 +208,7 @@ def test_packed_plan_matches_jax_and_oracles(compact, periodic):
     dom, kern = domain_from_jax(jdom), kernel_from_jax(jk)
     state = state_from_numpy(pos, device="cpu")
     p = plan(dom, kern, positions=state.positions, device="cpu",
-             layout="packed", compact=compact)
+             layout="packed", compact=compact, strategy="xpencil")
     f, u = p.execute(state)
     jp = j_plan(jdom, jk, positions=jnp.asarray(pos), strategy="xpencil",
                 backend="pallas", layout="packed", compact=compact,
@@ -236,7 +236,7 @@ def test_dense_compact_packed_bitwise_equal(backend, scene):
     state = state_from_numpy(pos, device="cpu")
     runs = {(compact, layout): plan(
         dom, positions=state.positions, device="cpu", backend=backend,
-        compact=compact, layout=layout).execute(state)
+        compact=compact, layout=layout, strategy="xpencil").execute(state)
         for compact in (False, True) for layout in ("dense", "packed")}
     f_d, u_d = runs[(False, "dense")]
     for key, (f, u) in runs.items():
@@ -257,15 +257,16 @@ def test_row_cap_exactly_full_does_not_overflow():
     exact = int(padded_row_counts(dom, cell_counts(dom, state.positions))
                 .max())
     p = plan(dom, positions=state.positions, device="cpu", layout="packed",
-             row_cap=exact)
+             row_cap=exact, strategy="xpencil")
     pk = p.pack(p.bin(state))
     assert int(pk.row_counts.max()) == exact and not bool(pk.overflowed)
     assert not p.check_overflow(state)
-    dense = plan(dom, positions=state.positions, device="cpu").execute(state)
+    dense = plan(dom, positions=state.positions, device="cpu",
+                 strategy="xpencil").execute(state)
     for a, b in zip(p.execute(state), dense):
         assert torch.equal(a, b)
     tight = plan(dom, positions=state.positions, device="cpu",
-                 layout="packed", row_cap=exact - 1)
+                 layout="packed", row_cap=exact - 1, strategy="xpencil")
     assert tight.overflow_class(state) == "row_cap"
     assert tight.replan(state).row_cap >= exact
 
@@ -273,16 +274,16 @@ def test_row_cap_exactly_full_does_not_overflow():
 def test_row_cap_overflow_detected_and_replanned():
     dom, state = _scene()
     f_d, u_d = plan(dom, positions=state.positions,
-                    device="cpu").execute(state)
+                    device="cpu", strategy="xpencil").execute(state)
     p0 = plan(dom, positions=state.positions, device="cpu", layout="packed",
-              row_cap=8)
+              row_cap=8, strategy="xpencil")
     assert p0.check_overflow(state)
     (f1, u1), p1 = p0.execute_or_replan(state)
     assert p1.row_cap > p0.row_cap
     assert (p1.m_c, p1.max_active) == (p0.m_c, p0.max_active)
     assert not p1.check_overflow(state)
     fresh = plan(dom, m_c=p1.m_c, device="cpu", layout="packed",
-                 row_cap=p1.row_cap).execute(state)
+                 row_cap=p1.row_cap, strategy="xpencil").execute(state)
     for a, b, c in zip((f1, u1), fresh, (f_d, u_d)):
         assert torch.equal(a, b) and torch.equal(a, c)
     f_bad, _ = p0.execute(state)
@@ -294,12 +295,13 @@ def test_each_bound_grows_alone():
     bound that overflowed grows."""
     dom, state = _scene()
     good = plan(dom, positions=state.positions, device="cpu",
-                layout="packed", compact=True)
+                layout="packed", compact=True, strategy="xpencil")
     assert good.overflow_class(state) is None
     assert good.replan(state) == good
     for bound, small in (("m_c", 8), ("max_active", 2), ("row_cap", 8)):
         p0 = plan(dom, positions=state.positions, device="cpu",
-                  layout="packed", compact=True, **{bound: small})
+                  layout="packed", compact=True, strategy="xpencil",
+                  **{bound: small})
         assert p0.overflow_class(state) == bound
         (f, u), p1 = p0.execute_or_replan(state)
         grown = {b: getattr(p1, b) != getattr(good, b)
@@ -309,19 +311,20 @@ def test_each_bound_grows_alone():
         fresh = dict(m_c=p1.m_c, max_active=p1.max_active,
                      row_cap=p1.row_cap)
         want = plan(dom, device="cpu", layout="packed", compact=True,
-                    **fresh).execute(state)
+                    strategy="xpencil", **fresh).execute(state)
         assert torch.equal(f, want[0]) and torch.equal(u, want[1])
 
 
 def test_packed_plan_validation():
     dom, state = _scene()
     with pytest.raises(ValueError, match="row_cap|positions"):
-        plan(dom, m_c=16, device="cpu", layout="packed")
+        plan(dom, m_c=16, device="cpu", layout="packed", strategy="xpencil")
     with pytest.raises(ValueError, match="not defined for 'naive_n2'"):
         plan(dom, m_c=16, device="cpu", strategy="naive_n2",
              layout="packed", row_cap=8)
     with pytest.raises(ValueError, match="unknown layout"):
-        plan(dom, m_c=16, device="cpu", layout="csr")
-    p = plan(dom, m_c=16, device="cpu", layout="packed", row_cap=8)
+        plan(dom, m_c=16, device="cpu", layout="csr", strategy="xpencil")
+    p = plan(dom, m_c=16, device="cpu", layout="packed", row_cap=8,
+             strategy="xpencil")
     with pytest.raises(ValueError, match="move the state"):
         p.execute(ParticleState(state.positions.to("meta")))

@@ -18,12 +18,14 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import (Domain, PairKernel, ParticleState,
                               full_pencil_occupancy, make_lennard_jones, plan,
-                              scenarios, supports_compact, supports_layout)
+                              scenarios, supports_compact, supports_layout,
+                              tune)
 from repro_torch.kernels import _build
 from repro_torch.kernels.allin import allin_forces
 from repro_torch.kernels.prefix_sum import prefix_sum
@@ -123,11 +125,13 @@ def test_plan_defaults_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a card is visible; the default runs there")
     dom = Domain.cubic(3)
+    pos = torch.rand(20, 3) * 3       # strategy="auto" needs positions
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        plan(dom, m_c=8)
+        plan(dom, positions=pos)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        plan(dom, m_c=8, device="cuda")
-    assert plan(dom, m_c=8, device="cpu").device == torch.device("cpu")
+        plan(dom, positions=pos, device="cuda")
+    assert plan(dom, positions=pos, device="cpu").device == \
+        torch.device("cpu")
 
 
 def test_samplers_default_to_the_card():
@@ -155,18 +159,47 @@ def test_full_pencil_occupancy_defaults_to_the_card():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(strategy="auto"), 8), (dict(strategy="autotune"), 8),
     (dict(strategy="cell_dense", layout="sfc", backend="halo"), 11),
-    (dict(strategy="auto", layout="sfc"), 8),
-    (dict(strategy="auto", compact=True), 8),
-    (dict(strategy="autotune", backend="reference"), 8),
     (dict(strategy="allin", backend="halo"), 11),
-    (dict(strategy="autotune", layout="sfc", backend="reference"), 8),
     (dict(backend="halo"), 11),
+    (dict(shard_counts=(2,)), 11),           # tune's halo shard-count axis
 ])
 def test_unported_options_raise_with_roadmap_item(kwargs, item):
+    dom = Domain.cubic(3)
     with pytest.raises(ValueError, match=f"Queue 1 item {item}\\b"):
-        plan(Domain.cubic(3), m_c=8, device="cpu", **kwargs)
+        if "shard_counts" in kwargs:
+            tune(dom, positions=torch.rand(20, 3) * 3, **kwargs)
+        else:
+            plan(dom, m_c=8, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(strategy="auto"), dict(strategy="autotune"),
+    dict(strategy="auto", layout="sfc"),
+    # on "cuda" this picks allin, which has no compacted path there (a
+    # plan-time raise, tests/test_torch_traffic.py)
+    dict(strategy="auto", compact=True, backend="reference"),
+    dict(strategy="autotune", backend="reference"),
+    dict(strategy="autotune", layout="sfc", backend="reference"),
+], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
+def test_auto_and_autotune_options_build_and_run(kwargs, tmp_path,
+                                                 monkeypatch):
+    """The options that raised until ROADMAP Queue 1 item 8 was ported now
+    build a plan whose ``execute`` equals an explicit plan of the strategy
+    it chose, bit for bit."""
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path))
+    dom = Domain.cubic(3)
+    pos = torch.from_numpy(np.random.default_rng(0).random(
+        (40, 3), dtype=np.float32) * 3)
+    state = ParticleState(pos)
+    p = plan(dom, positions=pos, device="cpu", **kwargs)
+    explicit = plan(dom, positions=pos, device="cpu", strategy=p.strategy,
+                    backend=p.backend, m_c=p.m_c, batch_size=p.batch_size,
+                    box=p.box, compact=p.compact, max_active=p.max_active,
+                    layout=p.layout, row_cap=p.row_cap, pair_cap=p.pair_cap)
+    assert explicit == p
+    for a, b in zip(p.execute(state), explicit.execute(state)):
+        assert torch.equal(a, b)
 
 
 def test_backend_matrix_mirrors_jax():
@@ -206,15 +239,16 @@ def test_backend_matrix_mirrors_jax():
 def test_unknown_backend_and_user_kernel_raise():
     dom = Domain.cubic(3)
     with pytest.raises(ValueError, match="no backend 'pallas'"):
-        plan(dom, m_c=8, device="cpu", backend="pallas")
+        plan(dom, m_c=8, device="cpu", backend="pallas", strategy="xpencil")
     mine = PairKernel("mine", lambda r2: r2, lambda r2: r2, flops=2)
     with pytest.raises(ValueError, match="backend='reference'"):
-        plan(dom, mine, m_c=8, device="cpu")
-    assert plan(dom, mine, m_c=8, device="cpu", backend="reference")
+        plan(dom, mine, m_c=8, device="cpu", strategy="xpencil")
+    assert plan(dom, mine, m_c=8, device="cpu", backend="reference",
+                strategy="xpencil")
 
 
 def test_execute_refuses_state_on_another_device():
-    p = plan(Domain.cubic(3), m_c=8, device="cpu")
+    p = plan(Domain.cubic(3), m_c=8, device="cpu", strategy="xpencil")
     pos = torch.rand(10, 3) * 3
     with pytest.raises(ValueError, match="move the state"):
         p.execute(ParticleState(pos.to("meta")))

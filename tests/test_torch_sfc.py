@@ -287,7 +287,7 @@ def test_sfc_kernel_plain_matches_jax_pallas_interpret():
     f, u = sfc_to_particles(dom, got, *tiles)
     jf, ju = j_pallas_sfc(jdom, want, jk, interpret=True)
     state = state_from_numpy(pos, device="cpu")
-    fsize, usize = _sizes(dom, kern, state, m_c=m_c)
+    fsize, usize = _sizes(dom, kern, state, m_c=m_c, strategy="xpencil")
     _close(f.numpy(), jf, fsize[:, None], "forces vs JAX Pallas sfc")
     _close(u.numpy(), ju, usize, "potential vs JAX Pallas sfc")
 
@@ -405,7 +405,8 @@ def test_sfc_plan_validation():
     with pytest.raises(ValueError, match='layout="sfc" is not defined for '
                                          "'xpencil'; sfc strategies: "
                                          r"\['cell_dense'\]"):
-        plan(dom, m_c=8, device="cpu", layout="sfc", pair_cap=8)
+        plan(dom, m_c=8, device="cpu", layout="sfc", pair_cap=8,
+             strategy="xpencil")
     with pytest.raises(ValueError, match='layout="sfc" needs either pair_cap '
                                          "or positions"):
         plan(dom, m_c=8, device="cpu", strategy="cell_dense", layout="sfc")

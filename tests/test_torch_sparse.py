@@ -189,7 +189,8 @@ def test_compact_plan_matches_jax_and_oracles(periodic):
     jk = J_KERNELS["lennard_jones"]()
     dom, kern = domain_from_jax(jdom), kernel_from_jax(jk)
     state = state_from_numpy(pos, device="cpu")
-    p = plan(dom, kern, positions=state.positions, device="cpu", compact=True)
+    p = plan(dom, kern, positions=state.positions, device="cpu", compact=True,
+             strategy="xpencil")
     f, u = p.execute(state)
     jp = j_plan(jdom, jk, positions=jnp.asarray(pos), strategy="xpencil",
                 backend="pallas", compact=True, interpret=True)
@@ -214,9 +215,10 @@ def test_compact_equals_dense_bitwise(backend, periodic):
     dom = domain_from_jax(jdom)
     state = state_from_numpy(pos, device="cpu")
     dense = plan(dom, positions=state.positions, device="cpu",
-                 backend=backend).execute(state)
+                 backend=backend, strategy="xpencil").execute(state)
     comp = plan(dom, positions=state.positions, device="cpu",
-                backend=backend, compact=True).execute(state)
+                backend=backend, compact=True,
+                strategy="xpencil").execute(state)
     for a, b in zip(comp, dense):
         assert torch.equal(a, b)
 
@@ -234,15 +236,16 @@ def test_max_active_exactly_full_does_not_overflow():
     dom, state = _scene()
     n_act = active_unit_count(dom, state.positions)
     p = plan(dom, positions=state.positions, device="cpu", compact=True,
-             max_active=n_act)
+             max_active=n_act, strategy="xpencil")
     assert not p.check_overflow(state)
     assert not bool(pencil_occupancy(dom, p.bin(state).counts,
                                      n_act).overflowed)
-    dense = plan(dom, positions=state.positions, device="cpu").execute(state)
+    dense = plan(dom, positions=state.positions, device="cpu",
+                 strategy="xpencil").execute(state)
     for a, b in zip(p.execute(state), dense):
         assert torch.equal(a, b)
     tight = plan(dom, positions=state.positions, device="cpu", compact=True,
-                 max_active=n_act - 1)
+                 max_active=n_act - 1, strategy="xpencil")
     assert tight.overflow_class(state) == "max_active"
     assert tight.replan(state).max_active >= n_act
 
@@ -250,9 +253,9 @@ def test_max_active_exactly_full_does_not_overflow():
 def test_max_active_overflow_detected_and_replanned():
     dom, state = _scene()
     f_d, u_d = plan(dom, positions=state.positions,
-                    device="cpu").execute(state)
+                    device="cpu", strategy="xpencil").execute(state)
     p0 = plan(dom, positions=state.positions, device="cpu", compact=True,
-              max_active=2)
+              max_active=2, strategy="xpencil")
     assert p0.check_overflow(state)
     (f1, u1), p1 = p0.execute_or_replan(state)
     assert p1.max_active > p0.max_active
@@ -260,7 +263,7 @@ def test_max_active_overflow_detected_and_replanned():
                                                p0.layout)   # only it grew
     assert not p1.check_overflow(state)
     fresh = plan(dom, m_c=p1.m_c, device="cpu", compact=True,
-                 max_active=p1.max_active).execute(state)
+                 max_active=p1.max_active, strategy="xpencil").execute(state)
     for a, b, c in zip((f1, u1), fresh, (f_d, u_d)):
         assert torch.equal(a, b) and torch.equal(a, c)
     # an overflowed bound really does drop pencils: forces are wrong
@@ -271,11 +274,12 @@ def test_max_active_overflow_detected_and_replanned():
 def test_compact_plan_validation():
     dom, state = _scene()
     with pytest.raises(ValueError, match="max_active|positions"):
-        plan(dom, m_c=16, device="cpu", compact=True)
+        plan(dom, m_c=16, device="cpu", compact=True, strategy="xpencil")
     with pytest.raises(ValueError, match="compact=True is not defined"):
         plan(dom, m_c=16, device="cpu", strategy="naive_n2", compact=True)
     with pytest.raises(ValueError, match="positive static max_active"):
-        plan(dom, m_c=16, device="cpu", compact=True, max_active=0)
+        plan(dom, m_c=16, device="cpu", compact=True, max_active=0,
+             strategy="xpencil")
 
 
 # ---------------------------------------------------------------------------

@@ -110,7 +110,7 @@ def test_xpencil_matches_jax(name, periodic):
     # end to end: plan/execute in both packages and both O(N^2) oracles
     state = state_from_numpy(pos, device="cpu")
     f, u = plan(dom, kern, positions=state.positions,
-                device="cpu").execute(state)
+                device="cpu", strategy="xpencil").execute(state)
     jf, ju = j_plan(jdom, jk, positions=jnp.asarray(pos),
                     strategy="xpencil").execute(JState(jnp.asarray(pos)))
     *nf, nu = S.naive_n2(dom, state.positions, kern)
@@ -138,7 +138,7 @@ def test_padded_equals_unpadded_bitwise(periodic):
     valid = np.ones(N + n_pad, bool)
     valid[where] = False
 
-    p = plan(dom, kern, m_c=16, device="cpu")
+    p = plan(dom, kern, m_c=16, device="cpu", strategy="xpencil")
     f, u = p.execute(state_from_numpy(pos, device="cpu"))
     fp, up = p.execute(state_from_numpy(padded, valid=valid, device="cpu"))
     np.testing.assert_array_equal(fp[real].numpy(), f.numpy())
@@ -151,9 +151,10 @@ def test_cuda_and_reference_backends_agree_on_cpu():
     both backends give the same bits."""
     _, _, dom, kern, pos = _case("gravity", True, seed=5)
     state = state_from_numpy(pos, device="cpu")
-    a = plan(dom, kern, m_c=16, device="cpu").execute(state)
+    a = plan(dom, kern, m_c=16, device="cpu",
+             strategy="xpencil").execute(state)
     b = plan(dom, kern, m_c=16, device="cpu",
-             backend="reference").execute(state)
+             backend="reference", strategy="xpencil").execute(state)
     for x, y in zip(a, b):
         np.testing.assert_array_equal(x.numpy(), y.numpy())
 
