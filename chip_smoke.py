@@ -61,6 +61,18 @@ the main paths through ``plan(...).execute()`` and checks and times them:
     explicit plan and timed by ``cuda_ms_queued`` too, a second ``tune`` a
     cache hit with no timing run; ``strategy="autotune", backend="all"`` at
     division 16, with the reference schedules timed on the card;
+  * trajectory: ``plan(...).trajectory`` at division 64 periodic
+    (1,048,576 particles on a jittered FCC lattice, LJ): with ``skin=0``
+    each of the dense, packed, compacted and All-in-SM paths bit-equal to
+    its ``reference_step`` loop (one ``execute()`` a step) and to each
+    other; the default skin over 256 steps within JAX's tolerances of that
+    loop with few rebins; a run stopped at step 128 and resumed from its
+    checkpoint bit-equal to the uninterrupted one (dense, packed,
+    langevin); an injected segment error retried bit for bit and an
+    injected NaN rolled back; ms per step (skin, skin 0, the loop), the
+    split of a skin step, launch calls and host syncs of a refresh and a
+    rebin step, checkpoint bytes and times; one ``sph_step`` at division 32
+    on kernel B against the reference backend;
   * kernel G (sliding-window attention) against its plain version over a
     sweep of batch, GQA ratio, head_dim, window, softcap and dtype, and at
     the gemma2-2b shape, each case on the route ``route(dtype, D)`` names
@@ -156,6 +168,33 @@ BATCH_PATHS = (   # label, plan options, kernels launched once a batch
 BATCH_PROFILED = (16, 64)
 PROFILE_SESSIONS = 5      # profiler sessions a count (``launches_in_turns``)
 
+# plan.trajectory: division 64 periodic, 4 particles a cell on an FCC
+# lattice jittered by at most 0.05 of a cell (uniform particles would put
+# pairs ~1e-4 cutoffs apart, which LJ throws out of the box within a step),
+# LJ at sigma 0.3 cutoff and eps 1e-4 (tests/test_traj.py's pair kernel at
+# this cell width), velocities 0.1 * normal, dt 1e-3. Gate 1: skin 0 on
+# every path, bit-equal to the reference_step loop; gate 2: the default
+# skin against that loop over TRAJ_STEPS, JAX's tolerances, fewer than
+# TRAJ_MAX_REBINS rebins; gate 3: resume at TRAJ_STEPS / 2; gate 4:
+# injected faults; gate 5: one sph_step on TRAJ_SPH (division, per cell).
+TRAJ_DIVISION, TRAJ_JITTER = 64, 0.05
+TRAJ_SIGMA, TRAJ_EPS, TRAJ_VEL, TRAJ_DT = 0.3, 1e-4, 0.1, 1e-3
+TRAJ_GATE1_STEPS, TRAJ_GATE1_SEG = 24, 8
+TRAJ_STEPS, TRAJ_SEG, TRAJ_CK_EVERY, TRAJ_MAX_REBINS = 256, 32, 64, 26
+TRAJ_SPH = (32, 10)
+# sph_step's velocities and density, each to its own scale: float32
+# rounding of ~42 terms a particle stays far below it, while a zero,
+# flipped or 10x pressure scale (p2) is off by 1, 2 or 9
+SPH_OWN_TOL = 1e-4
+TRAJ_PATHS = (   # label, plan options, force kernels launched every step
+    ("dense", {"strategy": "xpencil"}, ("xpencil_forces",)),
+    ("packed", {"strategy": "xpencil", "layout": "packed"},
+     ("pack_slots", "xpencil_packed_forces")),
+    ("compact", {"strategy": "xpencil", "compact": True},
+     ("xpencil_sparse_forces",)),
+    ("allin", {"strategy": "allin"}, ("allin_forces",)),
+)
+
 # bf16 dense tensor-core peak of the H100 SXM at 700 W (NVIDIA data sheet):
 # kernel G's operations bound on bf16 inputs
 BF16_OPS_PER_S = 989e12
@@ -236,6 +275,22 @@ def assert_scale_close(got, want, what: str, tol: float = 3e-4) -> float:
     err = scale_rel_err(got.double(), want.double())
     if err > tol:
         raise AssertionError(f"{what}: scale-relative error {err:.3e} > {tol}")
+    return err
+
+
+def assert_own_scale_close(got, want, what: str, tol: float) -> float:
+    """max |got - want| / max |want|, with no floor of 1: for a quantity
+    far below 1 (SPH's velocities after one step from rest are ~1e-5),
+    where ``scale_rel_err`` would pass anything within an absolute tol."""
+    if not bool(got.isfinite().all()):
+        raise AssertionError(f"{what}: non-finite values")
+    scale = float(want.double().abs().max())
+    if not scale > 0:
+        raise AssertionError(f"{what}: the reference is all zero")
+    err = float((got.double() - want.double()).abs().max()) / scale
+    if err > tol:
+        raise AssertionError(f"{what}: error {err:.3e} of its own scale > "
+                             f"{tol}")
     return err
 
 
@@ -1083,6 +1138,389 @@ def autotune_phase(dom, kern, pos_u, pos_b, gen, dev, run_main,
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"autotune phase: {out['phase_s']:.1f} s")
     return out
+
+
+def fcc_lattice(division: int, jitter: float, gen, dev) -> torch.Tensor:
+    """Four particles a unit cell on the FCC basis, offset by a quarter cell
+    and each coordinate jittered uniformly by at most ``jitter`` of a cell:
+    the nearest neighbours lie ~0.71 cell widths apart."""
+    basis = torch.tensor([[0.0, 0.0, 0.0], [0.5, 0.5, 0.0], [0.5, 0.0, 0.5],
+                          [0.0, 0.5, 0.5]], device=dev) + 0.25
+    idx = torch.arange(division, device=dev, dtype=torch.float32)
+    cz, cy, cx = torch.meshgrid(idx, idx, idx, indexing="ij")
+    cells = torch.stack([cx, cy, cz], -1).reshape(-1, 1, 3)
+    pos = (cells + basis).reshape(-1, 3)
+    return pos + jitter * (2.0 * torch.rand(pos.shape, generator=gen,
+                                            device=dev) - 1.0)
+
+
+def trajectory_phase(seed: int, dev, reset_launches, launch_counts):
+    """``plan(...).trajectory`` at division 64 (1,048,576 particles on an
+    FCC lattice, LJ, periodic) on every ``"cuda"`` path, with the gates of
+    the trajectory engine (see TRAJ_* above); then timings, the split of a
+    skin step, launches and host syncs a step, checkpoint bytes and times,
+    and one ``sph_step`` at division 32. -> record."""
+    import shutil
+    import tempfile
+    import warnings
+
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.core import (Domain, ParticleState, make_lennard_jones,
+                                  plan, suggest_m_c)
+    from repro_torch.core.binning import (dense_to_particles, image_positions,
+                                          max_displacement, refresh_bins)
+    from repro_torch.core.interactions import PairKernel
+    from repro_torch.kernels.xpencil import xpencil_forces
+    from repro_torch.physics import init_state, sph
+    from repro_torch.physics import integrators as I
+    from repro_torch.testing import chaos
+    from repro_torch.traj import engine as TE
+    from repro_torch.traj import monitors as M
+
+    t_phase = time.perf_counter()
+    out = {}
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed * 1_000_003 + 7_919)
+    division = TRAJ_DIVISION
+    dom = Domain.cubic(division, cutoff=1.0, periodic=True)
+    kern = make_lennard_jones(sigma=TRAJ_SIGMA, eps=TRAJ_EPS)
+    pos = fcc_lattice(division, TRAJ_JITTER, g, dev)
+    vel = TRAJ_VEL * torch.randn(pos.shape, generator=g, device=dev)
+    out["scene"] = dict(division=division, n=pos.shape[0], lattice="fcc",
+                        jitter=TRAJ_JITTER, sigma=TRAJ_SIGMA, eps=TRAJ_EPS,
+                        vel=TRAJ_VEL, dt=TRAJ_DT)
+
+    def equal_md(a, b, what):
+        for f in ("positions", "velocities", "forces", "potential"):
+            if not torch.equal(getattr(a, f), getattr(b, f)):
+                d = float((getattr(a, f) - getattr(b, f)).abs().max())
+                raise AssertionError(f"{what}: {f} not bit-equal (max "
+                                     f"|diff| {d:.3e})")
+
+    def close_md(a, b, what):
+        """Gate 2's tolerances (JAX's test_skin_reuse_few_rebins):
+        positions (minimum image) and velocities, |diff| <= tol (1 + |b|)."""
+        dpos = dom.minimum_image(a.positions - b.positions).abs()
+        dvel = (a.velocities - b.velocities).abs()
+        err = (float((dpos / (1 + b.positions.abs())).max()),
+               float((dvel / (1 + b.velocities.abs())).max()))
+        if not (bool(a.positions.isfinite().all())
+                and bool(a.velocities.isfinite().all())
+                and bool((dpos <= 1e-5 * (1 + b.positions.abs())).all())
+                and bool((dvel <= 1e-4 * (1 + b.velocities.abs())).all())):
+            raise AssertionError(f"{what}: beyond 1e-5 (positions) / 1e-4 "
+                                 f"(velocities): {err}")
+        return err
+
+    def timed(fn):
+        """(result, ms) of one call by CUDA events."""
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = fn()
+        end.record()
+        end.synchronize()
+        return res, start.elapsed_time(end)
+
+    phase_launches = {}
+
+    def add_launches(counts):
+        for k, v in counts.items():
+            phase_launches[k] = phase_launches.get(k, 0) + v
+
+    # gate 1: skin=0, every path equals its reference_step loop bit for bit
+    gate1, ends, plans, md0s = {}, {}, {}, {}
+    for label, kw, need in TRAJ_PATHS:
+        p = plan(dom, kern, positions=pos, device=dev, **kw)
+        md0 = init_state(p, pos, vel)
+        plans[label], md0s[label] = p, md0
+        reset_launches()
+        res = p.trajectory(md0, TRAJ_GATE1_STEPS, TRAJ_DT, skin=0.0,
+                           segment_len=TRAJ_GATE1_SEG)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        add_launches(launches)
+        short = [k for k in ("prefix_sum", *need)
+                 if launches.get(k, 0) < TRAJ_GATE1_STEPS]
+        if short or res.status != "ok" or res.rebins != TRAJ_GATE1_STEPS:
+            raise AssertionError(f"trajectory gate 1 {label}: status "
+                                 f"{res.status}, rebins {res.rebins}, "
+                                 f"launches {launches}")
+        step = TE.reference_step(p)
+        md = md0
+        for _ in range(TRAJ_GATE1_STEPS):
+            md = step(md, TRAJ_DT)
+        equal_md(res.state, md, f"trajectory gate 1 {label} vs its "
+                 "reference_step loop")
+        ends[label] = (res.state, md)
+        gate1[label] = dict(m_c=p.m_c, launches=launches)
+        log(f"trajectory gate 1 {label}: skin 0, {TRAJ_GATE1_STEPS} steps, "
+            f"m_c {p.m_c}: bit-equal to the reference_step loop; launches "
+            f"{launches}")
+    for label in ends:
+        equal_md(ends[label][0], ends["dense"][0],
+                 f"trajectory gate 1 {label} vs dense")
+    out["gate1"] = gate1
+
+    # gate 2: the default skin against the reference loop carried on
+    p, md0 = plans["dense"], md0s["dense"]
+    reset_launches()
+    res, skin_ms = timed(lambda: p.trajectory(md0, TRAJ_STEPS, TRAJ_DT,
+                                              segment_len=TRAJ_SEG))
+    launches = launch_counts()
+    add_launches(launches)
+    tp = res.plan
+    if (res.status != "ok" or res.ladder_level != 0 or res.faults
+            or res.rebins >= TRAJ_MAX_REBINS
+            or launches.get("xpencil_forces", 0) < TRAJ_STEPS):
+        raise AssertionError(f"trajectory gate 2: status {res.status}, "
+                             f"level {res.ladder_level}, faults {res.faults}, "
+                             f"rebins {res.rebins}, launches {launches}")
+    step = TE.reference_step(p)
+    md = ends["dense"][1]
+    md, loop_ms = timed(lambda: _loop(step, md, TRAJ_STEPS - TRAJ_GATE1_STEPS,
+                                      TRAJ_DT))
+    err2 = close_md(res.state, md, "trajectory gate 2 (skin) vs the loop")
+    res0, skin0_ms = timed(lambda: p.trajectory(
+        md0, TRAJ_STEPS, TRAJ_DT, skin=0.0, segment_len=TRAJ_SEG))
+    equal_md(res0.state, md, "trajectory skin 0, 256 steps, vs the loop")
+    disp = res.traces["displacement"]
+    out["gate2"] = dict(
+        skin_domain=list(tp.domain.ncells), m_c=tp.m_c,
+        eff_skin=res.eff_skin, rebins=res.rebins,
+        rebin_steps=[int(i) for i in (res.traces["rebinned"] > 0).nonzero()[0]],
+        launches=launches, max_rel_err=err2,
+        closest_predicate_margin=float(abs(disp - res.eff_skin / 2).min()),
+        ms_per_step=dict(skin=skin_ms / TRAJ_STEPS,
+                         skin0=skin0_ms / TRAJ_STEPS,
+                         execute_loop=loop_ms / (TRAJ_STEPS
+                                                 - TRAJ_GATE1_STEPS)))
+    log(f"trajectory gate 2: skin grid {tp.domain.ncells}, m_c {tp.m_c}, "
+        f"eff skin {res.eff_skin:.4f}, {res.rebins} rebins in "
+        f"{TRAJ_STEPS} steps at {out['gate2']['rebin_steps']}; within "
+        f"{err2} of the reference loop; skin 0 over {TRAJ_STEPS} steps "
+        f"bit-equal to it; ms per step {out['gate2']['ms_per_step']}")
+
+    # gate 3: stop at 128, resume to 256: bit-identical
+    (ROOT / "build").mkdir(exist_ok=True)
+    gate3 = {}
+    fulls = {"dense": res}
+    for label, kw, integ in (("dense", {}, {}),
+                             ("packed", {"layout": "packed"}, {}),
+                             ("langevin", {}, dict(integrator="langevin",
+                                                   gamma=0.1, kT=1e-3))):
+        q = plans[label] if label in plans else plans["dense"]
+        m0 = md0s["packed" if label == "packed" else "dense"]
+        if label not in fulls:
+            fulls[label] = q.trajectory(m0, TRAJ_STEPS, TRAJ_DT,
+                                        segment_len=TRAJ_SEG, **integ)
+        d = pathlib.Path(tempfile.mkdtemp(prefix="traj_ckpt_",
+                                          dir=ROOT / "build"))
+        opts = dict(segment_len=TRAJ_SEG, checkpoint_dir=d,
+                    checkpoint_every=TRAJ_CK_EVERY, **integ)
+        t0 = time.perf_counter()
+        part = q.trajectory(m0, TRAJ_STEPS // 2, TRAJ_DT, **opts)
+        part_s = time.perf_counter() - t0
+        last = ckpt.latest_step(d)
+        ck_bytes = sum(f.stat().st_size for f in
+                       (d / f"step_{last:08d}").iterdir())
+        again = q.trajectory(m0, TRAJ_STEPS, TRAJ_DT, **opts)
+        shutil.rmtree(d)
+        if (part.checkpoints != 2 or last != TRAJ_STEPS // 2
+                or again.resumed_from != TRAJ_STEPS // 2
+                or again.steps != TRAJ_STEPS or again.status != "ok"):
+            raise AssertionError(f"trajectory gate 3 {label}: checkpoints "
+                                 f"{part.checkpoints}, latest {last}, resumed "
+                                 f"from {again.resumed_from}")
+        equal_md(again.state, fulls[label].state,
+                 f"trajectory gate 3 {label}: resumed vs uninterrupted")
+        gate3[label] = dict(checkpoint_bytes=ck_bytes, part_s=part_s,
+                            rebins=fulls[label].rebins)
+        log(f"trajectory gate 3 {label}: stopped at {last}, resumed, "
+            f"bit-equal to the uninterrupted run; a checkpoint is "
+            f"{ck_bytes} bytes")
+    equal_md(fulls["packed"].state, fulls["dense"].state,
+             "trajectory packed vs dense, skin")
+    out["gate3"] = gate3
+
+    # checkpoint save and load of the skin run's carry, host clock
+    carry = TE._init_carry(tp, 1.0, res.state.positions,
+                           res.state.velocities, 0, {}, None,
+                           torch.Generator(device=dev).get_state(),
+                           res.state.forces, res.state.potential)
+    d = pathlib.Path(tempfile.mkdtemp(prefix="traj_ckpt_", dir=ROOT / "build"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt.save(d, 1, carry)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back, _ = ckpt.restore(d, carry)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    equal_md(back.md, carry.md, "checkpoint round trip")
+    out["checkpoint"] = dict(
+        bytes=sum(f.stat().st_size for f in (d / "step_00000001").iterdir()),
+        save_s=save_s, load_s=load_s)
+    shutil.rmtree(d)
+    log(f"trajectory checkpoint: {out['checkpoint']}")
+
+    # gate 4: injected faults
+    with chaos.inject(chaos.FaultSpec("traj.step", "error", p=1.0, after=1,
+                                      max_fires=1), seed=5):
+        r_err = p.trajectory(md0, TRAJ_STEPS, TRAJ_DT, segment_len=TRAJ_SEG)
+    if r_err.retries != 1 or r_err.status != "ok":
+        raise AssertionError(f"trajectory gate 4 error: retries "
+                             f"{r_err.retries}, status {r_err.status}")
+    equal_md(r_err.state, res.state, "trajectory gate 4: retried vs clean")
+    with chaos.inject(chaos.FaultSpec("traj.step", "nonfinite", p=1.0,
+                                      after=1, max_fires=1), seed=3):
+        r_nan = p.trajectory(md0, TRAJ_STEPS, TRAJ_DT, segment_len=TRAJ_SEG)
+    if (r_nan.status != "ok" or r_nan.rollbacks != 1
+            or r_nan.ladder_level != 0 or r_nan.steps != TRAJ_STEPS):
+        raise AssertionError(f"trajectory gate 4 nonfinite: {r_nan.status}, "
+                             f"rollbacks {r_nan.rollbacks}, level "
+                             f"{r_nan.ladder_level}, faults {r_nan.faults}")
+    err4 = close_md(r_nan.state, res.state,
+                    "trajectory gate 4: rolled back vs clean")
+    out["gate4"] = dict(error_faults=r_err.faults, nonfinite_faults=r_nan.faults,
+                        nonfinite_forced_rebins=r_nan.forced_rebins,
+                        nonfinite_max_rel_err=err4)
+    log(f"trajectory gate 4: {out['gate4']}")
+
+    # where a skin step's time goes, on the skin grid at the run's end
+    co = I.coefficients(TRAJ_DT, 1.0, 0.1, 0.0)
+    sdom = tp.domain
+    md = carry.md
+    gen = torch.Generator(device=dev)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    new_pos, v_staged = I.integ_drift("velocity_verlet", sdom, co, md, gen)
+    img = image_positions(sdom, new_pos, carry.ref)
+    bins = refresh_bins(sdom, carry.bins, img[None])
+    fx, fy, fz, pot = xpencil_forces(bins.planes, bins.slot_id, nx=sdom.nx,
+                                     m_c=bins.m_c, kernel=kern, cutoff2=1.0)
+    forces, upot = TE._forces(tp, bins, img, {}, None)
+
+    def monitors():
+        ke, pe = TE._masked_energies(md.velocities, upot, None, 1.0)
+        probes = TE._bound_probes(tp, bins, zero)
+        return M.update(carry.mon, positions=new_pos, velocities=md.velocities,
+                        forces=forces, potential=upot, valid=None, kinetic=ke,
+                        potential_energy=pe, step_disp=zero.float(),
+                        eff_skin=res.eff_skin, cell_max=probes[0],
+                        row_max=probes[1], units=probes[2])
+
+    pieces = {
+        "drift": lambda: I.integ_drift("velocity_verlet", sdom, co, md, gen),
+        "max_displacement x2": lambda: (
+            max_displacement(sdom, new_pos, carry.ref),
+            max_displacement(sdom, new_pos, md.positions)),
+        "refresh_bins (image + scatter + ghosts)": lambda: refresh_bins(
+            sdom, carry.bins, image_positions(sdom, new_pos,
+                                              carry.ref)[None]),
+        "kernel B on the skin grid": lambda: xpencil_forces(
+            bins.planes, bins.slot_id, nx=sdom.nx, m_c=bins.m_c,
+            kernel=kern, cutoff2=1.0),
+        "scatter-back": lambda: dense_to_particles(sdom, bins, fx, fy, fz,
+                                                   pot),
+        "kick": lambda: I.integ_kick("velocity_verlet", co, v_staged,
+                                     forces),
+        "monitors (energies, probes, update)": monitors,
+        "refresh step": lambda: TE._step(tp, "velocity_verlet", co,
+                                         res.eff_skin, 1.0, carry, gen, {},
+                                         None, zero),
+        "rebin step": lambda: TE._step(tp, "velocity_verlet", co, 0.0, 1.0,
+                                       carry, gen, {}, None, zero),
+        "execute() at division 64": lambda: p.execute(ParticleState(md.positions)),
+    }
+    split = {k: cuda_ms(fn, reps=10) for k, fn in pieces.items()}
+    split_queued = {k: cuda_ms_queued(fn, reps=10) for k, fn in pieces.items()
+                    if k not in ("refresh step", "rebin step")}
+    steps = launches_in_turns({k: pieces[k] for k in
+                               ("refresh step", "rebin step",
+                                "execute() at division 64")},
+                              reps=3, sessions=3)
+    syncs = {}
+    for k in ("refresh step", "rebin step", "execute() at division 64"):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode(1)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            pieces[k]()
+            torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode(0)
+        syncs[k] = sum("synchroniz" in str(w.message) for w in caught)
+    out["split_ms"] = split
+    out["split_ms_queued"] = split_queued
+    out["launches_a_call"] = {k: v["launches"] for k, v in steps.items()}
+    out["device_ms_a_call"] = {k: v["device_ms"] for k, v in steps.items()}
+    out["host_syncs_a_call"] = syncs
+    log(f"trajectory split (ms a call, events): {split}; queued: "
+        f"{split_queued}; launch calls {out['launches_a_call']}; device ms "
+        f"{out['device_ms_a_call']}; host syncs (sync debug mode) {syncs}")
+
+    # gate 5: one SPH step on the division-32 periodic scene
+    sdiv, sppc = TRAJ_SPH
+    sdom32 = Domain.cubic(sdiv, cutoff=1.0, periodic=True)
+    spos = sdom32.sample_uniform(sdiv ** 3 * sppc, generator=g, device=dev)
+    m_c = suggest_m_c(sdom32, spos)
+    params = sph.SPHParams(h=1.0, mass=1.0)
+    zero_v = torch.zeros_like(spos)
+    reset_launches()
+    got, sph_ms = timed(lambda: sph.sph_step(sdom32, spos, zero_v, params,
+                                             m_c, dt=1e-3))
+    sph_launches = launch_counts()
+    add_launches(sph_launches)
+    want = sph.sph_step(sdom32, spos, zero_v, params, m_c, dt=1e-3,
+                        backend="reference")
+    # positions move by dt * v ~ 1e-8 of a box of 32: held scale-relative
+    # as every position is; velocities and density each to their own
+    # scale, with no floor, so a velocity of ~1e-5 keeps its digits
+    errs = {"positions": assert_scale_close(got[0], want[0],
+                                            "sph_step positions vs "
+                                            "reference")}
+    for a, b, what in zip(got[1:], want[1:], ("velocities", "density")):
+        errs[what] = assert_own_scale_close(a, b, f"sph_step {what} vs "
+                                            "reference", SPH_OWN_TOL)
+    if sph_launches.get("xpencil_forces") != 2:
+        raise AssertionError(f"sph_step: launches {sph_launches}")
+    # the pressure force (kernel B with PairParams.p2 = the pressure scale)
+    # per particle against the reference, within 1e-4 of its own term sizes:
+    # a zero, flipped or mis-scaled p2 fails here (not counted as the main
+    # path's launches)
+    pkern = sph.make_pressure_kernel(params, float(params.rho0), 1.0)
+    fp = plan(sdom32, pkern, m_c=m_c, strategy="xpencil", device=dev)
+    pstate = ParticleState(spos)
+    pf, _ = fp.execute(pstate)
+    pref = dataclasses.replace(fp, backend="reference")
+    rf, _ = pref.execute(pstate)
+    size_k = PairKernel("sph_pressure_force_term_size", torch.zeros_like,
+                        lambda r2: pkern.coeff(r2).abs() * r2.sqrt(),
+                        flops=0)
+    fsize = dataclasses.replace(pref, kernel=size_k).execute(pstate)[1]
+    errs["pressure_force_term"] = assert_term_close(
+        pf, rf, fsize[:, None], "sph pressure force vs reference", 1e-4)
+    errs["pressure_force_own_scale"] = assert_own_scale_close(
+        pf, rf, "sph pressure force vs reference", SPH_OWN_TOL)
+    out["gate5_sph"] = dict(division=sdiv, n=spos.shape[0], m_c=m_c,
+                            errors=errs, launches=sph_launches, ms=sph_ms,
+                            max_abs_velocity=float(want[1].abs().max()))
+    log(f"trajectory gate 5: sph_step at division {sdiv} ({spos.shape[0]} "
+        f"particles, m_c {m_c}) on kernel B within {errs} of the reference "
+        f"backend (velocities and density to their own scale, limit "
+        f"{SPH_OWN_TOL}; the pressure force per particle to 1e-4 of its "
+        f"term sizes); {sph_ms:.3f} ms; launches {sph_launches}")
+
+    out["launches"] = phase_launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"trajectory phase: {out['phase_s']:.1f} s")
+    return out
+
+
+def _loop(step, md, n: int, dt: float):
+    for _ in range(n):
+        md = step(md, dt)
+    return md
 
 
 def main(argv=None) -> int:
@@ -2278,6 +2716,10 @@ def main(argv=None) -> int:
                                   assert_equal_results)
     log("main path (autotune): " + json.dumps(autotune_rec))
 
+    # -- trajectory: plan.trajectory, MD over many steps on every path -------
+    traj_rec = trajectory_phase(args.seed, dev, reset_launches, launch_counts)
+    log("main path (trajectory): " + json.dumps(traj_rec))
+
     # -- batch: B stacked systems through one chain of launches --------------
     def stacked_systems(index, n_sys, division, ppc, periodic):
         """B uniform systems of division**3 * ppc particles, each drawn from
@@ -2663,6 +3105,8 @@ def main(argv=None) -> int:
          "shapes": lm["shapes"], "checks_passed": g_checks + 1},
     ]}
     for entry in report["kernels"]:
+        entry["trajectory_launches"] = traj_rec["launches"].get(
+            entry["name"], 0)
         if entry["name"] in batch_launches:
             entry["launches_per_execute_batch"] = sorted(
                 batch_launches[entry["name"]])

@@ -1,6 +1,8 @@
 """PyTorch/CUDA port of ``repro``: the cutoff force evaluation by the
 paper's schedules (X-pencil dense, occupancy-compacted and packed-row,
-All-in-SM, Par-Part, Par-Cell) and Par-Cell over SFC cell clusters.
+All-in-SM, Par-Part, Par-Cell) and Par-Cell over SFC cell clusters, and
+the MD/SPH runs on top of it (``plan.trajectory``: ``repro_torch.traj``,
+``physics``, ``ckpt``, ``testing.chaos``).
 
     from repro_torch.core import Domain, ParticleState, plan
     p = plan(domain, kernel, positions=pos)          # runs on the CUDA card

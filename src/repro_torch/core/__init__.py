@@ -4,10 +4,12 @@ packed rows, SFC clusters), schedules, plan/execute, the cost model
 and its stopwatch, and the engine shims."""
 
 from . import scenarios, strategies, traffic
-from .api import (InteractionPlan, ParticleState, active_unit_count,
-                  backend_matrix, choose_strategy, get_backend, n_units, plan,
-                  register_backend, suggest_max_active, suggest_pair_cap,
-                  suggest_row_cap, supports_compact, supports_layout)
+from .api import (InteractionPlan, ParticleState, PlanHealth,
+                  active_unit_count, backend_matrix, choose_strategy,
+                  degradation_ladder, fallback_plan, get_backend, n_units,
+                  plan, plan_health, register_backend, reset_health,
+                  suggest_max_active, suggest_pair_cap, suggest_row_cap,
+                  supports_compact, supports_layout)
 from .binning import (EMPTY_POS, GHOST_ID_BUMP, CellBins, Occupancy,
                       PackedRows, SfcClusters, bin_particles,
                       build_sfc_clusters, cell_counts, decode_pair_codes,
@@ -33,21 +35,21 @@ from .autotune import TuneResult, tune
 __all__ = [
     "CellBins", "CellListEngine", "Domain", "EMPTY_POS", "GHOST_ID_BUMP",
     "InteractionPlan", "Occupancy", "PackedRows", "PairKernel",
-    "ParticleState", "SfcClusters", "TuneResult", "active_unit_count",
-    "autotune", "backend_matrix", "bin_particles", "blelloch_counts",
-    "build_sfc_clusters", "cell_counts", "choose_strategy",
-    "compute_interactions", "decode_pair_codes", "dense_to_particles",
-    "encode_pair_masks", "exclusive_prefix_sum", "full_pencil_occupancy",
-    "gather_pencil_rows", "gather_to_particles", "get_backend",
-    "hilbert_decode", "hilbert_encode", "interior_to_padded", "make_gravity",
-    "make_high_flop", "make_lennard_jones", "make_low_flop",
-    "make_sph_density", "morton_decode", "morton_encode", "n_units",
-    "operation_counts", "pack_rows", "packed_to_particles",
-    "padded_row_counts", "pair_contribution", "paper_prefix_sum",
-    "pencil_occupancy", "plan", "register_backend", "scenarios",
-    "sfc_cluster_tables", "sfc_pair_count", "sfc_slot_tables",
-    "sfc_to_particles", "strategies", "subbox_counts", "subbox_occupancy",
-    "suggest_m_c", "suggest_max_active", "suggest_pair_cap",
-    "suggest_row_cap", "supports_compact", "supports_layout", "time_fn",
-    "traffic", "tune", "unpack_scatter",
+    "ParticleState", "PlanHealth", "SfcClusters", "TuneResult",
+    "active_unit_count", "autotune", "backend_matrix", "bin_particles",
+    "blelloch_counts", "build_sfc_clusters", "cell_counts", "choose_strategy",
+    "compute_interactions", "decode_pair_codes", "degradation_ladder",
+    "dense_to_particles", "encode_pair_masks", "exclusive_prefix_sum",
+    "fallback_plan", "full_pencil_occupancy", "gather_pencil_rows",
+    "gather_to_particles", "get_backend", "hilbert_decode", "hilbert_encode",
+    "interior_to_padded", "make_gravity", "make_high_flop",
+    "make_lennard_jones", "make_low_flop", "make_sph_density", "morton_decode",
+    "morton_encode", "n_units", "operation_counts", "pack_rows",
+    "packed_to_particles", "padded_row_counts", "pair_contribution",
+    "paper_prefix_sum", "pencil_occupancy", "plan", "plan_health",
+    "register_backend", "reset_health", "scenarios", "sfc_cluster_tables",
+    "sfc_pair_count", "sfc_slot_tables", "sfc_to_particles", "strategies",
+    "subbox_counts", "subbox_occupancy", "suggest_m_c", "suggest_max_active",
+    "suggest_pair_cap", "suggest_row_cap", "supports_compact",
+    "supports_layout", "time_fn", "traffic", "tune", "unpack_scatter",
 ]

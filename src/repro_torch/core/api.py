@@ -30,7 +30,9 @@ ones.
 
 Every static bound (``m_c``, ``max_active``, ``row_cap``, ``pair_cap``)
 follows one replan contract, stated on :meth:`InteractionPlan.replan`; the
-``allin`` sub-box ``box`` follows ``m_c``.
+``allin`` sub-box ``box`` follows ``m_c``. ``plan.trajectory`` runs MD on
+the plan (``repro_torch.traj``), whose circuit breaker and degradation
+ladder (``plan_health``, ``degradation_ladder``) live here.
 
 Every backend takes layout data with a leading system axis: ``execute`` is
 the batch of one, run through :meth:`InteractionPlan.execute_batch`'s body
@@ -340,8 +342,12 @@ class InteractionPlan:
     def overflow_class(self, state: ParticleState) -> Optional[str]:
         """Which static bound these positions breach, ``"m_c"``,
         ``"row_cap"``, ``"pair_cap"`` or ``"max_active"`` (checked in that
-        order), or None when every bound holds. One binning pass; waits for
-        the device."""
+        order), ``"injected"`` (a verdict forced at the ``core.binning``
+        fault point, ``repro_torch.testing.chaos``), or None when every
+        bound holds. One binning pass; waits for the device."""
+        from ..testing import chaos
+        if chaos.forced_overflow("core.binning"):
+            return "injected"
         counts = cell_counts(self.domain, state.positions, state.valid)
         if int(counts.max()) > self.m_c:
             return "m_c"
@@ -423,6 +429,27 @@ class InteractionPlan:
         return dataclasses.replace(self, m_c=m_c, box=box,
                                    max_active=max_active, row_cap=row_cap,
                                    pair_cap=pair_cap)
+
+    def trajectory(self, state, n_steps: int, dt: float, *,
+                   integrator: str = "velocity_verlet",
+                   skin: Optional[float] = None, **opts):
+        """Run ``n_steps`` of bin -> force -> integrate simulation with
+        Verlet-skin neighbor reuse, invariant monitors, checkpoint/rollback
+        and deterministic resume. Returns a
+        :class:`repro_torch.traj.TrajectoryResult`.
+
+        ``state`` is an ``MDState``, a ``ParticleState`` (+ optional
+        ``velocities=``) or a raw ``(N, 3)`` positions tensor. ``skin`` is
+        the Verlet margin (default: a quarter cutoff; ``0`` = re-bin every
+        step, bit-identical to a per-step :meth:`execute` loop). Forwarded
+        options (``checkpoint_dir``, ``checkpoint_every``, ``segment_len``,
+        ``energy_budget``, ``mass``, ``gamma``/``kT`` for the langevin
+        integrator, ...): see :func:`repro_torch.traj.engine.run_trajectory`,
+        where the contract lives. Requires a cell schedule (``cell_dense``
+        / ``xpencil`` / ``allin``)."""
+        from ..traj.engine import run_trajectory
+        return run_trajectory(self, state, n_steps, dt,
+                              integrator=integrator, skin=skin, **opts)
 
     def execute_or_replan(self, state: ParticleState
                           ) -> Tuple[Tuple[torch.Tensor, torch.Tensor],
@@ -679,6 +706,112 @@ def suggest_pair_cap(domain: Domain, positions: Optional[torch.Tensor] = None,
     cap = max(1, int(n_pairs * slack + 0.999))
     cap = -(-cap // align) * align
     return max(min(cap, sfc_n_clusters(domain) * 27), n_pairs)
+
+
+# --------------------------------------------------------------------------
+# circuit breaker and degradation ladder
+# --------------------------------------------------------------------------
+#
+# Port of the JAX package's breaker. _FAILURE_THRESHOLD consecutive
+# failures step one rung DOWN the degradation ladder (packed/sfc -> dense
+# layout, then compact -> not; on the CPU the ladder starts with cuda ->
+# reference backend, as JAX's starts with pallas -> reference);
+# _RECOVERY_THRESHOLD consecutive clean runs step one rung back UP. Every
+# rung computes the same physics. The port catches no exception, so a
+# failure here is an injected fault or an invariant breach the trajectory
+# engine's monitors report (``repro_torch.traj``), never a kernel that
+# raised: a CUDA error or a failed build propagates to the caller. A plan
+# on the card never steps onto the plain PyTorch schedules: past its last
+# kernel rung, a failing trajectory ends ``"failed"``.
+
+_FAILURE_THRESHOLD = 3     # consecutive failures to trip one rung down
+_RECOVERY_THRESHOLD = 8    # consecutive clean runs to climb one rung up
+
+
+@dataclasses.dataclass
+class PlanHealth:
+    """Per-plan circuit-breaker state. ``level`` indexes into
+    :func:`degradation_ladder`; 0 = healthy."""
+
+    level: int = 0
+    consec_failures: int = 0
+    consec_clean: int = 0
+    trips: int = 0             # lifetime rung-down transitions
+    recoveries: int = 0        # lifetime rung-up transitions
+
+    def note_failure(self, n_rungs: int) -> bool:
+        """Record one failure; True if the breaker tripped a rung down
+        (hysteresis: the failure streak resets on the trip)."""
+        self.consec_clean = 0
+        self.consec_failures += 1
+        if (self.consec_failures >= _FAILURE_THRESHOLD
+                and self.level < n_rungs - 1):
+            self.level += 1
+            self.trips += 1
+            self.consec_failures = 0
+            return True
+        return False
+
+    def note_success(self) -> bool:
+        """Record one clean run; True if the breaker recovered a rung up
+        (after _RECOVERY_THRESHOLD consecutive clean runs)."""
+        self.consec_failures = 0
+        self.consec_clean += 1
+        if self.level > 0 and self.consec_clean >= _RECOVERY_THRESHOLD:
+            self.level -= 1
+            self.recoveries += 1
+            self.consec_clean = 0
+            return True
+        return False
+
+
+def _health_key(p: InteractionPlan) -> Tuple:
+    """Breaker identity: the plan minus its grown/derived bounds, so a
+    replan (grown ``m_c``/``row_cap``/...) keeps the same breaker state."""
+    return (p.domain, p.kernel, p.strategy, p.backend, p.layout, p.compact,
+            p.batch_size, p.device)
+
+
+_health: Dict[Tuple, PlanHealth] = {}
+
+
+def plan_health(p: InteractionPlan) -> PlanHealth:
+    """The live circuit-breaker state for a plan (created healthy on first
+    access)."""
+    return _health.setdefault(_health_key(p), PlanHealth())
+
+
+def reset_health() -> None:
+    """Forget every plan's breaker state (test bookkeeping)."""
+    _health.clear()
+
+
+def degradation_ladder(p: InteractionPlan) -> Tuple[InteractionPlan, ...]:
+    """The rungs a failing plan steps down: the plan itself, then backend
+    cuda -> reference (CPU plans only, where ``"cuda"`` runs the plain
+    versions anyway), then layout packed/sfc -> dense where the backend
+    has it, then compact -> not. Rung 0 is always ``p``; a plan on the card
+    keeps its backend on every rung, so a breach never moves it off the
+    kernels."""
+    rungs = [p]
+    q = p
+    if q.backend == "cuda" and q.device.type != "cuda":
+        q = dataclasses.replace(q, backend="reference")
+        rungs.append(q)
+    if (q.layout in ("packed", "sfc")
+            and supports_layout(q.backend, q.strategy, "dense")):
+        q = dataclasses.replace(q, layout="dense")
+        rungs.append(q)
+    if q.compact:
+        q = dataclasses.replace(q, compact=False)
+        rungs.append(q)
+    return tuple(rungs)
+
+
+def fallback_plan(p: InteractionPlan) -> InteractionPlan:
+    """The most-degraded rung: dense and uncompacted, on the reference
+    backend for a CPU plan and on the kernels for a plan on the card."""
+    return degradation_ladder(p)[-1]
 
 
 # --------------------------------------------------------------------------

@@ -231,29 +231,10 @@ def _fill_periodic_ghosts(domain: Domain, bins: CellBins) -> None:
     previous one wrote; every right-hand side is a new tensor, so a source
     that overlaps its target (1-cell-thick axes) is read before the write.
     Planes may carry leading system axes."""
+    _fill_ghost_planes(domain, bins.planes, bins.m_c)
     nx, ny, nz = domain.ncells
     m_c = bins.m_c
-    lx, ly, lz = domain.box
     px, py, pz = domain.periodic_axes
-
-    def shifted(src: torch.Tensor, d: float) -> torch.Tensor:
-        return src + d if d else src.clone()
-
-    for field, plane in bins.planes.items():
-        if px:
-            dx = lx if field == "x" else 0.0
-            left = shifted(plane[..., nx * m_c:(nx + 1) * m_c], -dx)
-            right = shifted(plane[..., m_c:2 * m_c], dx)
-            plane[..., 0:m_c] = left
-            plane[..., (nx + 1) * m_c:] = right
-        if py:
-            dy = ly if field == "y" else 0.0
-            plane[..., 0, :] = shifted(plane[..., ny, :], -dy)
-            plane[..., ny + 1, :] = shifted(plane[..., 1, :], dy)
-        if pz:
-            dz = lz if field == "z" else 0.0
-            plane[..., 0, :, :] = shifted(plane[..., nz, :, :], -dz)
-            plane[..., nz + 1, :, :] = shifted(plane[..., 1, :, :], dz)
 
     # Ghost slots mirror the interior ids bumped by GHOST_ID_BUMP; the bump
     # is computed from the plane as it stands before each axis's writes.
@@ -274,6 +255,33 @@ def _fill_periodic_ghosts(domain: Domain, bins: CellBins) -> None:
         big = bump(s)
         s[..., 0, :, :] = big[..., nz, :, :]
         s[..., nz + 1, :, :] = big[..., 1, :, :]
+
+
+def _fill_ghost_planes(domain: Domain, planes: Dict[str, torch.Tensor],
+                       m_c: int) -> None:
+    """The value planes' part of :func:`_fill_periodic_ghosts`, in place."""
+    nx, ny, nz = domain.ncells
+    lx, ly, lz = domain.box
+    px, py, pz = domain.periodic_axes
+
+    def shifted(src: torch.Tensor, d: float) -> torch.Tensor:
+        return src + d if d else src.clone()
+
+    for field, plane in planes.items():
+        if px:
+            dx = lx if field == "x" else 0.0
+            left = shifted(plane[..., nx * m_c:(nx + 1) * m_c], -dx)
+            right = shifted(plane[..., m_c:2 * m_c], dx)
+            plane[..., 0:m_c] = left
+            plane[..., (nx + 1) * m_c:] = right
+        if py:
+            dy = ly if field == "y" else 0.0
+            plane[..., 0, :] = shifted(plane[..., ny, :], -dy)
+            plane[..., ny + 1, :] = shifted(plane[..., 1, :], dy)
+        if pz:
+            dz = lz if field == "z" else 0.0
+            plane[..., 0, :, :] = shifted(plane[..., nz, :, :], -dz)
+            plane[..., nz + 1, :, :] = shifted(plane[..., 1, :, :], dz)
 
 
 def gather_to_particles(bins: CellBins, plane: torch.Tensor) -> torch.Tensor:
@@ -318,6 +326,97 @@ def dense_to_particles(domain: Domain, bins: CellBins, fx, fy, fz, pot
         out.append(gather_to_particles(
             bins, interior_to_padded(domain, shaped, bins.m_c)))
     return torch.stack(out[:3], dim=-1), out[3]
+
+
+# --------------------------------------------------------------------------
+# Verlet-skin reuse: refresh slot contents without re-binning
+# --------------------------------------------------------------------------
+#
+# Port of the JAX package's skin helpers. The trajectory engine
+# (``repro_torch.traj``) keeps a slot assignment across timesteps and
+# refreshes slot contents in place each step. As long as no particle has
+# drifted more than skin/2 from the position it was binned at, the 27-cell
+# neighborhood of a grid whose cells are ``cutoff + skin`` wide still covers
+# every pair within the cutoff. ``max_displacement`` is the rebin predicate;
+# ``refresh_bins`` is the per-step scatter that replaces a full
+# ``bin_particles`` pass while the predicate says the bins still hold.
+
+
+def max_displacement(domain: Domain, positions: torch.Tensor,
+                     ref: torch.Tensor,
+                     valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """0-d max over particles of |positions - ref| (minimum image); 0 for
+    no particles. Padding rows (``valid`` False) contribute zero. Stays on
+    the device."""
+    d = domain.minimum_image(positions - ref)
+    mag = torch.sqrt(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]
+                     + d[..., 2] * d[..., 2])
+    if valid is not None:
+        mag = torch.where(valid, mag, torch.zeros_like(mag))
+    return torch.cat([mag.reshape(-1), mag.new_zeros(1)]).max()
+
+
+def image_positions(domain: Domain, positions: torch.Tensor,
+                    ref: torch.Tensor) -> torch.Tensor:
+    """Positions shifted to the periodic image nearest ``ref``.
+
+    Stale bins store each particle near where it was binned; a particle
+    that wrapped across a periodic face since then is presented to its old
+    neighborhood unwrapped. The shift is an exact multiple of the box, so a
+    particle that did not wrap keeps its bits."""
+    if not domain.any_periodic:
+        return positions
+    box, per, zero = domain.box_tensors(positions.device, positions.dtype)
+    shift = torch.where(per, box * torch.round((positions - ref) / box),
+                        zero)
+    return positions - shift
+
+
+def refresh_bins(domain: Domain, bins: CellBins, positions: torch.Tensor,
+                 fields: Optional[Dict[str, torch.Tensor]] = None,
+                 valid: Optional[torch.Tensor] = None) -> CellBins:
+    """Scatter current particle values into the *existing* slot layout.
+
+    Slot assignment (``particle_slot``, ``slot_id``, ``counts``,
+    ``offsets``) is reused from the last ``bin_particles`` pass; only the
+    value planes are rewritten, into new tensors, and the periodic ghost
+    ring is refilled from the refreshed interior. ``positions`` must
+    already be imaged next to the binned reference
+    (:func:`image_positions`). Stacked bins take stacked positions,
+    fields and ``valid``.
+
+    JAX scatters with ``mode="drop"``; torch raises on an index out of
+    range, on the card as a sticky device-side assert. So each system's
+    plane gets one dump slot past its end, as ``bin_particles``'s scatter
+    does: particles ``bin_particles`` dropped (``particle_slot == total``)
+    and padding rows (``valid`` False) land there, and it is cut off. JAX
+    parks dropped particles in ghost slot 0 instead, which its periodic
+    ghost refill rewrites and which holds a stale value under open
+    boundaries."""
+    lead = bins.particle_slot.shape[:-1]
+    n_sys = math.prod(lead)
+    size = bins.slot_id.numel()          # the batch's slots; dump = size
+    total = size // n_sys                # one system's slots
+    idx = bins.particle_slot.long()
+    if n_sys > 1:                        # system b's slots start at b*total
+        idx = torch.where(idx < total, idx + _system_bases(
+            lead, total, idx.device), size)
+    if valid is not None:
+        idx = torch.where(valid, idx, size)
+    idx = idx.reshape(-1)
+    planes = {}
+    for name, plane in bins.planes.items():
+        if name in ("x", "y", "z"):
+            vals = positions[..., "xyz".index(name)]
+        else:
+            vals = (fields or {})[name]
+        buf = torch.empty((size + 1,), dtype=plane.dtype, device=plane.device)
+        buf[:size] = plane.reshape(-1)
+        buf[idx] = vals.reshape(-1).to(plane.dtype)
+        planes[name] = buf[:size].view(plane.shape)
+    if domain.any_periodic:
+        _fill_ghost_planes(domain, planes, bins.m_c)
+    return dataclasses.replace(bins, planes=planes)
 
 
 # --------------------------------------------------------------------------

@@ -14,6 +14,7 @@ floored, periodic axes wrap with a floor-mod (``torch.remainder``, not
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -117,13 +118,20 @@ class Domain:
                 for dz in (-1, 0, 1) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
         return np.asarray(offs, dtype=np.int32)
 
+    def box_tensors(self, device, dtype: torch.dtype = torch.float32
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(box lengths (3,), periodic mask (3,) bool, a 0-d zero) on
+        ``device``, made once per (domain, device, dtype) and shared: a
+        tensor built from a Python list on the card is a copy that waits
+        for the device, which a per-step caller should not pay. Never
+        write to them."""
+        return _box_tensors(self, torch.device(device), dtype)
+
     def minimum_image(self, delta: torch.Tensor) -> torch.Tensor:
         """Wrap a displacement vector into the minimum image (periodic axes)."""
         if not self.any_periodic:
             return delta
-        box = torch.tensor(self.box, dtype=delta.dtype, device=delta.device)
-        per = torch.tensor(self.periodic_axes, device=delta.device)
-        zero = torch.zeros((), dtype=delta.dtype, device=delta.device)
+        box, per, zero = self.box_tensors(delta.device, delta.dtype)
         return delta - torch.where(per, box * torch.round(delta / box), zero)
 
     def sample_uniform(self, n: int, *,
@@ -138,6 +146,13 @@ class Domain:
         box = torch.tensor(self.box, dtype=dtype, device=device)
         return torch.rand((n, 3), generator=generator, dtype=dtype,
                           device=device) * box
+
+
+@functools.lru_cache(maxsize=64)
+def _box_tensors(domain: Domain, device: torch.device, dtype: torch.dtype):
+    return (torch.tensor(domain.box, dtype=dtype, device=device),
+            torch.tensor(domain.periodic_axes, device=device),
+            torch.zeros((), dtype=dtype, device=device))
 
 
 def skin_domain(domain: Domain, skin: float) -> Domain:

@@ -176,9 +176,11 @@ def make_sph_density(h: float) -> PairKernel:
         r = torch.clamp(torch.sqrt(r2), min=1e-12)
         return s * g / (hh * r)
 
+    # p2 scales the coefficient in the CUDA form (1.0 here; the pressure
+    # kernel of ``repro_torch.physics.sph`` passes its scale)
     return PairKernel("sph_density", coeff, potential, flops=18,
                       static_params=(h,),
-                      cuda=CudaForm(SPH_DENSITY, (hh, s)))
+                      cuda=CudaForm(SPH_DENSITY, (hh, s, 1.0)))
 
 
 def pair_contribution(kernel: PairKernel, dx, dy, dz, mask, cutoff2: float):

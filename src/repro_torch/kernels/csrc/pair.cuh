@@ -26,7 +26,9 @@ enum PairKind { kLJ = 0, kLowFlop = 1, kHighFlop = 2, kGravity = 3,
 // before they reach float32:
 //   LJ, high_flop: p0 = sigma^2, p1 = softening, p2 = 24*eps, p3 = 4*eps
 //   gravity:       p0 = -g, p1 = softening
-//   sph_density:   p0 = hh = h/2, p1 = s = 1/(pi*hh^3)
+//   sph_density:   p0 = hh = h/2, p1 = s = 1/(pi*hh^3), p2 = a scale of
+//                  the coefficient: 1 for the density, the pressure
+//                  force's -2*m*p_bar/rho_bar^2 (repro_torch/physics/sph.py)
 struct PairParams {
   float p0, p1, p2, p3;
   int n_extra;
@@ -83,6 +85,7 @@ __device__ __forceinline__ void pair_terms(float r2, const PairParams& q,
     const float g = qc < 1.0f ? g1 : (qc < 2.0f ? g2 : 0.0f);
     const float r = fmaxf(sqrtf(r2), (float)1e-12);
     c = s * g / (hh * r);
+    c = q.p2 * c;  // the pressure kernel's scale * base.coeff(r2); 1 * c == c
   }
 }
 

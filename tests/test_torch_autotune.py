@@ -577,13 +577,12 @@ def test_backend_matrix_maps_cuda_to_what_jax_maps_pallas_to():
     assert set(mine) == {"cuda", "reference"}
 
 
-# names of repro.core that Queue 1 items 10 (serving, health, executor
-# cache, dispatch counters) and 11 (halo) port
+# names of repro.core that Queue 1 items 10 (serving, executor cache,
+# dispatch counters) and 11 (halo) port; the circuit breaker came with
+# item 9
 NOT_YET = {
-    10: {"ExecutionReport", "PlanHealth", "clear_executor_cache",
-         "degradation_ladder", "fallback_plan", "plan_health",
-         "reset_health", "dispatch_count", "recompile_count",
-         "reset_counters", "executor_cache_info",
+    10: {"ExecutionReport", "clear_executor_cache", "dispatch_count",
+         "recompile_count", "reset_counters", "executor_cache_info",
          "set_executor_cache_size"},
     11: set(),
 }

@@ -1270,3 +1270,161 @@ def test_wrappers_refuse_two_leading_axes(gen):
         xpencil_forces({"x": plane, "y": plane, "z": plane},
                        plane.to(torch.int32), nx=1, m_c=8,
                        kernel=make_low_flop(), cutoff2=1.0)
+
+
+# ---------------------------------------------------------------------------
+# plan.trajectory on the card (repro_torch.traj)
+# ---------------------------------------------------------------------------
+
+def _traj_scene(gen, division=8):
+    """4 particles a cell on a jittered FCC lattice (chip_smoke.py's
+    trajectory scene, smaller): uniform draws put pairs deep in LJ's core,
+    whose kick the skin monitor rightly reports."""
+    dom = Domain.cubic(division, periodic=True)
+    basis = torch.tensor([[0.0, 0.0, 0.0], [0.5, 0.5, 0.0], [0.5, 0.0, 0.5],
+                          [0.0, 0.5, 0.5]], device="cuda") + 0.25
+    idx = torch.arange(division, device="cuda", dtype=torch.float32)
+    cz, cy, cx = torch.meshgrid(idx, idx, idx, indexing="ij")
+    pos = (torch.stack([cx, cy, cz], -1).reshape(-1, 1, 3) + basis).reshape(
+        -1, 3)
+    pos = pos + 0.05 * (2 * torch.rand(pos.shape, generator=gen,
+                                       device="cuda") - 1)
+    vel = 0.1 * torch.randn(pos.shape, generator=gen, device="cuda")
+    return dom, pos, vel, make_lennard_jones(sigma=0.3, eps=1e-4)
+
+
+def _md_equal(a, b, what):
+    for f in ("positions", "velocities", "forces", "potential"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), (what, f)
+
+
+@pytest.mark.parametrize("kw,kernels", [
+    (dict(strategy="xpencil"), (xpencil_forces,)),
+    (dict(strategy="xpencil", layout="packed"),
+     (pack_slots, xpencil_packed_forces)),
+    (dict(strategy="xpencil", compact=True), (xpencil_sparse_forces,)),
+    (dict(strategy="allin"), (allin_forces,)),
+], ids=["dense", "packed", "compact", "allin"])
+@pytest.mark.parametrize("integrator", ["velocity_verlet", "leapfrog"])
+def test_trajectory_skin0_equals_reference_loop(gen, kw, kernels,
+                                                integrator):
+    """skin=0 on the card: the trajectory equals a loop of
+    ``reference_step`` (one ``execute()`` a step) bit for bit, and launches
+    the path's kernels every step and kernel A on every rebin."""
+    from repro_torch.physics import init_state
+    from repro_torch.traj import reference_step
+    dom, pos, vel, kern = _traj_scene(gen)
+    p = plan(dom, kern, positions=pos, **kw)
+    md0 = init_state(p, pos, vel)
+    for k in (prefix_sum, *kernels):
+        k.launches = 0
+    res = p.trajectory(md0, 16, 1e-3, integrator=integrator, skin=0.0,
+                       segment_len=8)
+    torch.cuda.synchronize()
+    assert res.status == "ok" and res.rebins == 16
+    assert all(k.launches >= 16 for k in (prefix_sum, *kernels))
+    step = reference_step(p, integrator=integrator)
+    md = md0
+    for _ in range(16):
+        md = step(md, 1e-3)
+    _md_equal(res.state, md, kw)
+
+
+@pytest.mark.parametrize("kw,integ", [
+    (dict(strategy="xpencil"), {}),
+    (dict(strategy="xpencil", layout="packed"), {}),
+    (dict(strategy="xpencil"), dict(integrator="langevin", gamma=0.1,
+                                    kT=1e-3)),
+], ids=["dense", "packed", "langevin"])
+def test_trajectory_resume_bit_identical(gen, tmp_path, kw, integ):
+    """Stopped at 16 of 32 steps and resumed from its checkpoint on the
+    card: bit-equal to the uninterrupted run; dense = packed."""
+    from repro_torch.physics import init_state
+    dom, pos, vel, kern = _traj_scene(gen)
+    p = plan(dom, kern, positions=pos, **kw)
+    md0 = init_state(p, pos, vel)
+    opts = dict(skin=0.25, segment_len=8, checkpoint_every=8, seed=3,
+                **integ)
+    full = p.trajectory(md0, 32, 1e-3, **opts)
+    part = p.trajectory(md0, 16, 1e-3, checkpoint_dir=tmp_path, **opts)
+    assert part.checkpoints == 2
+    res = p.trajectory(md0, 32, 1e-3, checkpoint_dir=tmp_path, **opts)
+    assert res.resumed_from == 16 and res.status == "ok"
+    _md_equal(res.state, full.state, kw)
+    if not integ:
+        dense = plan(dom, kern, m_c=p.m_c, strategy="xpencil").trajectory(
+            md0, 32, 1e-3, **opts)
+        _md_equal(full.state, dense.state, "packed vs dense")
+
+
+def _own_scale_err(got, want):
+    """max |got - want| / max |want|: relative to the quantity's own size,
+    with no floor, so a velocity of 1e-5 is held to its own digits."""
+    scale = float(want.abs().max())
+    assert scale > 0
+    return float((got.double() - want.double()).abs().max()) / scale
+
+
+def test_sph_step_on_card_matches_reference(gen):
+    """``sph_step`` through kernel B (the density, then the pressure
+    kernel's scaled coefficient, ``PairParams.p2``) against the reference
+    backend on the same card: density and velocities within 1e-4 of their
+    own scale, and the pressure force per particle within 1e-4 of its own
+    term sizes, so a zero, flipped or mis-scaled ``p2`` fails."""
+    from repro_torch.physics import sph
+    dom = Domain.cubic(8, periodic=True)
+    pos = dom.sample_uniform(8 ** 3 * 10, generator=gen, device="cuda")
+    m_c = suggest_m_c(dom, pos)
+    params = sph.SPHParams(h=1.0)
+    vel = torch.zeros_like(pos)
+    xpencil_forces.launches = 0
+    got = sph.sph_step(dom, pos, vel, params, m_c, dt=1e-3)
+    assert xpencil_forces.launches == 2
+    want = sph.sph_step(dom, pos, vel, params, m_c, dt=1e-3,
+                        backend="reference")
+    scale = max(float(want[0].abs().max()), 1.0)
+    assert float((got[0] - want[0]).abs().max()) <= 3e-4 * scale
+    assert _own_scale_err(got[1], want[1]) <= 1e-4
+    assert _own_scale_err(got[2], want[2]) <= 1e-4
+    kern = sph.make_pressure_kernel(params, float(params.rho0), 1.0)
+    fp = plan(dom, kern, m_c=m_c, strategy="xpencil")
+    state = ParticleState(pos)
+    f, _ = fp.execute(state)
+    ref = dataclasses.replace(fp, backend="reference")
+    rf, _ = ref.execute(state)
+    fsize = dataclasses.replace(ref, kernel=_term_sizes(kern)[0]).execute(
+        state)[1]
+    _term_close(f, rf, fsize[:, None], "sph pressure force")
+    assert float(rf.abs().max()) > 0                 # premise: a force
+
+
+def test_trajectory_ladder_stays_on_the_kernels(gen, monkeypatch):
+    """A card plan's degradation ladder keeps the ``"cuda"`` backend on
+    every rung; a trajectory that breaches on every segment steps down the
+    kernel rungs and ends ``"failed"`` without a segment on the reference
+    backend."""
+    from repro_torch.core import api, degradation_ladder, reset_health
+    from repro_torch.physics import init_state
+    from repro_torch.testing import chaos
+    dom, pos, vel, kern = _traj_scene(gen)
+    p = plan(dom, kern, positions=pos, strategy="xpencil", layout="packed",
+             compact=True)
+    rungs = degradation_ladder(p)
+    assert [(r.backend, r.layout, r.compact) for r in rungs] == [
+        ("cuda", "packed", True), ("cuda", "dense", True),
+        ("cuda", "dense", False)]
+    used = []
+    real = api.get_backend
+
+    def spy(backend, strategy, layout="dense"):
+        used.append(backend)
+        return real(backend, strategy, layout)
+    monkeypatch.setattr(api, "get_backend", spy)
+    md0 = init_state(p, pos, vel)
+    reset_health()
+    with chaos.inject(chaos.FaultSpec("traj.step", "nonfinite", p=1.0)):
+        res = p.trajectory(md0, 16, 1e-3, segment_len=4, max_rollbacks=8)
+    reset_health()
+    assert res.status == "failed" and res.rollbacks == 9
+    assert res.ladder_level == len(rungs) - 1
+    assert used and set(used) == {"cuda"}

@@ -68,7 +68,9 @@ def test_import_needs_no_nvcc_triton_or_jax(tmp_path):
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels, "
             "repro_torch.kernels.ops, repro_torch.kernels.ref, "
             "repro_torch.convert, repro_torch.configs, repro_torch.models, "
-            "repro_torch.models.serving, repro_torch.kernels.window_attn\n"
+            "repro_torch.models.serving, repro_torch.kernels.window_attn, "
+            "repro_torch.physics, repro_torch.traj, repro_torch.ckpt, "
+            "repro_torch.testing\n"
             "bad = [m for m in ('jax', 'triton', 'repro') if m in sys.modules]\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PATH=str(tmp_path), PYTHONPATH=str(ROOT / "src"))
