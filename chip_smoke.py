@@ -73,6 +73,19 @@ the main paths through ``plan(...).execute()`` and checks and times them:
     split of a skin step, launch calls and host syncs of a refresh and a
     rebin step, checkpoint bytes and times; one ``sph_step`` at division 32
     on kernel B against the reference backend;
+  * serving: ``repro_torch.serve.ServingEngine`` (64 requests a batch,
+    default ``strategy="auto"``) on two mixes of 1,024 requests at division
+    16 (uniform; Gaussian blob and two-phase droplet), Poisson arrivals on
+    a virtual clock at half the request rate of a full batch measured in a
+    warm pass: every response ``torch.equal`` to its class plan's
+    ``execute()``, no executor build and no timing run once warm, the same
+    launch calls a dispatch at 16 and 64 requests; requests/s, latency
+    percentiles, batch fill; one class with ``autotune=True`` (tuned once,
+    then a cache hit); under injected ``serve.dispatch`` faults a packed
+    class quarantined on a ``"cuda"`` dense plan and every ``"ok"``
+    response equal to the fault-free run; ``execute_checked`` and
+    ``obs.profile`` (with its Chrome trace) on the dense division-64 path;
+    ``TrajectoryService``, two jobs of one class at division 32;
   * kernel G (sliding-window attention) against its plain version over a
     sweep of batch, GQA ratio, head_dim, window, softcap and dtype, and at
     the gemma2-2b shape, each case on the route ``route(dtype, D)`` names
@@ -1453,6 +1466,9 @@ def trajectory_phase(seed: int, dev, reset_launches, launch_counts):
     out["split_ms"] = split
     out["split_ms_queued"] = split_queued
     out["launches_a_call"] = {k: v["launches"] for k, v in steps.items()}
+    if out["launches_a_call"] != TRAJ_LAUNCH_CALLS:
+        raise AssertionError(f"launch calls a call {out['launches_a_call']}, "
+                             f"want {TRAJ_LAUNCH_CALLS}")
     out["device_ms_a_call"] = {k: v["device_ms"] for k, v in steps.items()}
     out["host_syncs_a_call"] = syncs
     log(f"trajectory split (ms a call, events): {split}; queued: "
@@ -1514,6 +1530,438 @@ def trajectory_phase(seed: int, dev, reset_launches, launch_counts):
     out["launches"] = phase_launches
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"trajectory phase: {out['phase_s']:.1f} s")
+    return out
+
+
+# The serving tier (ServingEngine, the regime of PERF.md's scene (f)): two
+# classes at division 16, N in SERVE_CLASSES (n_cap 16,384, about 4 a cell,
+# and 8,192), 1,024 requests a mix, Poisson arrivals on a VirtualClock from
+# the seed at SERVE_LOAD times the request rate of one full SERVE_MAX_BATCH
+# dispatch measured in the warm pass. Requests are made on the host, as a
+# front door receives them; each batch moves to the card in one copy.
+SERVE_DIVISION = 16
+SERVE_CLASSES = ((12_289, 16_384), (6_145, 8_192))
+SERVE_MIXES = (
+    ("uniform", (("uniform", {}),)),
+    ("clustered", (("gaussian_blob", {"sigma_frac": 0.15}),
+                   ("two_phase", {"droplet_frac": 0.7, "radius_frac": 0.2}))),
+)
+SERVE_REQUESTS, SERVE_MAX_BATCH, SERVE_MAX_QUEUE = 1024, 64, 4096
+SERVE_MAX_WAIT, SERVE_LOAD = 2e-3, 0.5
+SERVE_CHAOS_REQUESTS = 96
+# trajectory serving: two jobs of one class (n_cap 131,072), division 32
+# periodic, on the trajectory phase's FCC lattice and LJ
+SERVE_TRAJ_DIVISION, SERVE_TRAJ_N, SERVE_TRAJ_STEPS = 32, (120_000, 125_000), 64
+# launch calls a call of the trajectory phase, measured before the executor
+# cache came (PERF.md section 5): an explicit-strategy execute() and a
+# trajectory step launch what they did then
+TRAJ_LAUNCH_CALLS = {"refresh step": 180, "rebin step": 257,
+                     "execute() at division 64": 148}
+
+
+def serve_requests(mix, n_requests: int, seed: int):
+    """The open-loop schedule of one mix: [(arrival offset in units of the
+    mean gap, state on the host)], the gaps exponential, each request's
+    class, scene and N drawn from one seeded generator."""
+    import numpy as np
+
+    from repro_torch.core import Domain, ParticleState, scenarios
+
+    dom = Domain.cubic(SERVE_DIVISION, cutoff=1.0)
+    rng = np.random.default_rng(seed)
+    g = torch.Generator()
+    g.manual_seed(seed)
+    t, out = 0.0, []
+    for _ in range(n_requests):
+        t += rng.exponential(1.0)
+        lo, hi = SERVE_CLASSES[rng.integers(len(SERVE_CLASSES))]
+        scene, knobs = mix[rng.integers(len(mix))]
+        n = int(rng.integers(lo, hi + 1))
+        pos = scenarios.sample(scene, dom, n, generator=g, device="cpu",
+                               **knobs)
+        out.append((t, ParticleState(pos)))
+    return dom, out
+
+
+def serving_phase(seed: int, dev, smi: str, dom64, kern, pos_u,
+                  reset_launches, launch_counts, assert_equal_results,
+                  check_serving_batch):
+    """The serving tier on the card (``repro_torch.serve``), then guarded
+    execution, ``obs.profile`` and ``TrajectoryService``. -> record.
+
+    * ``ServingEngine`` (default ``strategy="auto"``) on the two mixes of
+      SERVE_MIXES: a warm pass (every request at once, full batches), the
+      arrival rate set from it, then a measured pass on a fresh clock and
+      metrics. Gates: every response of the measured pass ``torch.equal``
+      to ``class_plan(sc).execute`` of its request; no executor build and
+      no timing run after the warm pass; every kernel of each class's path
+      launched in the measured pass (counts set to 0 just before); a
+      dispatch makes the same launch calls at 16 and 64 requests; each
+      class's force kernel on a full padded batch of its requests against
+      its plain version (``check_serving_batch``).
+    * one class with ``autotune=True``: tuned once; a second engine on the
+      class is a cache hit with no timing run (cache under ``build/``).
+    * chaos: a packed class whose breaker opens moves to a ``"cuda"`` dense
+      plan; under a mixed ``serve.dispatch`` schedule every request ends
+      with a definite status and each ``"ok"`` equals the fault-free run.
+    * ``execute_checked`` on the dense division-64 path: a clean call and
+      one after an injected ``core.dispatch`` error bit-equal to
+      ``execute()``; ``obs.profile`` on the same plan, its Chrome trace.
+    * ``TrajectoryService``: two jobs of one class; the first bit-equal to
+      ``plan.trajectory`` of the unpadded state on the same skin plan, the
+      second builds no executor."""
+    import math
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch import obs
+    from repro_torch.core import (Domain, ParticleState, api,
+                                  make_lennard_jones, plan, recompile_count)
+    from repro_torch.core import autotune as at
+    from repro_torch.serve import (ServeMetrics, ServingEngine,
+                                   TrajectoryRequest, TrajectoryService,
+                                   VirtualClock, classify, quantize_batch,
+                                   stack_states)
+    from repro_torch.testing import chaos
+
+    t_phase = time.perf_counter()
+    out = {"device": smi}
+    (ROOT / "build").mkdir(exist_ok=True)
+
+    def to_dev(st):
+        return ParticleState(st.positions.to(dev))
+
+    def drive(eng, dom, schedule, gap):
+        """Arrivals at ``gap`` clock-seconds a unit of the schedule; due
+        buckets dispatch before each arrival. -> [(req_id, state)]"""
+        ids = []
+        for t, st in schedule:
+            eng.clock.advance_to(t * gap)
+            eng.poll()
+            ids.append((eng.submit(dom, st), st))
+        eng.clock.advance(eng.max_wait)
+        eng.flush()
+        return ids
+
+    def launch_calls_a_dispatch(eng, dom, states):
+        """Launch calls of one engine dispatch of 16 and of 64 requests
+        (``launches_in_turns``): submitted, then flushed."""
+        def dispatch(k):
+            def run():
+                for st in states[:k]:
+                    eng.submit(dom, st)
+                eng.flush()
+                eng.take_responses()
+            return run
+        counts = launches_in_turns({k: dispatch(k) for k in (16, 64)},
+                                   reps=1, sessions=3)
+        return {k: v["launches"] for k, v in counts.items()}
+
+    # 1. the two mixes
+    mixes, serving_launches = {}, {}
+    for index, (name, mix) in enumerate(SERVE_MIXES):
+        dom, schedule = serve_requests(mix, SERVE_REQUESTS,
+                                       seed * 1_000_003 + index)
+        eng = ServingEngine(kern, max_batch=SERVE_MAX_BATCH,
+                            max_queue=SERVE_MAX_QUEUE,
+                            max_wait=SERVE_MAX_WAIT)
+        t0 = time.perf_counter()
+        drive(eng, dom, [(0.0, st) for _, st in schedule], 0.0)
+        warm = eng.metrics.snapshot()
+        if len(eng.take_responses()) != SERVE_REQUESTS:
+            raise AssertionError(f"serving {name}: warm pass lost requests")
+        full_s = eng.metrics.dispatch_latency.p(50.0)
+        rate = SERVE_LOAD * SERVE_MAX_BATCH / full_s
+        warm_s = time.perf_counter() - t0
+        at.reset_timing_runs()
+        rc0 = recompile_count()
+        eng.clock, eng.metrics = VirtualClock(), ServeMetrics()
+        reset_launches()
+        ids = drive(eng, dom, schedule, 1.0 / rate)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        snap = eng.metrics.snapshot()
+        builds, timing_runs = recompile_count() - rc0, at.timing_run_count()
+        if builds or timing_runs:
+            raise AssertionError(f"serving {name}: {builds} executor builds, "
+                                 f"{timing_runs} timing runs after warm-up")
+        resp = {r.req_id: r for r in eng.take_responses()}
+        classes, class_states = {}, {}
+        for rid, st in ids:
+            r = resp[rid]
+            sc = classify(dom, eng.kernel, st.n, (), eng.min_n_cap)
+            p = eng.class_plan(sc)
+            classes[sc] = p
+            class_states.setdefault(sc, []).append(st)
+            if r.status != "ok":
+                raise AssertionError(f"serving {name}: request {rid} "
+                                     f"{r.status}")
+            assert_equal_results((r.forces, r.potential),
+                                 p.execute(to_dev(st)),
+                                 f"serving {name} request {rid} vs "
+                                 "class_plan(sc).execute")
+        for sc, p in classes.items():
+            short = [k for k in path_kernels(p)
+                     if launches.get(k, 0) < 1]
+            if short:
+                raise AssertionError(f"serving {name} {sc.label()}: no "
+                                     f"launch of {short}: {launches}")
+        calls = launch_calls_a_dispatch(eng, dom, [
+            st for _, st in schedule if st.n >= SERVE_CLASSES[0][0]])
+        if calls[16] != calls[64]:
+            raise AssertionError(f"serving {name}: a dispatch of 16 requests "
+                                 f"makes {calls[16]} launch calls, of 64 "
+                                 f"{calls[64]}")
+        kernel_checks = {}
+        for sc, p in classes.items():
+            full = class_states[sc][:SERVE_MAX_BATCH]
+            batched = stack_states(full, sc.n_cap,
+                                   quantize_batch(len(full), SERVE_MAX_BATCH),
+                                   dev)
+            kernel_checks[sc.label()] = check_serving_batch(
+                p, dom, batched, f"{name} {sc.label()}")
+        for k, v in launches.items():
+            serving_launches.setdefault(k, {})[name] = v / snap["batches"]
+        mixes[name] = dict(
+            requests=SERVE_REQUESTS, warm_pass_s=warm_s,
+            warm_batches=warm["batches"], full_dispatch_ms=1e3 * full_s,
+            rate_rps=rate, rps=snap["rps"], batches=snap["batches"],
+            batch_fill=snap["batch_fill"], replans_warm=warm["replans"],
+            total_ms={q: 1e3 * snap["total_latency"][f"{q}_s"]
+                      for q in ("p50", "p99")},
+            queue_ms={q: 1e3 * snap["queue_latency"][f"{q}_s"]
+                      for q in ("p50", "p99")},
+            dispatch_ms={q: 1e3 * snap["dispatch_latency"][f"{q}_s"]
+                         for q in ("p50", "p99")},
+            plans={sc.label(): dict(strategy=p.strategy, layout=p.layout,
+                                    backend=p.backend, m_c=p.m_c)
+                   for sc, p in classes.items()},
+            launches=launches, launch_calls_a_dispatch=calls,
+            kernel_checks=kernel_checks,
+            max_term_rel_err=max(c["max_term_rel_err"]
+                                 for c in kernel_checks.values()))
+        log(f"serving {name} ({smi}): {SERVE_REQUESTS} requests at "
+            f"{rate:.1f} req/s offered (half a full {SERVE_MAX_BATCH}-request "
+            f"dispatch's rate, {1e3 * full_s:.3f} ms in the warm pass): "
+            f"{snap['rps']:.1f} req/s served, {snap['batches']} dispatches, "
+            f"fill {snap['batch_fill']:.3f}; ms p50/p99 total "
+            f"{mixes[name]['total_ms']}, queue {mixes[name]['queue_ms']}, "
+            f"dispatch {mixes[name]['dispatch_ms']}; plans "
+            f"{mixes[name]['plans']}; launch calls a dispatch {calls}; "
+            "every response torch.equal to class_plan(sc).execute; 0 "
+            "executor builds, 0 timing runs after warm-up; each class's "
+            f"kernel on a full padded batch vs plain: {kernel_checks}")
+    out["mixes"] = mixes
+    out["serving_launches"] = serving_launches
+
+    # 2. autotune=True on one class: tuned once, then a cache hit
+    dom, schedule = serve_requests(SERVE_MIXES[0][1], 2 * SERVE_MAX_BATCH,
+                                   seed * 1_000_003 + 7)
+    states = [st for _, st in schedule
+              if st.n > SERVE_CLASSES[0][0] - 1][:SERVE_MAX_BATCH]
+    cache = tempfile.mkdtemp(prefix="serve_autotune_", dir=ROOT / "build")
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = cache
+    tuned = []
+    for _ in range(2):
+        eng = ServingEngine(kern, max_batch=SERVE_MAX_BATCH,
+                            max_wait=SERVE_MAX_WAIT, autotune=True,
+                            tune_opts=dict(backends=("cuda",),
+                                           budget_s=0.05))
+        at.reset_timing_runs()
+        drive(eng, dom, [(0.0, st) for st in states], 0.0)
+        resp = eng.take_responses()
+        p = eng.class_plan(classify(dom, kern, states[0].n, ()))
+        if not all(r.status == "ok" for r in resp):
+            raise AssertionError("serving autotune: a request failed")
+        tuned.append(dict(timing_runs=at.timing_run_count(),
+                          cache_hits=eng.metrics.autotune_cache_hits,
+                          strategy=p.strategy, layout=p.layout,
+                          compact=p.compact))
+    shutil.rmtree(cache)
+    os.environ.pop("REPRO_TORCH_AUTOTUNE_CACHE")
+    if not (tuned[0]["timing_runs"] > 0 and tuned[0]["cache_hits"] == 0
+            and tuned[1]["timing_runs"] == 0 and tuned[1]["cache_hits"] == 1):
+        raise AssertionError(f"serving autotune: {tuned}")
+    out["autotune"] = tuned
+    log(f"serving autotune=True: first engine tuned ({tuned[0]}), the "
+        f"second a cache hit with 0 timing runs ({tuned[1]})")
+
+    # 3. chaos on the card: the breaker of a packed class, then a mixed
+    # schedule against a fault-free run of the same requests
+    packed = dict(strategy="xpencil", layout="packed")
+    eng = ServingEngine(kern, max_batch=8, max_wait=SERVE_MAX_WAIT,
+                        max_retries=0, breaker_threshold=2,
+                        breaker_recovery=100, plan_opts=packed)
+    sc = classify(dom, kern, states[0].n, ())
+    with chaos.inject(chaos.FaultSpec("serve.dispatch", "error",
+                                      max_fires=2)):
+        for st in states[:2]:
+            eng.submit(dom, st)
+            eng.flush()
+    primary, quarantined = eng.class_primary(sc), eng.class_plan(sc)
+    eng.submit(dom, states[2])
+    eng.flush()
+    last = eng.take_responses()[-1]
+    if not (eng.class_breaker(sc).open and primary.layout == "packed"
+            and quarantined == api.fallback_plan(primary)
+            and quarantined.backend == "cuda"
+            and quarantined.layout == "dense" and last.status == "ok"):
+        raise AssertionError(f"serving chaos: breaker "
+                             f"{eng.class_breaker(sc)}, primary {primary}, "
+                             f"quarantined {quarantined}, {last.status}")
+    assert_equal_results((last.forces, last.potential),
+                         primary.execute(to_dev(states[2])),
+                         "quarantined class (cuda dense) vs its packed "
+                         "primary")
+    log(f"serving chaos: a packed class's breaker opened after 2 faults; "
+        f"quarantined on backend {quarantined.backend!r}, layout "
+        f"{quarantined.layout!r}, equal to the packed primary bit for bit")
+
+    _, chaos_schedule = serve_requests(SERVE_MIXES[0][1],
+                                       SERVE_CHAOS_REQUESTS,
+                                       seed * 1_000_003 + 11)
+
+    def chaos_run(specs):
+        eng = ServingEngine(kern, max_batch=8, max_wait=SERVE_MAX_WAIT,
+                            max_retries=3, breaker_threshold=3,
+                            breaker_recovery=3, plan_opts=packed)
+        with chaos.inject(*specs, seed=seed) as st:
+            ids = drive(eng, dom, chaos_schedule, 1e-3)
+            for _ in range(500):
+                if not eng.pending():
+                    break
+                eng.clock.advance(eng.retry_cap_s)
+                eng.flush()
+            fired = st.fire_count()
+        resp = {r.req_id: r for r in eng.take_responses()}
+        return eng, [resp[rid] for rid, _ in ids], fired
+
+    _, clean, _ = chaos_run(())
+    eng, faulty, fired = chaos_run((
+        chaos.FaultSpec("serve.dispatch", "error", p=0.3),
+        chaos.FaultSpec("serve.dispatch", "delay", p=0.2, param=1e-3),
+        chaos.FaultSpec("serve.dispatch", "nonfinite", p=0.1)))
+    statuses = {}
+    for a, b in zip(clean, faulty):
+        statuses[b.status] = statuses.get(b.status, 0) + 1
+        if b.status not in ("ok", "failed", "deadline") or a.status != "ok":
+            raise AssertionError(f"serving chaos: request {b.req_id} "
+                                 f"{b.status} (fault-free {a.status})")
+        if b.status == "ok":
+            assert_equal_results((b.forces, b.potential),
+                                 (a.forces, a.potential),
+                                 f"serving chaos request {b.req_id} vs the "
+                                 "fault-free run")
+    snap = eng.metrics.snapshot()
+    if eng.pending() or not fired or not statuses.get("ok"):
+        raise AssertionError(f"serving chaos: pending {eng.pending()}, "
+                             f"fired {fired}, statuses {statuses}")
+    out["chaos"] = dict(requests=SERVE_CHAOS_REQUESTS, fired=fired,
+                        statuses=statuses,
+                        **{k: snap[k] for k in (
+                            "faults", "retries", "nonfinite_batches",
+                            "breaker_opens", "breaker_closes", "failed")})
+    log(f"serving chaos: {SERVE_CHAOS_REQUESTS} requests under a mixed "
+        f"serve.dispatch schedule ({fired} fires): {out['chaos']}; every "
+        "ok response equal to the fault-free run's")
+
+    # 4. execute_checked and obs.profile on the dense division-64 path
+    state = ParticleState(pos_u)
+    p = plan(dom64, kern, positions=pos_u, strategy="xpencil")
+    want = p.execute(state)
+    got, report = p.execute_checked(state)
+    assert_equal_results(got, want, "execute_checked vs execute()")
+    with chaos.inject(chaos.FaultSpec("core.dispatch", "error",
+                                      max_fires=1)):
+        got2, report2 = p.execute_checked(state)
+    assert_equal_results(got2, want, "execute_checked after an injected "
+                         "error vs execute()")
+    if not (report.status == "ok" and report.retries == 0
+            and report2.status == "ok" and report2.retries == 1
+            and report2.faults):
+        raise AssertionError(f"execute_checked: {report}; {report2}")
+    checked_ms = cuda_ms(lambda: p.execute_checked(state), 10)
+    execute_ms = cuda_ms(lambda: p.execute(state), 10)
+    execute_queued_ms = cuda_ms_queued(lambda: p.execute(state), 10)
+    rep = obs.profile(p, state, budget_s=0.2)
+    trace_dir = tempfile.mkdtemp(prefix="profile_", dir=ROOT / "build")
+    rep_t = obs.profile(p, state, reps=3, trace_dir=trace_dir)
+    # obs.profile writes its Chrome trace as plan_profile.trace.json
+    events = json.loads((pathlib.Path(trace_dir) / "plan_profile.trace.json"
+                         ).read_text())["traceEvents"]
+    shutil.rmtree(trace_dir)
+    b_records = sum(1 for e in events if "xpencil_kernel" in e.get("name", "")
+                    and e.get("cat") == "kernel")
+    if not (math.isfinite(rep.drift) and rep.seconds_per_call > 0
+            and events):
+        raise AssertionError(f"obs.profile: {rep}; {len(events)} events")
+    out["execute_checked"] = dict(ms=checked_ms, execute_ms=execute_ms,
+                                  injected_retries=report2.retries,
+                                  faults=report2.faults)
+    out["profile"] = dict(seconds_per_call=rep.seconds_per_call,
+                          reps=rep.reps, cuda_ms_queued=execute_queued_ms,
+                          drift=rep.drift, modelled_bpi=rep.modelled_bpi,
+                          measured_bpi=rep.measured_bpi,
+                          traced_seconds_per_call=rep_t.seconds_per_call,
+                          trace_events=len(events),
+                          kernel_b_records=b_records,
+                          traced_calls=rep_t.reps + 2)
+    log(f"execute_checked, dense division 64 ({smi}): {checked_ms:.6f} ms "
+        f"beside execute()'s {execute_ms:.6f} ms; clean and after an "
+        f"injected error ({report2.faults}) bit-equal to execute(). "
+        f"obs.profile: seconds_per_call {rep.seconds_per_call:.6e} "
+        f"({rep.reps} reps) beside cuda_ms_queued {execute_queued_ms:.6f} ms; "
+        f"drift {rep.drift:.4f}; Chrome trace {len(events)} events, "
+        f"{b_records} kernel B records for {rep_t.reps + 2} calls (time_fn's "
+        "warm-up, its sizing call and the reps; the profiler drops some)")
+
+    # 5. TrajectoryService: two jobs of one class
+    tdom = Domain.cubic(SERVE_TRAJ_DIVISION, cutoff=1.0, periodic=True)
+    lj = make_lennard_jones(sigma=TRAJ_SIGMA, eps=TRAJ_EPS)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed * 1_000_003 + 13)
+    lattice = fcc_lattice(SERVE_TRAJ_DIVISION, TRAJ_JITTER, g, dev)
+    perm = torch.randperm(lattice.shape[0], generator=g, device=dev)
+    lattice = lattice[perm]
+    vel = TRAJ_VEL * torch.randn(lattice.shape, generator=g, device=dev)
+    svc = TrajectoryService()
+    jobs = []
+    for i, n in enumerate(SERVE_TRAJ_N):
+        rc0 = recompile_count()
+        req = TrajectoryRequest(f"job-{i}", tdom, lj,
+                                ParticleState(lattice[:n]), SERVE_TRAJ_STEPS,
+                                TRAJ_DT, velocities=vel[:n],
+                                opts={"segment_len": TRAJ_SEG})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = svc.submit(req)
+        torch.cuda.synchronize()
+        jobs.append(dict(n=n, status=res.status, s=time.perf_counter() - t0,
+                         builds=recompile_count() - rc0,
+                         rebins=res.result.rebins))
+        if res.status != "ok":
+            raise AssertionError(f"TrajectoryService job {i}: {res.status}")
+        if i == 0:
+            (base, traj), = svc._plans.values()
+            direct = base.trajectory(ParticleState(lattice[:n]),
+                                     SERVE_TRAJ_STEPS, TRAJ_DT,
+                                     velocities=vel[:n], traj_plan=traj,
+                                     segment_len=TRAJ_SEG)
+            for f in ("positions", "velocities", "forces", "potential"):
+                if not torch.equal(getattr(res.state, f),
+                                   getattr(direct.state, f)):
+                    raise AssertionError(f"TrajectoryService job 0: {f} not "
+                                         "bit-equal to plan.trajectory")
+    if jobs[1]["builds"] != 0:
+        raise AssertionError(f"TrajectoryService: the second job of the "
+                             f"class built {jobs[1]['builds']} executors")
+    out["trajectory_service"] = jobs
+    log(f"TrajectoryService ({smi}): division {SERVE_TRAJ_DIVISION} periodic, "
+        f"{SERVE_TRAJ_STEPS} steps: {jobs}; job 0 bit-equal to "
+        "plan.trajectory on the same skin plan, job 1 built no executor")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"serving phase: {out['phase_s']:.1f} s")
     return out
 
 
@@ -2720,6 +3168,93 @@ def main(argv=None) -> int:
     traj_rec = trajectory_phase(args.seed, dev, reset_launches, launch_counts)
     log("main path (trajectory): " + json.dumps(traj_rec))
 
+    def check_serving_batch(p, dom, batched, label):
+        """The force kernel of class plan ``p``'s path, launched once on a
+        full padded serving batch (the shapes a dispatch gives it); its
+        first and last systems held against the plain version on each
+        alone, with check_kernel's tolerances (a system's rows depend on
+        its own planes only; the plain versions take about a second a
+        system at m_c 184). -> record"""
+        if p.backend != "cuda":
+            raise AssertionError(f"serving {label}: class plan off the "
+                                 f"kernels: {p}")
+        bins = p.bin(batched)
+        nx, ny = dom.nx, dom.ny
+        n_sys = bins.slot_id.shape[0]
+        sel = (0, n_sys - 1)
+        kw = dict(m_c=p.m_c, cutoff2=1.0)
+        name = path_kernels(p)[-1]
+        if p.layout == "packed":
+            pk = p.pack(bins)
+            act = (pencil_occupancy(dom, bins.counts, p.max_active).active
+                   if p.compact else None)
+            rows = (full_pencil_occupancy(dom, dev).active.expand(n_sys, -1)
+                    if act is None else act)
+
+            def launch(k):
+                return xpencil_packed_forces(
+                    pk.planes, pk.slot_id, pk.slot_cell, pk.cell_offsets,
+                    act, nx=nx, ny=ny, kernel=k, **kw)
+
+            def plain_one(i, k):
+                q = system(pk, i)
+                return S.xpencil_packed_planes(
+                    q.planes["x"], q.planes["y"], q.planes["z"], q.slot_id,
+                    q.slot_cell, q.cell_offsets, rows[i], nx=nx, ny=ny,
+                    kernel=k, **kw)
+        elif p.layout == "sfc":
+            sfc = p.clusters(bins)
+
+            def launch(k):
+                return sfc_tiles(dom, bins, sfc, k)
+
+            def plain_one(i, k):
+                return sfc_tiles(dom, system(bins, i), system(sfc, i), k,
+                                 plain=True)
+        elif p.strategy == "allin":
+            def launch(k):
+                return allin_forces(bins.planes, bins.slot_id, box=p.box,
+                                    kernel=k, **kw)
+
+            def plain_one(i, k):
+                b = system(bins, i)
+                return S.allin_planes(b.planes["x"], b.planes["y"],
+                                      b.planes["z"], b.slot_id, box=p.box,
+                                      kernel=k, **kw)
+        else:
+            act = (pencil_occupancy(dom, bins.counts, p.max_active).active
+                   if p.compact else None)
+
+            def launch(k):
+                if act is None:
+                    return xpencil_forces(bins.planes, bins.slot_id, nx=nx,
+                                          kernel=k, **kw)
+                return xpencil_sparse_forces(bins.planes, bins.slot_id, act,
+                                             nx=nx, ny=ny, kernel=k, **kw)
+
+            def plain_one(i, k):
+                b = system(bins, i)
+                if act is None:
+                    return plain(b, nx, k)
+                return S.xpencil_sparse_planes(
+                    b.planes["x"], b.planes["y"], b.planes["z"], b.slot_id,
+                    act[i], nx=nx, ny=ny, kernel=k, **kw)
+        res = check_kernel(
+            f"serving {label} {name} (systems {sel} of {n_sys})",
+            p.kernel.name, p.kernel,
+            lambda k: tuple(o[list(sel)] for o in launch(k)),
+            lambda k: tuple(torch.stack(o) for o in
+                            zip(*(plain_one(i, k) for i in sel))))
+        return dict(kernel=name, systems=n_sys, systems_checked=list(sel),
+                    m_c=p.m_c, box=p.box, max_abs_err=res[4],
+                    max_term_rel_err=res[5], plain_ms=res[2])
+
+    # -- serving: ServingEngine, execute_checked, obs.profile, trajectories --
+    serve_rec = serving_phase(args.seed, dev, smi[0], dom, kern, pos_u,
+                              reset_launches, launch_counts,
+                              assert_equal_results, check_serving_batch)
+    log("main path (serving): " + json.dumps(serve_rec))
+
     # -- batch: B stacked systems through one chain of launches --------------
     def stacked_systems(index, n_sys, division, ppc, periodic):
         """B uniform systems of division**3 * ppc particles, each drawn from
@@ -3107,6 +3642,8 @@ def main(argv=None) -> int:
     for entry in report["kernels"]:
         entry["trajectory_launches"] = traj_rec["launches"].get(
             entry["name"], 0)
+        entry["serving_launches"] = serve_rec["serving_launches"].get(
+            entry["name"], {})
         if entry["name"] in batch_launches:
             entry["launches_per_execute_batch"] = sorted(
                 batch_launches[entry["name"]])

@@ -1,13 +1,16 @@
 """The port's core: domain, pair kernels, binning (dense, occupancy,
 packed rows, SFC clusters), schedules, plan/execute, the cost model
 (``strategy="auto"``), the measured autotuner (``strategy="autotune"``)
-and its stopwatch, and the engine shims."""
+and its stopwatch, guarded execution (``execute_checked``), the executor
+cache and its counters, and the engine shims."""
 
 from . import scenarios, strategies, traffic
-from .api import (InteractionPlan, ParticleState, PlanHealth,
-                  active_unit_count, backend_matrix, choose_strategy,
-                  degradation_ladder, fallback_plan, get_backend, n_units,
-                  plan, plan_health, register_backend, reset_health,
+from .api import (ExecutionReport, InteractionPlan, ParticleState,
+                  PlanHealth, active_unit_count, backend_matrix,
+                  choose_strategy, clear_executor_cache,
+                  degradation_ladder, dispatch_count, executor_cache_info,
+                  fallback_plan, get_backend, n_units, plan, plan_health,
+                  recompile_count, register_backend, reset_counters, reset_health, set_executor_cache_size,
                   suggest_max_active, suggest_pair_cap, suggest_row_cap,
                   supports_compact, supports_layout)
 from .binning import (EMPTY_POS, GHOST_ID_BUMP, CellBins, Occupancy,
@@ -33,13 +36,14 @@ from . import autotune
 from .autotune import TuneResult, tune
 
 __all__ = [
-    "CellBins", "CellListEngine", "Domain", "EMPTY_POS", "GHOST_ID_BUMP",
-    "InteractionPlan", "Occupancy", "PackedRows", "PairKernel",
+    "CellBins", "CellListEngine", "Domain", "EMPTY_POS", "ExecutionReport",
+    "GHOST_ID_BUMP", "InteractionPlan", "Occupancy", "PackedRows", "PairKernel",
     "ParticleState", "PlanHealth", "SfcClusters", "TuneResult",
     "active_unit_count", "autotune", "backend_matrix", "bin_particles",
     "blelloch_counts", "build_sfc_clusters", "cell_counts", "choose_strategy",
-    "compute_interactions", "decode_pair_codes", "degradation_ladder",
-    "dense_to_particles", "encode_pair_masks", "exclusive_prefix_sum",
+    "clear_executor_cache", "compute_interactions", "decode_pair_codes",
+    "degradation_ladder", "dense_to_particles", "dispatch_count",
+    "encode_pair_masks", "exclusive_prefix_sum", "executor_cache_info",
     "fallback_plan", "full_pencil_occupancy", "gather_pencil_rows",
     "gather_to_particles", "get_backend", "hilbert_decode", "hilbert_encode",
     "interior_to_padded", "make_gravity", "make_high_flop",
@@ -47,7 +51,8 @@ __all__ = [
     "morton_encode", "n_units", "operation_counts", "pack_rows",
     "packed_to_particles", "padded_row_counts", "pair_contribution",
     "paper_prefix_sum", "pencil_occupancy", "plan", "plan_health",
-    "register_backend", "reset_health", "scenarios", "sfc_cluster_tables",
+    "recompile_count", "register_backend", "reset_counters",
+    "reset_health", "set_executor_cache_size", "scenarios", "sfc_cluster_tables",
     "sfc_pair_count", "sfc_slot_tables", "sfc_to_particles", "strategies",
     "subbox_counts", "subbox_occupancy", "suggest_m_c", "suggest_max_active",
     "suggest_pair_cap", "suggest_row_cap", "supports_compact",

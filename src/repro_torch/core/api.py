@@ -42,11 +42,17 @@ batch; the ``"reference"`` backends, plain PyTorch, run system by system.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+
+# obs.trace and obs.metrics import nothing of the library: no cycle
+from ..obs import metrics as _obs_metrics
+from ..obs.trace import (event as _obs_event, trace as _obs_trace,
+                         tracing_enabled as _tracing_enabled)
 
 from . import strategies as S
 from . import traffic
@@ -118,17 +124,24 @@ _BACKENDS: Dict[Tuple[str, str, str], Callable] = {}
 # (backend, strategy, layout) triples that honour ``plan.compact``
 _COMPACT_OK: set = set()
 
+# (backend, strategy, layout) -> the CUDA sources (``kernels/csrc/``) its
+# path launches on the card, binning included
+_SOURCES: Dict[Tuple[str, str, str], Tuple[str, ...]] = {}
+
 
 def register_backend(backend: str, strategy: str, compact: bool = False,
-                     layout: str = "dense"):
+                     layout: str = "dense", sources: Tuple[str, ...] = ()):
     """Register an implementation under ``(backend, strategy, layout)``;
     ``compact=True`` declares that it also honours ``plan.compact``
-    (occupancy-compacted iteration)."""
+    (occupancy-compacted iteration); ``sources`` names the CUDA sources
+    its path launches on the card, which a plan's executor loads when it
+    is built (a source left out loads at its first launch)."""
     if layout not in LAYOUT_NAMES:
         raise ValueError(f"unknown layout {layout!r}; have {LAYOUT_NAMES}")
 
     def deco(fn: Callable) -> Callable:
         _BACKENDS[(backend, strategy, layout)] = fn
+        _SOURCES[(backend, strategy, layout)] = tuple(sources)
         if compact:
             _COMPACT_OK.add((backend, strategy, layout))
         return fn
@@ -244,17 +257,18 @@ class InteractionPlan:
     def execute(self, state: ParticleState
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """-> (forces (N, 3), per-particle potential (N,)). Total potential
-        energy is ``0.5 * potential.sum()`` (each pair counted twice)."""
+        energy is ``0.5 * potential.sum()`` (each pair counted twice). Runs
+        the cached executor of (plan, field names), built on first use
+        (:func:`recompile_count`), and counts a dispatch."""
         self._check_state(state, batched=False)
-        if self.strategy == "naive_n2":
-            fx, fy, fz, pot = S.naive_n2(self.domain, state.positions,
-                                         self.kernel)
-            return torch.stack([fx, fy, fz], dim=-1), pot
-        forces, pot = self._execute_stacked(ParticleState(
-            state.positions[None], {k: v[None] for k, v in
-                                    state.fields.items()},
-            None if state.valid is None else state.valid[None]))
-        return forces[0], pot[0]
+        _count_dispatch(self)
+        names = tuple(sorted(state.fields))
+        if not _tracing_enabled():       # the disabled path opens no span
+            return _executor(self, names).single(state)
+        with _obs_trace("plan.execute", backend=self.backend,
+                        strategy=self.strategy, layout=self.layout,
+                        n=int(state.positions.shape[0])):
+            return _executor(self, names).single(state)
 
     __call__ = execute
 
@@ -273,13 +287,16 @@ class InteractionPlan:
         independent of B: kernel A scans the B * n_cells counts once, and
         each force kernel and the pack kernel launch once. The
         ``"reference"`` schedules, plain PyTorch, and the ``naive_n2``
-        oracle run system by system."""
+        oracle run system by system. Counts a dispatch, as ``execute``."""
         self._check_state(states, batched=True)
-        if self.strategy == "naive_n2":
-            outs = [self.execute(system(states, b))
-                    for b in range(states.positions.shape[0])]
-            return tuple(torch.stack(o) for o in zip(*outs))
-        return self._execute_stacked(states)
+        _count_dispatch(self)
+        names = tuple(sorted(states.fields))
+        if not _tracing_enabled():       # the disabled path opens no span
+            return _batch_executor(self, names).batch(states)
+        with _obs_trace("plan.execute_batch", backend=self.backend,
+                        strategy=self.strategy, layout=self.layout,
+                        batch=int(states.positions.shape[0])):
+            return _batch_executor(self, names).batch(states)
 
     def _check_state(self, state: ParticleState, batched: bool) -> None:
         pos = state.positions
@@ -302,19 +319,6 @@ class InteractionPlan:
             raise ValueError(
                 "naive_n2 bypasses binning and cannot mask padded "
                 "(valid=) rows; use a cell schedule")
-
-    def _execute_stacked(self, states: ParticleState
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The body of ``execute`` and ``execute_batch``: bin, lay out and
-        run the backend on systems stacked on a leading axis."""
-        bins = self.bin(states)
-        if self.layout == "packed":
-            return get_backend(self.backend, self.strategy, "packed")(
-                self, self.pack(bins), states)
-        if self.layout == "sfc":
-            return get_backend(self.backend, self.strategy, "sfc")(
-                self, self.clusters(bins), states)
-        return get_backend(self.backend, self.strategy)(self, bins, states)
 
     def bin(self, state: ParticleState) -> CellBins:
         """The state's bins; stacked states give stacked bins."""
@@ -345,6 +349,13 @@ class InteractionPlan:
         order), ``"injected"`` (a verdict forced at the ``core.binning``
         fault point, ``repro_torch.testing.chaos``), or None when every
         bound holds. One binning pass; waits for the device."""
+        with _obs_trace("plan.overflow_check", strategy=self.strategy,
+                        layout=self.layout) as sp:
+            oc = self._overflow_class(state)
+            sp.set(result=oc or "ok")
+        return oc
+
+    def _overflow_class(self, state: ParticleState) -> Optional[str]:
         from ..testing import chaos
         if chaos.forced_overflow("core.binning"):
             return "injected"
@@ -426,9 +437,16 @@ class InteractionPlan:
                 max_active = max(suggest_max_active(
                     self.domain, state.positions, self.strategy, box=box,
                     align=align, counts=counts), n_act)
-        return dataclasses.replace(self, m_c=m_c, box=box,
-                                   max_active=max_active, row_cap=row_cap,
-                                   pair_cap=pair_cap)
+        grown = dataclasses.replace(self, m_c=m_c, box=box,
+                                    max_active=max_active, row_cap=row_cap,
+                                    pair_cap=pair_cap)
+        if grown != self:                # no-op replans are not replans
+            _count_replan(self)
+            _obs_event("plan.replan", strategy=self.strategy,
+                       layout=self.layout, m_c=grown.m_c, m_c_was=self.m_c,
+                       row_cap=grown.row_cap, pair_cap=grown.pair_cap,
+                       max_active=grown.max_active)
+        return grown
 
     def trajectory(self, state, n_steps: int, dt: float, *,
                    integrator: str = "velocity_verlet",
@@ -450,6 +468,28 @@ class InteractionPlan:
         from ..traj.engine import run_trajectory
         return run_trajectory(self, state, n_steps, dt,
                               integrator=integrator, skin=skin, **opts)
+
+    def execute_checked(self, state: ParticleState, *,
+                        max_replans: int = 4,
+                        max_retries: Optional[int] = None,
+                        sleep=None
+                        ) -> Tuple[Tuple[torch.Tensor, torch.Tensor],
+                                   "ExecutionReport"]:
+        """Guarded execute. -> ``((forces, potential), report)``: the
+        :class:`ExecutionReport` carries the overflow class, the non-finite
+        output count and the out-of-domain particle count (one host read),
+        and the degradation-ladder / circuit-breaker trajectory;
+        ``report.plan`` is the plan to keep using (replans applied).
+
+        Injected faults (``core.dispatch``: delay, error, nonfinite;
+        ``core.binning``: overflow) and non-finite outputs are retried,
+        stepping down :func:`degradation_ladder` through the breaker, and
+        the worst case is ``status="failed"`` with zero outputs. Nothing is
+        caught: a real exception (a CUDA error, a failed nvcc build)
+        propagates, where JAX's ``execute_checked`` counts it as a
+        failure."""
+        return _execute_checked(self, state, max_replans=max_replans,
+                                max_retries=max_retries, sleep=sleep)
 
     def execute_or_replan(self, state: ParticleState
                           ) -> Tuple[Tuple[torch.Tensor, torch.Tensor],
@@ -709,6 +749,209 @@ def suggest_pair_cap(domain: Domain, positions: Optional[torch.Tensor] = None,
 
 
 # --------------------------------------------------------------------------
+# steady-state counters and the executor cache
+# --------------------------------------------------------------------------
+#
+# Three counters in the port's metrics registry (``repro_torch.obs``),
+# labelled by (backend, strategy, layout): dispatches (``execute`` and
+# ``execute_batch`` calls), executor builds ("recompiles") and replans
+# (``replan`` calls that grew a bound, the trajectory's mid-run replans
+# too). The functions below read their totals over every label set.
+#
+# An executor is what ``execute``/``execute_batch`` take from the LRU for
+# one (plan, sorted field names). Building it resolves the plan's backend
+# function, loads the kernel libraries its path launches on the card
+# (the sources its backend's registration names; nvcc builds them on
+# first use) and stages the plan's constant device tensors (the SFC cluster and slot tables). Torch
+# traces nothing, so a build is the port's recompile: a new plan, a new
+# field structure, or an evicted executor that is rebuilt. JAX's counter
+# also moves for a new shape of the same structure (``jit`` retraces);
+# the port's does not, since nothing it caches depends on the shape.
+# Eviction costs host time only: a rebuilt executor runs the same
+# launches on the same inputs, so its results are bit-identical.
+
+DISPATCH_TOTAL = "repro_torch_dispatch_total"
+RECOMPILE_TOTAL = "repro_torch_recompile_total"
+REPLAN_TOTAL = "repro_torch_replan_total"
+
+
+def _plan_counter(name: str, p: "InteractionPlan") -> _obs_metrics.Counter:
+    return _obs_metrics.registry.counter(name, backend=p.backend,
+                                         strategy=p.strategy,
+                                         layout=p.layout)
+
+
+def dispatch_count() -> int:
+    """``execute`` and ``execute_batch`` calls so far."""
+    return int(_obs_metrics.registry.total(DISPATCH_TOTAL))
+
+
+def recompile_count() -> int:
+    """Executor builds so far (see the note above): moves only for a new
+    plan, a new field structure or an evicted executor being rebuilt,
+    and for a trajectory's executor built the same way."""
+    return int(_obs_metrics.registry.total(RECOMPILE_TOTAL))
+
+
+def replan_count() -> int:
+    """Replans so far: ``plan.replan`` calls that grew a bound, and the
+    trajectory engine's mid-run replans."""
+    return int(_obs_metrics.registry.total(REPLAN_TOTAL))
+
+
+def reset_counters() -> None:
+    """Zero every steady-state counter of the port's registry in one call:
+    dispatch, recompile, replan and the autotuner's ``timing_run_count``
+    (``obs.registry.reset()``). The executor caches are untouched."""
+    _obs_metrics.registry.reset()
+
+
+def _count_dispatch(p: "InteractionPlan") -> None:
+    _plan_counter(DISPATCH_TOTAL, p).inc()
+
+
+def _count_recompile(p: "InteractionPlan") -> None:
+    _plan_counter(RECOMPILE_TOTAL, p).inc()
+
+
+def _count_replan(p: "InteractionPlan") -> None:
+    _plan_counter(REPLAN_TOTAL, p).inc()
+
+
+class _Executor:
+    """The cached runner of one (plan, field names); see the note above."""
+
+    def __init__(self, p: "InteractionPlan", field_names: Tuple[str, ...]):
+        _count_recompile(p)
+        self.plan = p
+        self.field_names = field_names
+        self.backend = (None if p.strategy == "naive_n2"
+                        else get_backend(p.backend, p.strategy, p.layout))
+        if p.layout == "sfc":
+            from .binning import (DEFAULT_CSIZE, DEFAULT_CURVE,
+                                  sfc_device_slot_tables, sfc_device_tables)
+            sfc_device_tables(p.domain, DEFAULT_CSIZE, DEFAULT_CURVE,
+                              p.device)
+            sfc_device_slot_tables(p.domain, p.m_c, DEFAULT_CSIZE,
+                                   DEFAULT_CURVE, p.device)
+        sources = (() if self.backend is None
+                   else _SOURCES[(p.backend, p.strategy, p.layout)])
+        if sources and p.device.type == "cuda":
+            from ..kernels import _build
+            _build.load_all(sources)
+
+    def forces(self, bins: CellBins, states: ParticleState
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The backend on given stacked bins: lay them out as the plan's
+        layout asks, then run it."""
+        p = self.plan
+        if p.layout == "packed":
+            return self.backend(p, p.pack(bins), states)
+        if p.layout == "sfc":
+            return self.backend(p, p.clusters(bins), states)
+        return self.backend(p, bins, states)
+
+    def batch(self, states: ParticleState
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Stacked systems: bin them, then :meth:`forces`; the
+        ``naive_n2`` oracle runs system by system."""
+        if self.backend is None:
+            outs = [self.single(system(states, b))
+                    for b in range(states.positions.shape[0])]
+            return tuple(torch.stack(o) for o in zip(*outs))
+        return self.forces(self.plan.bin(states), states)
+
+    def single(self, state: ParticleState
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One system: the batch of one, squeezed."""
+        if self.backend is None:
+            fx, fy, fz, pot = S.naive_n2(self.plan.domain, state.positions,
+                                         self.plan.kernel)
+            return torch.stack([fx, fy, fz], dim=-1), pot
+        forces, pot = self.batch(ParticleState(
+            state.positions[None], {k: v[None] for k, v in
+                                    state.fields.items()},
+            None if state.valid is None else state.valid[None]))
+        return forces[0], pot[0]
+
+
+_CacheInfo = collections.namedtuple(
+    "CacheInfo", ["hits", "misses", "maxsize", "currsize"])
+
+
+class _LRU:
+    """A resizable least-recently-used cache with ``functools.lru_cache``'s
+    ``cache_info()`` / ``cache_clear()`` surface. Bounded because the
+    autotuner builds throwaway candidate plans by the dozen."""
+
+    def __init__(self, maxsize: int, build: Callable):
+        self._build = build
+        self._maxsize = maxsize
+        self._data: "collections.OrderedDict" = collections.OrderedDict()
+        self._hits = 0
+        self._misses = 0
+
+    def __call__(self, *key):
+        if key in self._data:
+            self._hits += 1
+            self._data.move_to_end(key)
+            return self._data[key]
+        self._misses += 1
+        value = self._build(*key)
+        self._data[key] = value
+        self._evict()
+        return value
+
+    def _evict(self) -> None:
+        while len(self._data) > self._maxsize:
+            self._data.popitem(last=False)
+
+    def resize(self, maxsize: int) -> None:
+        """Change the capacity; excess (least recent) entries are evicted
+        at once."""
+        if maxsize < 1:
+            raise ValueError(f"maxsize must be >= 1, got {maxsize}")
+        self._maxsize = maxsize
+        self._evict()
+
+    def cache_info(self) -> _CacheInfo:
+        return _CacheInfo(self._hits, self._misses, self._maxsize,
+                          len(self._data))
+
+    def cache_clear(self) -> None:
+        self._data.clear()
+        self._hits = 0
+        self._misses = 0
+
+
+_executor = _LRU(128, _Executor)
+_batch_executor = _LRU(32, _Executor)
+
+
+def clear_executor_cache() -> None:
+    """Drop every cached executor (single and batched)."""
+    _executor.cache_clear()
+    _batch_executor.cache_clear()
+
+
+def set_executor_cache_size(single: Optional[int] = None,
+                            batch: Optional[int] = None) -> None:
+    """Resize the executor LRUs (excess entries evicted at once). Eviction
+    costs a rebuild on next use, never a different result."""
+    if single is not None:
+        _executor.resize(single)
+    if batch is not None:
+        _batch_executor.resize(batch)
+
+
+def executor_cache_info() -> Dict[str, _CacheInfo]:
+    """``{"single": CacheInfo, "batch": CacheInfo}`` (hits, misses,
+    maxsize, currsize)."""
+    return {"single": _executor.cache_info(),
+            "batch": _batch_executor.cache_info()}
+
+
+# --------------------------------------------------------------------------
 # circuit breaker and degradation ladder
 # --------------------------------------------------------------------------
 #
@@ -812,6 +1055,158 @@ def fallback_plan(p: InteractionPlan) -> InteractionPlan:
     """The most-degraded rung: dense and uncompacted, on the reference
     backend for a CPU plan and on the kernels for a plan on the card."""
     return degradation_ladder(p)[-1]
+
+
+# --------------------------------------------------------------------------
+# guarded execution: execute_checked and its report
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class ExecutionReport:
+    """What one :meth:`InteractionPlan.execute_checked` call observed.
+
+    ``status`` is ``"ok"`` (healthy rung, clean), ``"degraded"`` (results
+    from a lower ladder rung, the same physics) or ``"failed"`` (retries
+    exhausted; forces and potential are zeros). ``plan`` is the plan to
+    keep using, replans applied. ``shard_shrinks`` stays 0: the port has
+    no multi-shard plan (ROADMAP.md Queue 1 item 11)."""
+
+    status: str = "ok"
+    plan: Optional[InteractionPlan] = None
+    overflow: Optional[str] = None     # bound class that overflowed
+    replans: int = 0                   # bound-growth attempts this call
+    retries: int = 0                   # extra execution attempts
+    nonfinite: int = 0                 # non-finite output elements seen
+    out_of_domain: int = 0             # valid particles outside the box
+    faults: List[str] = dataclasses.field(default_factory=list)
+    ladder_level: int = 0              # rung that produced the result
+    backend: str = ""                  # backend of that rung
+    layout: str = ""                   # layout of that rung
+    breaker_trips: int = 0             # rung-down transitions this call
+    recovered: bool = False            # rung-up transition this call
+    shard_shrinks: int = 0             # elastic shard shrinks (none here)
+
+
+def _output_check(forces: torch.Tensor, pot: torch.Tensor,
+                  positions: torch.Tensor, valid: Optional[torch.Tensor],
+                  box: Tuple[float, float, float]) -> Tuple[int, int]:
+    """(non-finite force and potential elements, valid particles outside
+    the box), padding rows excluded, read from the device with one host
+    read, which also waits for the outputs. Works on one system or on
+    stacked systems."""
+    bad = (~torch.isfinite(forces)).sum(-1) + (~torch.isfinite(pot))
+    ood = ((positions < 0.0).any(-1) | (positions[..., 0] > box[0])
+           | (positions[..., 1] > box[1]) | (positions[..., 2] > box[2]))
+    if valid is not None:
+        bad = torch.where(valid, bad, torch.zeros_like(bad))
+        ood = ood & valid
+    counts = torch.stack([bad.sum(), ood.sum()]).tolist()
+    return int(counts[0]), int(counts[1])
+
+
+class _NonFiniteOutput(RuntimeError):
+    """An execution produced non-finite forces or potential; the port
+    never raises it, it is the fault ``execute_checked`` records (JAX's
+    text)."""
+
+    def __init__(self, count: int):
+        super().__init__(f"{count} non-finite output element(s)")
+        self.count = int(count)
+
+
+def _execute_checked(base: InteractionPlan, state: ParticleState, *,
+                     max_replans: int = 4,
+                     max_retries: Optional[int] = None, sleep=None):
+    with _obs_trace("plan.execute_checked", backend=base.backend,
+                    strategy=base.strategy, layout=base.layout) as sp:
+        out, report = _execute_checked_impl(
+            base, state, max_replans=max_replans, max_retries=max_retries,
+            sleep=sleep)
+        sp.set(status=report.status, overflow=report.overflow or "none",
+               replans=report.replans, retries=report.retries,
+               ladder_level=report.ladder_level)
+        return out, report
+
+
+def _execute_checked_impl(base: InteractionPlan, state: ParticleState, *,
+                          max_replans: int, max_retries: Optional[int],
+                          sleep):
+    from ..testing import chaos
+
+    report = ExecutionReport(plan=base)
+    p = base
+    # 1. bounded replan loop: an injected overflow verdict with nothing to
+    # grow must not storm (replan returns an equal plan; stop)
+    for _ in range(max_replans):
+        oc = p.overflow_class(state)
+        if oc is None:
+            break
+        report.overflow = report.overflow or oc
+        grown = p.replan(state)
+        report.replans += 1
+        if grown == p:
+            break
+        p = grown
+    report.plan = p
+
+    rungs = degradation_ladder(p)
+    health = plan_health(p)
+    level = min(health.level, len(rungs) - 1)
+    if max_retries is None:
+        max_retries = _FAILURE_THRESHOLD * len(rungs)
+    attempts = 0
+    while True:
+        rung = rungs[level]
+        if sleep is None:
+            chaos.maybe_delay("core.dispatch")
+        else:
+            chaos.maybe_delay("core.dispatch", sleep=sleep)
+        # JAX's except branches, taken for an injected fault or a
+        # non-finite output; a real exception propagates
+        fault = chaos.injected_fault("core.dispatch")
+        if fault is None:
+            f, u = rung.execute(state)
+            f = chaos.corrupt("core.dispatch", f)
+            bad, report.out_of_domain = _output_check(
+                f, u, state.positions, state.valid, p.domain.box)
+            if not bad:
+                forces, pot = f, u
+                break                              # clean execution
+            report.nonfinite += bad
+            fault = _NonFiniteOutput(bad)
+        if isinstance(fault, chaos.ShardLost):
+            # a single-shard plan: a plain failure (JAX's elif branch)
+            report.faults.append(f"shard_loss:{fault}")
+            detail = str(fault)
+        else:
+            report.faults.append(f"{type(fault).__name__}: {fault}")
+            detail = type(fault).__name__
+        if health.note_failure(len(rungs)):
+            report.breaker_trips += 1
+            level = health.level
+            _obs_event("plan.degrade", level=level,
+                       backend=rungs[level].backend,
+                       layout=rungs[level].layout, fault=detail)
+        attempts += 1
+        report.retries = attempts
+        if attempts > max_retries:
+            report.status = "failed"
+            report.ladder_level = level
+            report.backend = rung.backend
+            report.layout = rung.layout
+            return (torch.zeros_like(state.positions),
+                    state.positions.new_zeros(state.positions.shape[:-1])
+                    ), report
+
+    report.recovered = health.note_success()
+    if report.recovered:
+        _obs_event("plan.recover", level=level, backend=rungs[level].backend)
+    report.ladder_level = level
+    report.backend = rungs[level].backend
+    report.layout = rungs[level].layout
+    report.status = "ok" if level == 0 else "degraded"
+    return (forces, pot), report
 
 
 # --------------------------------------------------------------------------

@@ -34,7 +34,8 @@ __all__ = ["allin_interactions", "cell_sfc_interactions", "prefix_sum",
            "xpencil_packed_interactions", "xpencil_sparse_interactions"]
 
 
-@register_backend("cuda", "xpencil", compact=True)
+@register_backend("cuda", "xpencil", compact=True,
+                  sources=("prefix_sum.cu", "xpencil.cu"))
 def _cuda_xpencil(plan: InteractionPlan, bins: CellBins,
                   state: ParticleState):
     if plan.compact:
@@ -43,12 +44,13 @@ def _cuda_xpencil(plan: InteractionPlan, bins: CellBins,
     return xpencil_interactions(plan.domain, bins, plan.kernel)
 
 
-@register_backend("cuda", "allin")
+@register_backend("cuda", "allin", sources=("prefix_sum.cu", "allin.cu"))
 def _cuda_allin(plan: InteractionPlan, bins: CellBins, state: ParticleState):
     return allin_interactions(plan.domain, bins, plan.kernel, plan.box)
 
 
-@register_backend("cuda", "xpencil", compact=True, layout="packed")
+@register_backend("cuda", "xpencil", compact=True, layout="packed",
+                  sources=("prefix_sum.cu", "pack.cu", "xpencil.cu"))
 def _cuda_xpencil_packed(plan: InteractionPlan, packed: PackedRows,
                          state: ParticleState):
     return xpencil_packed_interactions(
@@ -56,7 +58,8 @@ def _cuda_xpencil_packed(plan: InteractionPlan, packed: PackedRows,
         max_active=plan.max_active if plan.compact else None)
 
 
-@register_backend("cuda", "cell_dense", compact=True, layout="sfc")
+@register_backend("cuda", "cell_dense", compact=True, layout="sfc",
+                  sources=("prefix_sum.cu", "sfc.cu"))
 def _cuda_cell_sfc(plan: InteractionPlan, sfc: SfcClusters,
                    state: ParticleState):
     return cell_sfc_interactions(plan.domain, sfc, plan.kernel)

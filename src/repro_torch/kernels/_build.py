@@ -17,7 +17,6 @@ driver entry points, so nothing links the driver library.
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import pathlib
@@ -147,17 +146,30 @@ def build(sources: Iterable[str] = tuple(SIGNATURES)) -> None:
         _finish_build(source, proc, tmp, lib)
 
 
-@functools.lru_cache(maxsize=None)
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
 def load(source: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<source>``, built first if needed, with
     ``argtypes``/``restype`` set for every declared entry point."""
-    build([source])
-    lib = ctypes.CDLL(str(library_path(source)))
-    for name, argtypes in SIGNATURES[source].items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+    lib = _LIBS.get(source)
+    if lib is None:
+        build([source])
+        lib = ctypes.CDLL(str(library_path(source)))
+        for name, argtypes in SIGNATURES[source].items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        _LIBS[source] = lib
     return lib
+
+
+def load_all(sources: Iterable[str]) -> None:
+    """Load every library of ``sources``; those not loaded yet are built
+    first, all their ``nvcc`` processes started together."""
+    build([s for s in sources if s not in _LIBS])
+    for source in sources:
+        load(source)
 
 
 def check(rc: int, what: str) -> None:

@@ -242,13 +242,12 @@ def _forces(p: InteractionPlan, bins: CellBins, positions: torch.Tensor,
             fields: Dict[str, torch.Tensor], valid: Optional[torch.Tensor]
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Backend dispatch against *given* (stacked) bins: the one divergence
-    from ``execute``, which always re-bins from the positions."""
+    from ``execute``, which always re-bins from the positions. It runs the
+    plan's cached executor (``api._executor``), so a run builds one per
+    plan and rung, counted by ``api.recompile_count``, and a warm plan
+    builds none."""
     states = _stacked(positions, fields, valid)
-    if p.layout == "packed":
-        f, u = api.get_backend(p.backend, p.strategy, "packed")(
-            p, p.pack(bins), states)
-    else:
-        f, u = api.get_backend(p.backend, p.strategy)(p, bins, states)
+    f, u = api._executor(p, tuple(sorted(fields))).forces(bins, states)
     return f[0], u[0]
 
 
@@ -587,6 +586,7 @@ def run_trajectory(base: InteractionPlan, state, n_steps: int, dt: float, *,
                 break
             else:
                 result.replans += 1
+                api._count_replan(p)
                 _obs_event("traj.replan", m_c=grown.m_c, m_c_was=p.m_c,
                            row_cap=grown.row_cap,
                            max_active=grown.max_active)

@@ -577,15 +577,9 @@ def test_backend_matrix_maps_cuda_to_what_jax_maps_pallas_to():
     assert set(mine) == {"cuda", "reference"}
 
 
-# names of repro.core that Queue 1 items 10 (serving, executor cache,
-# dispatch counters) and 11 (halo) port; the circuit breaker came with
-# item 9
-NOT_YET = {
-    10: {"ExecutionReport", "clear_executor_cache", "dispatch_count",
-         "recompile_count", "reset_counters", "executor_cache_info",
-         "set_executor_cache_size"},
-    11: set(),
-}
+# names of repro.core that Queue 1 item 11 (halo) ports: none (item 10,
+# the serving tier, the executor cache and the counters, is ported)
+NOT_YET = {11: set()}
 
 
 def test_core_all_covers_jax_all_less_items_10_and_11():

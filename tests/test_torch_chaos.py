@@ -5,7 +5,8 @@ The same specs and seed fire on the same visits, draw for draw; the
 exception-kind point raises (or, with ``injected_fault``, returns) what
 JAX's raises, in its order; the ladder has JAX's rungs with ``"cuda"`` in
 place of ``"pallas"``; the breaker trips and recovers on the same event
-sequences. ``execute_checked`` is Queue 1 item 10 and is not here.
+sequences. ``execute_checked`` and the serving tier under chaos are held
+against JAX's in ``test_torch_guarded.py``.
 """
 
 import dataclasses

@@ -1402,7 +1402,8 @@ def test_trajectory_ladder_stays_on_the_kernels(gen, monkeypatch):
     """A card plan's degradation ladder keeps the ``"cuda"`` backend on
     every rung; a trajectory that breaches on every segment steps down the
     kernel rungs and ends ``"failed"`` without a segment on the reference
-    backend."""
+    backend. Every force evaluation's plan is recorded (the executors'
+    ``forces``), whether its executor was cached or built."""
     from repro_torch.core import api, degradation_ladder, reset_health
     from repro_torch.physics import init_state
     from repro_torch.testing import chaos
@@ -1414,12 +1415,12 @@ def test_trajectory_ladder_stays_on_the_kernels(gen, monkeypatch):
         ("cuda", "packed", True), ("cuda", "dense", True),
         ("cuda", "dense", False)]
     used = []
-    real = api.get_backend
+    real = api._Executor.forces
 
-    def spy(backend, strategy, layout="dense"):
-        used.append(backend)
-        return real(backend, strategy, layout)
-    monkeypatch.setattr(api, "get_backend", spy)
+    def spy(self, bins, states):
+        used.append((self.plan.backend, self.plan.layout, self.plan.compact))
+        return real(self, bins, states)
+    monkeypatch.setattr(api._Executor, "forces", spy)
     md0 = init_state(p, pos, vel)
     reset_health()
     with chaos.inject(chaos.FaultSpec("traj.step", "nonfinite", p=1.0)):
@@ -1427,4 +1428,113 @@ def test_trajectory_ladder_stays_on_the_kernels(gen, monkeypatch):
     reset_health()
     assert res.status == "failed" and res.rollbacks == 9
     assert res.ladder_level == len(rungs) - 1
-    assert used and set(used) == {"cuda"}
+    assert set(used) == {(r.backend, r.layout, r.compact) for r in rungs}
+
+
+def test_naive_n2_plan_on_the_card_runs_the_oracle(gen):
+    """A ``naive_n2`` plan on the card (default backend ``"cuda"``) runs the
+    O(N^2) oracle through its executor, alone and batched, launching no
+    kernel; tuning over that strategy on the card returns such a plan."""
+    from repro_torch.core import make_lennard_jones, tune
+    dom = Domain.cubic(6, cutoff=1.0)
+    pos = dom.sample_uniform(800, generator=gen, device="cuda")
+    p = plan(dom, positions=pos, strategy="naive_n2")
+    assert (p.backend, p.device.type) == ("cuda", "cuda")
+    fx, fy, fz, pot = S.naive_n2(dom, pos, p.kernel)
+    prefix_sum.launches = 0
+    f, u = p.execute(ParticleState(pos))
+    assert torch.equal(f, torch.stack([fx, fy, fz], dim=-1))
+    assert torch.equal(u, pot)
+    fb, ub = p.execute_batch(ParticleState(torch.stack([pos, pos])))
+    assert torch.equal(fb[1], f) and torch.equal(ub[1], u)
+    assert prefix_sum.launches == 0
+    res = tune(dom, make_lennard_jones(), pos, backends=("cuda",),
+               strategies=("naive_n2",), budget_s=0.01, use_cache=False)
+    assert res.plan.strategy == "naive_n2" and res.plan.backend == "cuda"
+    assert torch.equal(res.plan.execute(ParticleState(pos))[0], f)
+
+
+# ---------------------------------------------------------------------------
+# the serving tier on the card
+# ---------------------------------------------------------------------------
+
+def _serve_requests(gen, dom, sizes):
+    """Requests made on the host, as a front door receives them."""
+    g = torch.Generator().manual_seed(int(torch.randint(
+        1 << 30, (1,), generator=gen, device="cuda")))
+    return [ParticleState(dom.sample_uniform(n, generator=g, device="cpu"))
+            for n in sizes]
+
+
+@pytest.mark.parametrize("opts", [
+    {}, {"strategy": "xpencil"}, {"strategy": "xpencil", "compact": True},
+    {"strategy": "xpencil", "layout": "packed"},
+    {"strategy": "cell_dense", "layout": "sfc"},
+])
+def test_engine_on_the_card_equals_execute_and_warms(gen, opts):
+    from repro_torch.core import api, recompile_count
+    from repro_torch.serve import ServingEngine, classify
+    dom = Domain.cubic(8, cutoff=1.0)
+    eng = ServingEngine(max_batch=4, max_wait=0.0, plan_opts=opts)
+    reqs = _serve_requests(gen, dom, [2000, 1500, 1100, 1800, 600, 900])
+    for rnd in range(2):
+        if rnd:
+            rc0 = recompile_count()
+        ids = [(eng.submit(dom, st), st) for st in reqs]
+        eng.flush()
+        resp = {r.req_id: r for r in eng.take_responses()}
+        for rid, st in ids:
+            r = resp[rid]
+            assert r.status == "ok" and r.forces.is_cuda
+            p = eng.class_plan(classify(dom, eng.kernel, st.n, ()))
+            assert p.backend == "cuda" and p.device.type == "cuda"
+            f, u = p.execute(ParticleState(st.positions.cuda()))
+            assert torch.equal(r.forces, f) and torch.equal(r.potential, u)
+    assert recompile_count() == rc0          # the second round built nothing
+    assert api.executor_cache_info()["batch"].currsize >= 1
+
+
+def test_quarantine_on_the_card_stays_on_the_kernels(gen):
+    from repro_torch.core import api
+    from repro_torch.serve import ServingEngine, classify
+    from repro_torch.testing import chaos
+    dom = Domain.cubic(8, cutoff=1.0)
+    eng = ServingEngine(max_batch=1, max_wait=0.0, max_retries=0,
+                        breaker_threshold=2, breaker_recovery=100,
+                        plan_opts={"strategy": "xpencil",
+                                   "layout": "packed", "compact": True})
+    reqs = _serve_requests(gen, dom, [1500, 1400, 1300])
+    sc = classify(dom, eng.kernel, 1500, ())
+    with chaos.inject(chaos.FaultSpec("serve.dispatch", "error",
+                                      max_fires=2)):
+        for st in reqs[:2]:
+            eng.submit(dom, st)
+            eng.flush()
+    primary, quarantined = eng.class_primary(sc), eng.class_plan(sc)
+    assert eng.class_breaker(sc).open
+    assert quarantined == api.fallback_plan(primary)
+    assert (quarantined.backend, quarantined.layout,
+            quarantined.compact) == ("cuda", "dense", False)
+    eng.submit(dom, reqs[2])
+    eng.flush()
+    r = eng.take_responses()[-1]
+    assert r.status == "ok"
+    f, u = primary.execute(ParticleState(reqs[2].positions.cuda()))
+    assert torch.equal(r.forces, f) and torch.equal(r.potential, u)
+
+
+def test_execute_checked_on_the_card(gen):
+    from repro_torch.testing import chaos
+    dom = Domain.cubic(8, cutoff=1.0)
+    pos = dom.sample_uniform(2000, generator=gen, device="cuda")
+    state = ParticleState(pos)
+    p = plan(dom, positions=pos, strategy="xpencil", layout="packed")
+    want = p.execute(state)
+    (f, u), report = p.execute_checked(state)
+    assert report.status == "ok" and report.backend == "cuda"
+    assert torch.equal(f, want[0]) and torch.equal(u, want[1])
+    with chaos.inject(chaos.FaultSpec("core.dispatch", "nonfinite",
+                                      max_fires=1)):
+        (f, u), report = p.execute_checked(state)
+    assert report.nonfinite == 1 and report.retries == 1
+    assert torch.equal(f, want[0]) and torch.equal(u, want[1])

@@ -6,7 +6,8 @@ package's ``repro.obs``.
   span records (timestamps aside), and share no state with ``repro.obs``.
 * The traffic audit's ``neighbor_pair_count``, ``measured_traffic`` and
   ``audit_candidate`` equal JAX's on the same positions.
-* ``profile`` is not ported yet and says which item ports it.
+* ``profile`` is ported: the same lazy surface as JAX's, and on the same
+  plan and positions the same audit numbers and report fields.
 """
 
 import dataclasses
@@ -143,16 +144,33 @@ def test_tracer_matches_jax_operation_for_operation(tmp_path):
     assert obs.spans() == [] and len(jobs.spans()) == 3
 
 
-def test_profile_is_not_ported_and_names_its_item():
-    with pytest.raises(AttributeError, match="Queue 1 item 10"):
-        obs.profile
-    with pytest.raises(AttributeError, match="Queue 1 item 10"):
-        obs.ProfileReport
+def test_profile_matches_jax():
+    from repro.core import make_lennard_jones as j_lj, plan as j_plan
+    from repro_torch.core import ParticleState, make_lennard_jones, plan
     with pytest.raises(AttributeError, match="no attribute 'nothing'"):
         obs.nothing
-    assert set(jobs.__all__) - set(obs.__all__) == {"profile",
-                                                    "ProfileReport"}
-    assert "measured_traffic" in dir(obs)
+    assert set(jobs.__all__) == set(obs.__all__)
+    assert {"measured_traffic", "profile", "ProfileReport"} <= set(dir(obs))
+    jdom = JDomain.cubic(4, cutoff=1.0)
+    pos = (np.random.default_rng(2).random((120, 3)) * 4.0).astype(
+        np.float32)
+    p = plan(domain_from_jax(jdom), make_lennard_jones(),
+             positions=torch.from_numpy(pos), device="cpu",
+             strategy="xpencil", layout="packed")
+    jp = j_plan(jdom, j_lj(), positions=jnp.asarray(pos),
+                strategy="xpencil", layout="packed")
+    rep = obs.profile(p, ParticleState(torch.from_numpy(pos)), reps=2)
+    jrep = jobs.profile(jp, jobs_state(pos), reps=2)
+    assert isinstance(rep, obs.ProfileReport) and rep.reps == 2
+    assert rep.seconds_per_call > 0 and rep.profiler_dir is None
+    assert (rep.strategy, rep.layout) == (jrep.strategy, jrep.layout)
+    for f in ("modelled_bpi", "measured_bpi", "drift", "interactions"):
+        assert getattr(rep, f) == pytest.approx(getattr(jrep, f), rel=1e-6)
+
+
+def jobs_state(pos):
+    from repro.core import ParticleState as JState
+    return JState(jnp.asarray(pos))
 
 
 def _scenes():
