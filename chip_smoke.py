@@ -86,6 +86,17 @@ the main paths through ``plan(...).execute()`` and checks and times them:
     response equal to the fault-free run; ``execute_checked`` and
     ``obs.profile`` (with its Chrome trace) on the dense division-64 path;
     ``TrajectoryService``, two jobs of one class at division 32;
+  * halo: ``plan(..., backend="halo", n_shards=4)`` on the division-64
+    uniform scene, the four Z-slab shards stacked on the system axis of
+    kernels A-F: the dense, compacted, packed + compacted, All-in-SM and
+    SFC paths each against the same strategy's one-device ``execute()``
+    (3e-4 scale-relative) with the same launches, compacted and packed
+    bit-equal to dense, each force kernel on the stacked shards against
+    its plain version on the first and last shard; division 32 periodic at
+    2 and 4 shards; a batch of 4 systems at 4 shards equal to the loop;
+    a shard lost at ``dist.exchange`` shrinking the dense and sfc plans to
+    2 shards; halo and one-device times, launch calls, the partition and
+    the exchange;
   * kernel G (sliding-window attention) against its plain version over a
     sweep of batch, GQA ratio, head_dim, window, softcap and dtype, and at
     the gemma2-2b shape, each case on the route ``route(dtype, D)`` names
@@ -1965,6 +1976,209 @@ def serving_phase(seed: int, dev, smi: str, dom64, kern, pos_u,
     return out
 
 
+# halo engine (backend="halo"): Z-slab shards stacked on the card
+HALO_SHARDS = 4
+HALO_PATHS = (   # label, plan options; each against the same strategy's
+    ("dense", dict(strategy="xpencil")),                  # one-device plan
+    ("compact", dict(strategy="xpencil", compact=True)),
+    ("packed_compact", dict(strategy="xpencil", layout="packed",
+                            compact=True)),
+    ("allin", dict(strategy="allin")),
+    ("sfc", dict(strategy="cell_dense", layout="sfc")),
+)
+HALO_PERIODIC = (32, 10, (2, 4))   # division, per cell, shard counts
+HALO_BATCH = (4, 16, 4)            # systems, division, per cell
+
+
+def halo_phase(seed: int, dev, smi: str, dom64, kern, pos_u, run_main,
+               reset_launches, launch_counts, assert_equal_results,
+               check_halo_shards):
+    """The halo engine on the card (``plan(..., backend="halo")``, shards
+    stacked on the system axis of kernels A-F). -> record.
+
+    * division 64, open, 1,048,576 uniform particles, HALO_SHARDS shards:
+      each path of HALO_PATHS against the same strategy's one-device
+      ``execute()`` within a scale-relative 3e-4, with the same launches
+      of each kernel (one force-kernel launch for all shards); compacted
+      and packed + compacted equal to the dense halo path bit for bit;
+      each path's force kernel on its stacked shards against its plain
+      version on the first and last shard (``check_halo_shards``).
+    * division 32 periodic at 2 and 4 shards: the dense halo against
+      ``execute()``.
+    * a batch of HALO_BATCH systems at 4 shards each: ``execute_batch``
+      equal to the loop of ``execute()`` bit for bit, one force-kernel
+      launch for the batch.
+    * ``execute_checked`` with a shard lost at ``dist.exchange``: shrunk to
+      2 shards, equal to the survivor plan bit for bit; the sfc plan's
+      shrink re-measures its per-shard ``pair_cap`` and matches its
+      one-device plan within a scale-relative 3e-4.
+    * times: halo and one-device ``execute()`` (``cuda_ms_queued``), their
+      launch calls (``launches_in_turns``), the partition, the ghost
+      exchange of the dense planes, each force kernel on the stacked
+      shards and B on the one-device bins."""
+    from repro_torch.core import Domain, ParticleState, cell_counts, plan
+    from repro_torch.core.binning import EMPTY_POS
+    from repro_torch.dist import halo as H
+    from repro_torch.dist.engine import halo_impl, shard_sfc_pairs
+    from repro_torch.kernels.xpencil import xpencil_forces
+    from repro_torch.testing import chaos
+
+    t_phase = time.perf_counter()
+    ns = HALO_SHARDS
+    state = ParticleState(pos_u)
+    out = {"device": smi, "case": f"uniform division {dom64.nx}, open",
+           "n": pos_u.shape[0], "n_shards": ns, "paths": {}}
+    launches_all = {}
+    dense = None
+    for label, opts in HALO_PATHS:
+        p1 = plan(dom64, kern, positions=pos_u, **opts)
+        ph = plan(dom64, kern, positions=pos_u, m_c=p1.m_c, backend="halo",
+                  n_shards=ns, halo_inner="cuda", **opts)
+        need = path_kernels(p1)
+        f, u, launches = run_main(ph, state, f"halo {label}", need)
+        f1, u1, launches1 = run_main(p1, state, f"one-device {label}", need)
+        if launches != launches1:
+            raise AssertionError(f"halo {label}: launches {launches}, the "
+                                 f"one-device plan's {launches1}")
+        err = max(assert_scale_close(f, f1, f"halo {label} forces"),
+                  assert_scale_close(u, u1, f"halo {label} potential"))
+        if label == "dense":
+            dense = (f, u)
+        elif label == "sfc":
+            sfc_case = (ph, (f1, u1))
+        elif label in ("compact", "packed_compact"):
+            assert_equal_results((f, u), dense, f"halo {label} vs dense")
+        for k, v in launches.items():
+            launches_all[k] = launches_all.get(k, 0) + v
+        out["paths"][label] = dict(
+            m_c=ph.m_c, shard_cap=ph.shard_cap, max_active=ph.max_active,
+            row_cap=ph.row_cap, pair_cap=ph.pair_cap, box=ph.box,
+            launches=launches, scale_rel_err_vs_one_device=err,
+            halo_ms=cuda_ms_queued(lambda: ph.execute(state), 10),
+            one_device_ms=cuda_ms_queued(lambda: p1.execute(state), 10),
+            kernel_check=check_halo_shards(ph, state, label))
+        log(f"halo {label}: " + json.dumps(out["paths"][label]))
+    out["launches"] = launches_all
+
+    # the cost of the halo: launch calls, partition, ghost exchange
+    pd = plan(dom64, kern, positions=pos_u, m_c=out["paths"]["dense"]["m_c"],
+              backend="halo", n_shards=ns, strategy="xpencil")
+    p1 = plan(dom64, kern, positions=pos_u, strategy="xpencil")
+    b1 = p1.bin(state)
+    out["one_device_kernel_b_ms"] = cuda_ms_queued(lambda: xpencil_forces(
+        b1.planes, b1.slot_id, nx=dom64.nx, m_c=b1.m_c, kernel=kern,
+        cutoff2=1.0), 10)
+    out["launch_calls"] = launches_in_turns(
+        {"halo execute()": lambda: pd.execute(state),
+         "one-device execute()": lambda: p1.execute(state)}, 3, 3)
+    out["partition_ms"] = cuda_ms_queued(lambda: H.partition_by_shard(
+        dom64, pos_u[None], None, ns, pd.shard_cap), 10)
+    bins, inner = halo_impl(pd).layout(ParticleState(pos_u[None]))
+    nz_loc, lz_loc = dom64.nz // ns, dom64.box[2] / ns
+
+    def exchange_dense():
+        for name, plane in bins.planes.items():
+            H.exchange_halo(plane.unflatten(0, (1, ns)), n_shards=ns,
+                            nz_loc=nz_loc, periodic_z=False, fill=EMPTY_POS,
+                            coord_shift=lz_loc if name == "z" else 0.0)
+        H.exchange_halo(bins.slot_id.unflatten(0, (1, ns)), n_shards=ns,
+                        nz_loc=nz_loc, periodic_z=False, fill=-1)
+    # each of the 4 planes: 2 boundary planes a shard read, 2 ghost planes
+    # written
+    plane_bytes = bins.slot_id[0, 0].numel() * 4
+    out["exchange_bytes"] = 4 * 4 * ns * plane_bytes
+    out["exchange_ms"] = cuda_ms_queued(exchange_dense, 10)
+    out["exchange_bound_ms"] = out["exchange_bytes"] / HBM_BYTES_PER_S * 1e3
+    log(f"halo costs: launch calls {out['launch_calls']}, partition "
+        f"{out['partition_ms']:.6f} ms, B one-device "
+        f"{out['one_device_kernel_b_ms']:.6f} ms, exchange of the dense "
+        f"planes {out['exchange_ms']:.6f} ms ({out['exchange_bytes']} B, "
+        f"bound {out['exchange_bound_ms']:.6f} ms)")
+
+    # periodic Z: the ring wraps
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed * 1_000_003 + 24_024)
+    division, ppc, counts = HALO_PERIODIC
+    dom = Domain.cubic(division, cutoff=1.0, periodic=True)
+    pos = dom.sample_uniform(division ** 3 * ppc, generator=g, device=dev)
+    st = ParticleState(pos)
+    p1 = plan(dom, kern, positions=pos, strategy="xpencil")
+    f1, u1, _ = run_main(p1, st, "one-device periodic", path_kernels(p1))
+    out["periodic"] = {}
+    for n_sh in counts:
+        ph = plan(dom, kern, positions=pos, m_c=p1.m_c, backend="halo",
+                  n_shards=n_sh, strategy="xpencil")
+        f, u, launches = run_main(ph, st, f"halo periodic {n_sh}",
+                                  path_kernels(p1))
+        out["periodic"][n_sh] = dict(
+            launches=launches, scale_rel_err_vs_one_device=max(
+                assert_scale_close(f, f1, f"halo periodic {n_sh} forces"),
+                assert_scale_close(u, u1, f"halo periodic {n_sh} pot")),
+            halo_ms=cuda_ms_queued(lambda: ph.execute(st), 10))
+    out["periodic_one_device_ms"] = cuda_ms_queued(lambda: p1.execute(st), 10)
+
+    # a batch of systems, each cut into shards: B * S systems in one chain
+    n_sys, division, ppc = HALO_BATCH
+    dom = Domain.cubic(division, cutoff=1.0)
+    pos = torch.stack([dom.sample_uniform(division ** 3 * ppc, generator=g,
+                                          device=dev) for _ in range(n_sys)])
+    each = [ParticleState(pos[i]) for i in range(n_sys)]
+    pb = plan(dom, kern, positions=pos[0], backend="halo", n_shards=ns,
+              strategy="xpencil")
+    for st in each:
+        while pb.check_overflow(st):
+            pb = pb.replan(st)
+    reset_launches()
+    fb, ub = pb.execute_batch(ParticleState(pos))
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    if launches != {"prefix_sum": 1, "xpencil_forces": 1}:
+        raise AssertionError(f"halo batch: launches {launches}")
+    for i, st in enumerate(each):
+        assert_equal_results((fb[i], ub[i]), pb.execute(st),
+                             f"halo batch system {i} vs execute()")
+    out["batch"] = dict(systems=n_sys, division=division,
+                        n=division ** 3 * ppc, launches=launches,
+                        batch_ms=cuda_ms_queued(lambda: pb.execute_batch(
+                            ParticleState(pos)), 10),
+                        loop_ms=cuda_ms_queued(lambda: [pb.execute(st)
+                                                        for st in each], 10))
+
+    # a lost shard: elastic shrink to the survivors, on the card
+    with chaos.inject(chaos.FaultSpec("dist.exchange", "shard_loss",
+                                      max_fires=1)):
+        (f, u), report = pd.execute_checked(state)
+    if not (report.shard_shrinks == 1 and report.plan.n_shards == 2
+            and report.status == "ok"):
+        raise AssertionError(f"halo shard loss: {report}")
+    assert_equal_results((f, u), report.plan.execute(state),
+                         "halo shrink vs its survivor plan")
+    out["shard_loss"] = dict(
+        n_shards_after=report.plan.n_shards, faults=report.faults,
+        scale_rel_err_vs_dense_halo=assert_scale_close(f, dense[0],
+                                                       "halo shrink"))
+    # the sfc plan's shrink: 2 slabs each hold about twice the cluster
+    # pairs, so the survivor re-measures its per-shard pair_cap
+    ps, (fs1, us1) = sfc_case
+    with chaos.inject(chaos.FaultSpec("dist.exchange", "shard_loss",
+                                      max_fires=1)):
+        (f, u), report = ps.execute_checked(state)
+    q = report.plan
+    need = max(shard_sfc_pairs(dom64, cell_counts(dom64, pos_u), q.n_shards))
+    if not (report.shard_shrinks == 1 and q.n_shards == 2
+            and report.status == "ok" and q.pair_cap >= need):
+        raise AssertionError(f"halo sfc shard loss: pair_cap {q.pair_cap}, "
+                             f"{need} pairs needed; {report}")
+    out["shard_loss_sfc"] = dict(
+        n_shards_after=q.n_shards, pair_cap_before=ps.pair_cap,
+        pair_cap_after=q.pair_cap, pairs_needed=need,
+        scale_rel_err_vs_one_device=max(
+            assert_scale_close(f, fs1, "halo sfc shrink forces"),
+            assert_scale_close(u, us1, "halo sfc shrink potential")))
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def _loop(step, md, n: int, dt: float):
     for _ in range(n):
         md = step(md, dt)
@@ -3255,6 +3469,89 @@ def main(argv=None) -> int:
                               assert_equal_results, check_serving_batch)
     log("main path (serving): " + json.dumps(serve_rec))
 
+    def check_halo_shards(p, state, label):
+        """The force kernel of halo plan ``p``'s path, launched once on its
+        stacked shards (the layout data ``dist.engine`` gives the inner
+        backend); its first and last shards held against the plain version
+        on each alone, with check_kernel's tolerances (a shard's rows
+        depend on its own planes only). -> record"""
+        from repro_torch.dist.engine import halo_impl
+        data, inner = halo_impl(p).layout(ParticleState(state.positions[None]))
+        ldom = inner.domain
+        nx, ny = ldom.nx, ldom.ny
+        n_sys = p.n_shards
+        sel = (0, n_sys - 1)
+        kw = dict(m_c=p.m_c, cutoff2=1.0)
+        name = path_kernels(inner)[-1]
+        if p.layout == "packed":
+            act = (pencil_occupancy(ldom, data.counts, p.max_active).active
+                   if p.compact else None)
+            rows = (full_pencil_occupancy(ldom, dev).active.expand(n_sys, -1)
+                    if act is None else act)
+
+            def launch(k):
+                return xpencil_packed_forces(
+                    data.planes, data.slot_id, data.slot_cell,
+                    data.cell_offsets, act, nx=nx, ny=ny, kernel=k, **kw)
+
+            def plain_one(i, k):
+                q = system(data, i)
+                return S.xpencil_packed_planes(
+                    q.planes["x"], q.planes["y"], q.planes["z"], q.slot_id,
+                    q.slot_cell, q.cell_offsets, rows[i], nx=nx, ny=ny,
+                    kernel=k, **kw)
+        elif p.layout == "sfc":
+            def launch(k):
+                return sfc_tiles(ldom, data.bins, data, k)
+
+            def plain_one(i, k):
+                return sfc_tiles(ldom, system(data.bins, i), system(data, i),
+                                 k, plain=True)
+        elif p.strategy == "allin":
+            def launch(k):
+                return allin_forces(data.planes, data.slot_id, box=p.box,
+                                    kernel=k, **kw)
+
+            def plain_one(i, k):
+                b = system(data, i)
+                return S.allin_planes(b.planes["x"], b.planes["y"],
+                                      b.planes["z"], b.slot_id, box=p.box,
+                                      kernel=k, **kw)
+        else:
+            act = (pencil_occupancy(ldom, data.counts, p.max_active).active
+                   if p.compact else None)
+
+            def launch(k):
+                if act is None:
+                    return xpencil_forces(data.planes, data.slot_id, nx=nx,
+                                          kernel=k, **kw)
+                return xpencil_sparse_forces(data.planes, data.slot_id, act,
+                                             nx=nx, ny=ny, kernel=k, **kw)
+
+            def plain_one(i, k):
+                b = system(data, i)
+                if act is None:
+                    return plain(b, nx, k)
+                return S.xpencil_sparse_planes(
+                    b.planes["x"], b.planes["y"], b.planes["z"], b.slot_id,
+                    act[i], nx=nx, ny=ny, kernel=k, **kw)
+        res = check_kernel(
+            f"halo {label} {name} (shards {sel} of {n_sys})",
+            p.kernel.name, p.kernel,
+            lambda k: tuple(o[list(sel)] for o in launch(k)),
+            lambda k: tuple(torch.stack(o) for o in
+                            zip(*(plain_one(i, k) for i in sel))))
+        return dict(kernel=name, shards=n_sys, shards_checked=list(sel),
+                    m_c=p.m_c, box=p.box, max_abs_err=res[4],
+                    max_term_rel_err=res[5], plain_ms=res[2],
+                    kernel_ms=cuda_ms_queued(lambda: launch(p.kernel), 10))
+
+    # -- halo: backend="halo", Z-slab shards stacked on the card -------------
+    halo_rec = halo_phase(args.seed, dev, smi[0], dom, kern, pos_u, run_main,
+                          reset_launches, launch_counts, assert_equal_results,
+                          check_halo_shards)
+    log("main path (halo): " + json.dumps(halo_rec))
+
     # -- batch: B stacked systems through one chain of launches --------------
     def stacked_systems(index, n_sys, division, ppc, periodic):
         """B uniform systems of division**3 * ppc particles, each drawn from
@@ -3644,6 +3941,7 @@ def main(argv=None) -> int:
             entry["name"], 0)
         entry["serving_launches"] = serve_rec["serving_launches"].get(
             entry["name"], {})
+        entry["halo_launches"] = halo_rec["launches"].get(entry["name"], 0)
         if entry["name"] in batch_launches:
             entry["launches_per_execute_batch"] = sorted(
                 batch_launches[entry["name"]])

@@ -2,7 +2,9 @@
 paper's schedules (X-pencil dense, occupancy-compacted and packed-row,
 All-in-SM, Par-Part, Par-Cell) and Par-Cell over SFC cell clusters, and
 the MD/SPH runs on top of it (``plan.trajectory``: ``repro_torch.traj``,
-``physics``, ``ckpt``, ``testing.chaos``).
+``physics``, ``ckpt``, ``testing.chaos``), the serving tier
+(``repro_torch.serve``) and Z-slab halo execution (``backend="halo"``:
+``repro_torch.dist``).
 
     from repro_torch.core import Domain, ParticleState, plan
     p = plan(domain, kernel, positions=pos)          # runs on the CUDA card

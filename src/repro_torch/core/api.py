@@ -12,7 +12,10 @@ Strategies: ``par_part``, ``cell_dense``, ``xpencil``, ``allin`` and the
 ``"cuda"`` backend runs ``xpencil`` (dense, compacted, packed), ``allin``
 (dense only) and ``cell_dense`` in the SFC cluster layout
 (``layout="sfc"``), as the JAX package's ``"pallas"`` backend does;
-``"reference"`` runs every strategy.
+``"reference"`` runs every strategy. ``backend="halo"`` splits the grid
+into Z-slabs, one per shard, and runs the plan's schedule on each slab on
+``halo_inner`` (``repro_torch.dist.engine``): stacked on the plan's device
+when ``mesh`` is None, one slab per rank of a ``DeviceMesh`` otherwise.
 
 ``plan`` runs on the CUDA device unless the caller passes ``device="cpu"``;
 with no visible card it raises instead of falling back. On the CPU the
@@ -28,9 +31,10 @@ package's registry is never touched. This module registers the
 ``"reference"`` backends; ``repro_torch.kernels`` registers the ``"cuda"``
 ones.
 
-Every static bound (``m_c``, ``max_active``, ``row_cap``, ``pair_cap``)
-follows one replan contract, stated on :meth:`InteractionPlan.replan`; the
-``allin`` sub-box ``box`` follows ``m_c``. ``plan.trajectory`` runs MD on
+Every static bound (``m_c``, ``max_active``, ``row_cap``, ``pair_cap``,
+``shard_cap``) follows one replan contract, stated on
+:meth:`InteractionPlan.replan`; the ``allin`` sub-box ``box`` follows
+``m_c``. ``plan.trajectory`` runs MD on
 the plan (``repro_torch.traj``), whose circuit breaker and degradation
 ladder (``plan_health``, ``degradation_ladder``) live here.
 
@@ -63,26 +67,12 @@ from .binning import (CellBins, PackedRows, SfcClusters, bin_particles,
                       padded_row_counts, pencil_counts, pencil_occupancy,
                       sfc_n_clusters, sfc_pair_count, sfc_to_particles,
                       subbox_counts, subbox_occupancy, system)
-from .domain import Domain
+from .domain import Domain, slab_domain
 from .interactions import PairKernel, make_lennard_jones
 
 STRATEGY_NAMES = ("par_part", "cell_dense", "xpencil", "allin")
 CELL_SCHEDULES = ("cell_dense", "xpencil", "allin")   # have compact=True
 LAYOUT_NAMES = ("dense", "packed", "sfc")
-
-# Backends the JAX package has and this port does not yet, with the
-# ROADMAP.md Queue 1 item that ports each. Asking for one raises; nothing
-# runs instead.
-_NOT_PORTED = {"halo": 11}
-
-
-def _check_ported(backend: str) -> None:
-    item = _NOT_PORTED.get(backend)
-    if item is not None:
-        raise ValueError(
-            f"backend={backend!r} is not ported to repro_torch yet "
-            f"(ROADMAP.md Queue 1 item {item})")
-
 
 # --------------------------------------------------------------------------
 # input
@@ -209,18 +199,56 @@ class InteractionPlan:
     row_cap: Optional[int] = None     # static packed-row bound
     box: Optional[Tuple[int, int, int]] = None   # allin sub-box (bx, by, bz)
     pair_cap: Optional[int] = None    # static sfc pair-list bound
+    # -- halo execution (backend="halo"; repro_torch.dist.engine) ---------
+    halo_inner: str = "cuda"          # per-shard backend
+    n_shards: Optional[int] = None    # Z-slabs
+    shard_axis: str = "halo"          # the mesh dimension to shard along
+    shard_cap: Optional[int] = None   # static per-shard capacity
+    mesh: Optional[object] = None     # 1-D DeviceMesh; None = stacked shards
 
     def __post_init__(self):
-        _check_ported(self.backend)
         if self.strategy not in ("naive_n2", *STRATEGY_NAMES):
             raise ValueError(f"unknown strategy {self.strategy!r}; have "
                              f"{list(STRATEGY_NAMES)} + ['naive_n2']")
-        if self.backend == "cuda" and self.kernel.cuda is None:
+        if self.backend == "halo":
+            if self.strategy not in CELL_SCHEDULES:
+                raise ValueError(
+                    f"backend='halo' needs a cell schedule, got "
+                    f"{self.strategy!r} (the Z-slab decomposition has no "
+                    "meaning for particle-parallel or O(N^2) sweeps)")
+            if self.halo_inner == "halo":
+                raise ValueError("halo_inner must be a concrete per-shard "
+                                 "backend ('reference'/'cuda'), not "
+                                 "'halo' itself")
+            if not self.n_shards or self.n_shards < 1:
+                raise ValueError(
+                    "backend='halo' needs n_shards >= 1 "
+                    "(plan(..., backend='halo') derives one from the "
+                    "visible devices)")
+            if self.domain.nz % self.n_shards:
+                raise ValueError(
+                    f"nz={self.domain.nz} not divisible by "
+                    f"n_shards={self.n_shards}")
+            if self.n_shards > 1 and (not self.shard_cap
+                                      or self.shard_cap < 1):
+                raise ValueError(
+                    "a multi-shard halo plan needs a positive static "
+                    "shard_cap (plan(..., positions=...) measures one)")
+            if self.compact and self.strategy == "allin":
+                raise ValueError(
+                    "backend='halo' supports compact=True for the pencil "
+                    "schedules (xpencil/cell_dense) only: the All-in-SM "
+                    "sub-box occupancy is not defined per slab")
+        if self.inner_backend == "cuda" and self.kernel.cuda is None:
             raise ValueError(
                 f"pair kernel {self.kernel.name!r} has no CUDA form; use "
                 "backend='reference'")
         if self.strategy == "allin" and self.box is None:
-            object.__setattr__(self, "box", _allin_box(self.domain, self.m_c))
+            # halo plans tile the slab each shard runs on
+            bdom = self.domain
+            if self.backend == "halo" and self.n_shards:
+                bdom = slab_domain(self.domain, self.n_shards)
+            object.__setattr__(self, "box", _allin_box(bdom, self.m_c))
         if self.compact:
             if self.strategy not in CELL_SCHEDULES:
                 raise ValueError(
@@ -253,6 +281,16 @@ class InteractionPlan:
                     'layout="sfc" needs a positive static pair_cap bound '
                     "(plan(..., positions=...) measures one)")
         object.__setattr__(self, "device", resolve_device(self.device))
+
+    @property
+    def inner_backend(self) -> str:
+        """The backend that runs the schedule: ``halo_inner`` for a halo
+        plan, else ``backend``."""
+        return self.halo_inner if self.backend == "halo" else self.backend
+
+    @property
+    def _multi_shard(self) -> bool:
+        return self.backend == "halo" and (self.n_shards or 1) > 1
 
     def execute(self, state: ParticleState
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -345,10 +383,11 @@ class InteractionPlan:
 
     def overflow_class(self, state: ParticleState) -> Optional[str]:
         """Which static bound these positions breach, ``"m_c"``,
-        ``"row_cap"``, ``"pair_cap"`` or ``"max_active"`` (checked in that
-        order), ``"injected"`` (a verdict forced at the ``core.binning``
-        fault point, ``repro_torch.testing.chaos``), or None when every
-        bound holds. One binning pass; waits for the device."""
+        ``"row_cap"``, ``"pair_cap"``, ``"shard_cap"`` or ``"max_active"``
+        (a multi-shard plan's per-shard loads, pair lists and active
+        pencils reduced by max over shards), ``"injected"`` (a verdict
+        forced at the ``core.binning`` fault point,
+        ``repro_torch.testing.chaos``), or None when every bound holds. One binning pass; waits for the device."""
         with _obs_trace("plan.overflow_check", strategy=self.strategy,
                         layout=self.layout) as sp:
             oc = self._overflow_class(state)
@@ -366,9 +405,14 @@ class InteractionPlan:
             if int(padded_row_counts(self.domain, counts).max()) > \
                     self.row_cap:
                 return "row_cap"
-        if self.layout == "sfc":
+        if self.layout == "sfc" and not self._multi_shard:
+            # a multi-shard plan checks pair_cap per shard (slab-local
+            # cluster orders) in halo_overflow_class below
             if sfc_pair_count(self.domain, counts=counts) > self.pair_cap:
                 return "pair_cap"
+        if self._multi_shard:
+            from ..dist.engine import halo_overflow_class
+            return halo_overflow_class(self, counts)
         if self.compact:
             if active_unit_count(self.domain, state.positions, self.strategy,
                                  box=self.box, counts=counts) > \
@@ -390,7 +434,11 @@ class InteractionPlan:
         * ``row_cap``: particles per padded pencil row of a
           ``layout="packed"`` plan (``suggest_row_cap``),
         * ``pair_cap``: length of the compressed cluster-pair list of a
-          ``layout="sfc"`` plan (``suggest_pair_cap``).
+          ``layout="sfc"`` plan (``suggest_pair_cap``; per shard for a
+          multi-shard plan, ``dist.engine.shard_sfc_pairs``),
+        * ``shard_cap``: per-shard particle load of a multi-shard halo plan
+          (``dist.halo.suggest_shard_cap``), whose ``max_active`` covers
+          the busiest shard's active pencils.
 
         An exceeded bound makes results silently drop interactions, so
         ``check_overflow`` detects it from one binning pass, and this method
@@ -420,13 +468,29 @@ class InteractionPlan:
                               grow)
         pair_cap = self.pair_cap
         if self.layout == "sfc":
-            n_pairs = sfc_pair_count(self.domain, counts=counts)
+            if self._multi_shard:
+                # per shard: each slab has its own cluster order, so the
+                # busiest shard's pair list sets the cap
+                from ..dist.engine import shard_pair_cap, shard_sfc_pairs
+                n_pairs = max(shard_sfc_pairs(self.domain, counts,
+                                              self.n_shards))
+                suggested = shard_pair_cap(n_pairs, align)
+            else:
+                n_pairs = sfc_pair_count(self.domain, counts=counts)
+                suggested = suggest_pair_cap(self.domain, align=align,
+                                             counts=counts)
             if n_pairs > pair_cap:
                 grow = -(-(pair_cap + 1) // align) * align
-                pair_cap = max(suggest_pair_cap(self.domain, align=align,
-                                                counts=counts), grow, n_pairs)
+                pair_cap = max(suggested, grow, n_pairs)
         max_active = self.max_active
-        if self.compact:
+        shard_cap = self.shard_cap
+        if self._multi_shard:
+            # per-shard load against shard_cap, per-shard active pencils
+            # against max_active, each grown only when exceeded
+            from ..dist.engine import halo_grown_bounds
+            shard_cap, max_active = halo_grown_bounds(self, state,
+                                                      align=align)
+        elif self.compact:
             if self.strategy == "allin" and box is None:
                 # fix the new tiling first: the active-sub-box bound must be
                 # measured against the grid that will run
@@ -439,13 +503,14 @@ class InteractionPlan:
                     align=align, counts=counts), n_act)
         grown = dataclasses.replace(self, m_c=m_c, box=box,
                                     max_active=max_active, row_cap=row_cap,
-                                    pair_cap=pair_cap)
+                                    pair_cap=pair_cap, shard_cap=shard_cap)
         if grown != self:                # no-op replans are not replans
             _count_replan(self)
             _obs_event("plan.replan", strategy=self.strategy,
                        layout=self.layout, m_c=grown.m_c, m_c_was=self.m_c,
                        row_cap=grown.row_cap, pair_cap=grown.pair_cap,
-                       max_active=grown.max_active)
+                       max_active=grown.max_active,
+                       shard_cap=grown.shard_cap)
         return grown
 
     def trajectory(self, state, n_steps: int, dt: float, *,
@@ -502,6 +567,58 @@ class InteractionPlan:
             p = p.replan(state)
         return p.execute(state), p
 
+    def distribute(self, mesh=None, *, n_shards: Optional[int] = None,
+                   shard_axis: Optional[str] = None,
+                   positions: Optional[torch.Tensor] = None,
+                   shard_cap: Optional[int] = None,
+                   halo_inner: Optional[str] = None) -> "InteractionPlan":
+        """A halo twin of this plan: the same schedule and static bounds,
+        run over Z-slabs (``repro_torch.dist.engine``).
+
+        Args:
+          mesh: a 1-D ``DeviceMesh`` holding the shard axis (one slab per
+            rank); None stacks every shard on this plan's device.
+          n_shards: Z-slabs (must divide ``nz``); defaults to the mesh's
+            shard-axis size, else the largest ``nz`` divisor that fits the
+            visible devices (``dist.engine.default_n_shards``).
+          shard_axis: mesh dimension to shard along (default ``"halo"``, or
+            the mesh's first dimension when a mesh is given).
+          positions: representative positions to measure the static
+            ``shard_cap`` (and, compacted, the per-shard ``max_active``)
+            from; required unless ``shard_cap`` is given.
+          shard_cap: explicit static per-shard particle capacity.
+          halo_inner: per-shard backend; defaults to this plan's backend.
+        """
+        from ..dist import engine as dist_engine
+        names = (() if mesh is None
+                 else dist_engine.mesh_axis_names(mesh))
+        axis = shard_axis or (names[0] if mesh is not None
+                              else self.shard_axis)
+        if mesh is not None and axis not in names:
+            raise ValueError(
+                f"mesh has axes {names}, no {axis!r} shard axis")
+        n_shards = dist_engine.shard_count(self.domain, mesh, axis, n_shards,
+                                           self.device)
+        inner = halo_inner or self.inner_backend
+        max_active = self.max_active
+        if n_shards > 1:
+            if shard_cap is None and positions is None:
+                raise ValueError(
+                    "distribute() needs either shard_cap or positions "
+                    "(to measure the per-shard capacity)")
+            if positions is not None:
+                # the per-shard shard_cap and (compacted) max_active; the
+                # whole grid's pair_cap stays, as in the JAX package
+                shard_cap, max_active, _ = dist_engine.halo_bounds(
+                    self.domain, positions, n_shards, compact=self.compact,
+                    shard_cap=shard_cap,
+                    max_active=None if self.compact else max_active)
+        box = None if self.strategy == "allin" else self.box
+        return dataclasses.replace(
+            self, backend="halo", halo_inner=inner, n_shards=n_shards,
+            shard_axis=axis, shard_cap=shard_cap, mesh=mesh, box=box,
+            max_active=max_active)
+
 
 def plan(domain: Domain, kernel: Optional[PairKernel] = None, *,
          positions: Optional[torch.Tensor] = None, m_c: Optional[int] = None,
@@ -511,11 +628,13 @@ def plan(domain: Domain, kernel: Optional[PairKernel] = None, *,
          row_cap: Optional[int] = None,
          box: Optional[Tuple[int, int, int]] = None,
          pair_cap: Optional[int] = None,
-         m_c_slack: float = 1.5) -> InteractionPlan:
+         m_c_slack: float = 1.5, halo_inner: str = "cuda",
+         n_shards: Optional[int] = None, shard_axis: str = "halo",
+         shard_cap: Optional[int] = None, mesh=None) -> InteractionPlan:
     """Build an :class:`InteractionPlan`.
 
     Every bound taken or measured here (``m_c``, ``max_active``,
-    ``row_cap``, ``pair_cap``) obeys the replan contract of
+    ``row_cap``, ``pair_cap``, ``shard_cap``) obeys the replan contract of
     :meth:`InteractionPlan.replan`.
 
     Args:
@@ -539,10 +658,12 @@ def plan(domain: Domain, kernel: Optional[PairKernel] = None, *,
         runs dense only), the plan raises: nothing else is chosen.
       backend: ``"cuda"`` (hand-written kernels, for ``xpencil``,
         ``allin`` and ``cell_dense`` with ``layout="sfc"``; their plain
-        PyTorch versions on CPU tensors) or ``"reference"`` (plain PyTorch,
-        every strategy). With ``strategy="autotune"``, ``"all"`` tunes
-        over the platform default set (``"reference"`` and, on the card,
-        ``"cuda"``).
+        PyTorch versions on CPU tensors), ``"reference"`` (plain PyTorch,
+        every strategy) or ``"halo"`` (Z-slab execution of a cell schedule,
+        each slab on ``halo_inner``; ``repro_torch.dist.engine``). With
+        ``strategy="autotune"``, ``"all"`` tunes over the platform default
+        set (``"reference"`` and, on the card, ``"cuda"``), and so does
+        ``"halo"``, whose shard counts join the tuner's sweep.
       device: ``None`` means the CUDA device, and raises when none is
         visible; ``"cpu"`` runs on the CPU.
       compact: occupancy-compacted execution: only the work units that
@@ -567,13 +688,24 @@ def plan(domain: Domain, kernel: Optional[PairKernel] = None, *,
         measured from ``positions`` with slack when omitted.
       m_c_slack: the slack of the measured ``m_c`` (and, with
         ``"autotune"``, of its slacked ``m_c`` candidate).
+      halo_inner: per-shard backend of ``backend="halo"`` (``"cuda"`` or
+        ``"reference"``).
+      n_shards: Z-slabs of ``backend="halo"`` (must divide ``nz``); the
+        mesh's shard-axis size when a mesh is given, else the largest
+        divisor of ``nz`` that fits the visible devices (1 on one card or
+        on the CPU: the bit-identical single-shard fallback). Any count
+        runs without a mesh: the shards stack on ``device``.
+      shard_axis / mesh: a 1-D ``torch.distributed.device_mesh.DeviceMesh``
+        whose ``shard_axis`` dimension carries one slab per rank, every
+        rank passing the same state; None stacks the shards on one device.
+      shard_cap: static per-shard particle capacity of ``backend="halo"``;
+        measured from ``positions`` with slack when omitted.
 
     ``strategy="autotune"`` explores the compacted, packed and sfc
     candidates itself and ignores ``compact``, ``max_active``, ``layout``,
     ``row_cap`` and ``pair_cap``; the caller's ``batch_size`` and ``box``
     join its sweep as candidates.
     """
-    _check_ported(backend)
     device = resolve_device(device)
     kernel = kernel or make_lennard_jones()
     if strategy == "autotune":
@@ -581,7 +713,9 @@ def plan(domain: Domain, kernel: Optional[PairKernel] = None, *,
         if positions is None:
             raise ValueError('strategy="autotune" needs positions (the '
                              "tuner times real executions)")
-        backends = None if backend == "all" else (backend,)
+        # the tuner owns the shard-count axis: tune the platform default
+        # backends and let halo twins join the sweep
+        backends = None if backend in ("all", "halo") else (backend,)
         batch_sizes = tuple(dict.fromkeys(
             (batch_size, *autotune.DEFAULT_BATCH_SIZES)))
         return autotune.tune(domain, kernel, positions, m_c=m_c,
@@ -602,6 +736,9 @@ def plan(domain: Domain, kernel: Optional[PairKernel] = None, *,
         # compacted path somewhere, layout="packed"/"sfc" to those that
         # have the layout, as in the JAX package
         among = CELL_SCHEDULES if compact else None
+        if backend == "halo":
+            among = (("cell_dense", "xpencil") if compact
+                     else CELL_SCHEDULES)
         if layout == "packed":
             among = tuple(S.PACKED_STRATEGIES)
         if layout == "sfc":
@@ -609,6 +746,24 @@ def plan(domain: Domain, kernel: Optional[PairKernel] = None, *,
         strategy = choose_strategy(domain, m_c,
                                    positions.shape[0] / domain.n_cells,
                                    among=among)
+    inner_backend = halo_inner if backend == "halo" else backend
+    multi_shard = False
+    if backend == "halo":
+        from ..dist import engine as dist_engine
+        names = () if mesh is None else dist_engine.mesh_axis_names(mesh)
+        if mesh is not None and shard_axis not in names:
+            raise ValueError(
+                f"mesh has axes {names}, no {shard_axis!r} shard axis: "
+                "pass shard_axis=<one of them> (or use "
+                "plan.distribute(mesh), which defaults to the mesh's first "
+                "axis)")
+        n_shards = dist_engine.shard_count(domain, mesh, shard_axis,
+                                           n_shards, device)
+        multi_shard = n_shards > 1
+        if multi_shard and shard_cap is None and positions is None:
+            raise ValueError("backend='halo' needs either shard_cap or "
+                             "positions (to measure the per-shard "
+                             "capacity)")
     if layout == "packed" and strategy in S.PACKED_STRATEGIES and \
             row_cap is None:
         if positions is None:
@@ -619,29 +774,43 @@ def plan(domain: Domain, kernel: Optional[PairKernel] = None, *,
         if positions is None:
             raise ValueError('layout="sfc" needs either pair_cap or '
                              "positions (to measure the pair-list bound)")
-        pair_cap = suggest_pair_cap(domain, positions)
+        if not multi_shard:             # a halo plan's: per shard, below
+            pair_cap = suggest_pair_cap(domain, positions)
     if compact and strategy in CELL_SCHEDULES:
-        if not supports_compact(backend, strategy, layout):
-            raise ValueError(f"backend {backend!r} has no compacted path for "
-                             f"strategy {strategy!r} (layout {layout!r})")
+        if not supports_compact(inner_backend, strategy, layout):
+            raise ValueError(f"backend {inner_backend!r} has no compacted "
+                             f"path for strategy {strategy!r} (layout "
+                             f"{layout!r})")
         if max_active is None:
             if positions is None:
                 raise ValueError("compact=True needs either max_active or "
                                  "positions (to measure the active-unit "
                                  "bound)")
-            mbox = box
-            if strategy == "allin" and mbox is None:
-                mbox = _allin_box(domain, m_c)
-            max_active = suggest_max_active(domain, positions, strategy,
-                                            box=mbox)
+            if not multi_shard:         # a halo plan's: per shard, below
+                mbox = box
+                if strategy == "allin" and mbox is None:
+                    mbox = _allin_box(domain, m_c)
+                max_active = suggest_max_active(domain, positions, strategy,
+                                                box=mbox)
+    if multi_shard and positions is not None:
+        # the busiest shard's load, active pencils and pair list (each slab
+        # has its own cluster order), not the whole grid's
+        shard_cap, max_active, pair_cap = dist_engine.halo_bounds(
+            domain, positions, n_shards,
+            layout=layout if strategy in S.SFC_STRATEGIES else "dense",
+            compact=compact, shard_cap=shard_cap, max_active=max_active,
+            pair_cap=pair_cap)
     p = InteractionPlan(domain=domain, kernel=kernel, m_c=m_c,
                         strategy=strategy, backend=backend,
                         batch_size=batch_size, device=device,
                         compact=compact, max_active=max_active,
                         layout=layout, row_cap=row_cap, box=box,
-                        pair_cap=pair_cap)
+                        pair_cap=pair_cap, halo_inner=halo_inner,
+                        n_shards=n_shards, shard_axis=shard_axis,
+                        shard_cap=shard_cap, mesh=mesh)
     if strategy != "naive_n2":
-        get_backend(backend, strategy, layout)        # fail at plan time
+        # fail at plan time (a halo plan: the per-shard backend)
+        get_backend(inner_backend, strategy, layout)
     return p
 
 
@@ -819,23 +988,34 @@ def _count_replan(p: "InteractionPlan") -> None:
 
 
 class _Executor:
-    """The cached runner of one (plan, field names); see the note above."""
+    """The cached runner of one (plan, field names); see the note above. A
+    single-shard halo plan runs its inner backend directly; a multi-shard
+    one runs ``dist.engine.halo_impl``."""
 
     def __init__(self, p: "InteractionPlan", field_names: Tuple[str, ...]):
         _count_recompile(p)
         self.plan = p
         self.field_names = field_names
         self.backend = (None if p.strategy == "naive_n2"
-                        else get_backend(p.backend, p.strategy, p.layout))
+                        else get_backend(p.inner_backend, p.strategy,
+                                         p.layout))
+        self.halo = None
+        dom = p.domain
+        if p._multi_shard:
+            from ..dist.engine import GHOST_EXCHANGE_TOTAL, halo_impl
+            self.halo = halo_impl(p, field_names)
+            _obs_metrics.registry.counter(
+                GHOST_EXCHANGE_TOTAL,
+                n_shards=p.n_shards).inc(self.halo.n_value_planes)
+            dom = self.halo.local_dom
         if p.layout == "sfc":
             from .binning import (DEFAULT_CSIZE, DEFAULT_CURVE,
                                   sfc_device_slot_tables, sfc_device_tables)
-            sfc_device_tables(p.domain, DEFAULT_CSIZE, DEFAULT_CURVE,
-                              p.device)
-            sfc_device_slot_tables(p.domain, p.m_c, DEFAULT_CSIZE,
-                                   DEFAULT_CURVE, p.device)
+            sfc_device_tables(dom, DEFAULT_CSIZE, DEFAULT_CURVE, p.device)
+            sfc_device_slot_tables(dom, p.m_c, DEFAULT_CSIZE, DEFAULT_CURVE,
+                                   p.device)
         sources = (() if self.backend is None
-                   else _SOURCES[(p.backend, p.strategy, p.layout)])
+                   else _SOURCES[(p.inner_backend, p.strategy, p.layout)])
         if sources and p.device.type == "cuda":
             from ..kernels import _build
             _build.load_all(sources)
@@ -859,6 +1039,8 @@ class _Executor:
             outs = [self.single(system(states, b))
                     for b in range(states.positions.shape[0])]
             return tuple(torch.stack(o) for o in zip(*outs))
+        if self.halo is not None:
+            return self.halo(states)
         return self.forces(self.plan.bin(states), states)
 
     def single(self, state: ParticleState
@@ -1010,9 +1192,10 @@ class PlanHealth:
 
 def _health_key(p: InteractionPlan) -> Tuple:
     """Breaker identity: the plan minus its grown/derived bounds, so a
-    replan (grown ``m_c``/``row_cap``/...) keeps the same breaker state."""
-    return (p.domain, p.kernel, p.strategy, p.backend, p.layout, p.compact,
-            p.batch_size, p.device)
+    replan (grown ``m_c``/``row_cap``/...) or an elastic shard shrink keeps
+    the same breaker state."""
+    return (p.domain, p.kernel, p.strategy, p.backend, p.halo_inner,
+            p.layout, p.compact, p.batch_size, p.device)
 
 
 _health: Dict[Tuple, PlanHealth] = {}
@@ -1032,17 +1215,20 @@ def reset_health() -> None:
 def degradation_ladder(p: InteractionPlan) -> Tuple[InteractionPlan, ...]:
     """The rungs a failing plan steps down: the plan itself, then backend
     cuda -> reference (CPU plans only, where ``"cuda"`` runs the plain
-    versions anyway), then layout packed/sfc -> dense where the backend
-    has it, then compact -> not. Rung 0 is always ``p``; a plan on the card
-    keeps its backend on every rung, so a breach never moves it off the
-    kernels."""
+    versions anyway; a halo plan steps its ``halo_inner``), then layout
+    packed/sfc -> dense where the backend has it, then compact -> not.
+    Rung 0 is always ``p``; a plan on the card keeps its backend on every
+    rung, so a breach never moves it off the kernels (a halo plan keeps
+    its shards and steps its inner plan down the same ladder)."""
     rungs = [p]
     q = p
-    if q.backend == "cuda" and q.device.type != "cuda":
-        q = dataclasses.replace(q, backend="reference")
+    if q.inner_backend == "cuda" and q.device.type != "cuda":
+        q = dataclasses.replace(
+            q, **{"halo_inner" if q.backend == "halo" else "backend":
+                  "reference"})
         rungs.append(q)
     if (q.layout in ("packed", "sfc")
-            and supports_layout(q.backend, q.strategy, "dense")):
+            and supports_layout(q.inner_backend, q.strategy, "dense")):
         q = dataclasses.replace(q, layout="dense")
         rungs.append(q)
     if q.compact:
@@ -1069,8 +1255,7 @@ class ExecutionReport:
     ``status`` is ``"ok"`` (healthy rung, clean), ``"degraded"`` (results
     from a lower ladder rung, the same physics) or ``"failed"`` (retries
     exhausted; forces and potential are zeros). ``plan`` is the plan to
-    keep using, replans applied. ``shard_shrinks`` stays 0: the port has
-    no multi-shard plan (ROADMAP.md Queue 1 item 11)."""
+    keep using, replans and elastic shard shrinks applied."""
 
     status: str = "ok"
     plan: Optional[InteractionPlan] = None
@@ -1085,7 +1270,7 @@ class ExecutionReport:
     layout: str = ""                   # layout of that rung
     breaker_trips: int = 0             # rung-down transitions this call
     recovered: bool = False            # rung-up transition this call
-    shard_shrinks: int = 0             # elastic shard shrinks (none here)
+    shard_shrinks: int = 0             # elastic shard shrinks this call
 
 
 def _output_check(forces: torch.Tensor, pot: torch.Tensor,
@@ -1164,7 +1349,10 @@ def _execute_checked_impl(base: InteractionPlan, state: ParticleState, *,
             chaos.maybe_delay("core.dispatch", sleep=sleep)
         # JAX's except branches, taken for an injected fault or a
         # non-finite output; a real exception propagates
-        fault = chaos.injected_fault("core.dispatch")
+        fault = (chaos.injected_fault("dist.exchange") if rung._multi_shard
+                 else None)
+        if fault is None:
+            fault = chaos.injected_fault("core.dispatch")
         if fault is None:
             f, u = rung.execute(state)
             f = chaos.corrupt("core.dispatch", f)
@@ -1175,19 +1363,34 @@ def _execute_checked_impl(base: InteractionPlan, state: ParticleState, *,
                 break                              # clean execution
             report.nonfinite += bad
             fault = _NonFiniteOutput(bad)
-        if isinstance(fault, chaos.ShardLost):
-            # a single-shard plan: a plain failure (JAX's elif branch)
+        if isinstance(fault, chaos.ShardLost) and rung._multi_shard:
+            # elastic shrink: rebuild at the surviving shard count and
+            # re-execute; the replan contract re-measures the per-shard
+            # bounds (dist.engine.elastic_shrink)
+            from ..dist.engine import elastic_shrink
             report.faults.append(f"shard_loss:{fault}")
-            detail = str(fault)
+            p = elastic_shrink(p, state)
+            report.plan = p
+            report.shard_shrinks += 1
+            _obs_event("plan.shard_shrink", n_shards=p.n_shards or 1,
+                       fault=str(fault))
+            rungs = degradation_ladder(p)
+            health = plan_health(p)          # the same key: shrink-stable
+            level = min(level, len(rungs) - 1)
         else:
-            report.faults.append(f"{type(fault).__name__}: {fault}")
-            detail = type(fault).__name__
-        if health.note_failure(len(rungs)):
-            report.breaker_trips += 1
-            level = health.level
-            _obs_event("plan.degrade", level=level,
-                       backend=rungs[level].backend,
-                       layout=rungs[level].layout, fault=detail)
+            if isinstance(fault, chaos.ShardLost):
+                # a single-shard plan: a plain failure (JAX's elif branch)
+                report.faults.append(f"shard_loss:{fault}")
+                detail = str(fault)
+            else:
+                report.faults.append(f"{type(fault).__name__}: {fault}")
+                detail = type(fault).__name__
+            if health.note_failure(len(rungs)):
+                report.breaker_trips += 1
+                level = health.level
+                _obs_event("plan.degrade", level=level,
+                           backend=rungs[level].backend,
+                           layout=rungs[level].layout, fault=detail)
         attempts += 1
         report.retries = attempts
         if attempts > max_retries:

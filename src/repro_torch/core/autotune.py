@@ -50,13 +50,13 @@ import torch
 
 from . import strategies as S
 from . import traffic
-from .api import (InteractionPlan, ParticleState, STRATEGY_NAMES,
-                  _allin_box, active_unit_count, n_units, suggest_max_active,
-                  suggest_pair_cap, suggest_row_cap, supports_compact,
-                  supports_layout)
+from .api import (CELL_SCHEDULES, InteractionPlan, ParticleState,
+                  STRATEGY_NAMES, _allin_box, active_unit_count, n_units,
+                  suggest_max_active, suggest_pair_cap, suggest_row_cap,
+                  supports_compact, supports_layout)
 from .binning import (DEFAULT_CSIZE, cell_counts, padded_row_counts,
-                      sfc_pair_count)
-from .domain import Domain
+                      sfc_pair_count, shard_pencil_active, shard_slab_counts)
+from .domain import Domain, slab_domain
 from .interactions import PairKernel, make_lennard_jones
 from .timing import time_fn
 from ..obs import metrics as _obs_metrics
@@ -66,7 +66,9 @@ from ..obs.trace import event as _obs_event, trace as _obs_trace
 # an older tuner are skipped (and overwritten), not misread.
 # v1: the JAX package's v5 space (dense, compact, packed and sfc axes) with
 #     the "cuda" backend, without the halo shard-count axis.
-CACHE_VERSION = 1
+# v2: the halo shard-count axis (Candidate.n_shards/shard_cap); the key's
+#     device count is the tuner's (1 on the CPU), as JAX's.
+CACHE_VERSION = 2
 
 _CACHE_ENV = "REPRO_TORCH_AUTOTUNE_CACHE"
 _CACHE_FILE = "autotune_cache.json"
@@ -104,12 +106,29 @@ class Candidate:
     box: Optional[Tuple[int, int, int]] = None   # allin sub-box
     compact: bool = False                        # occupancy-compacted path
     max_active: Optional[int] = None             # static active-unit bound
+    n_shards: Optional[int] = None               # halo Z-slabs (None = 1)
+    shard_cap: Optional[int] = None              # halo per-shard capacity
     layout: str = "dense"                        # layout: dense|packed|sfc
     row_cap: Optional[int] = None                # static packed-row bound
     pair_cap: Optional[int] = None               # static sfc pair-list bound
 
+    @property
+    def distributed(self) -> bool:
+        return bool(self.n_shards) and self.n_shards > 1
+
     def plan(self, domain: Domain, kernel: PairKernel,
              device=None) -> InteractionPlan:
+        if self.distributed:
+            # the candidate's backend is the per-shard backend; the allin
+            # slab tiling is recomputed by the plan for this shard count
+            return InteractionPlan(
+                domain=domain, kernel=kernel, m_c=self.m_c,
+                strategy=self.strategy, backend="halo",
+                halo_inner=self.backend, batch_size=self.batch_size,
+                device=device, box=None, compact=self.compact,
+                max_active=self.max_active, layout=self.layout,
+                row_cap=self.row_cap, pair_cap=self.pair_cap,
+                n_shards=self.n_shards, shard_cap=self.shard_cap)
         return InteractionPlan(domain=domain, kernel=kernel, m_c=self.m_c,
                                strategy=self.strategy, backend=self.backend,
                                batch_size=self.batch_size, device=device,
@@ -123,6 +142,7 @@ class Candidate:
                 "batch_size": self.batch_size, "m_c": self.m_c,
                 "box": list(self.box) if self.box else None,
                 "compact": self.compact, "max_active": self.max_active,
+                "n_shards": self.n_shards, "shard_cap": self.shard_cap,
                 "layout": self.layout, "row_cap": self.row_cap,
                 "pair_cap": self.pair_cap}
 
@@ -134,7 +154,8 @@ class Candidate:
                    batch_size=int(d["batch_size"]), m_c=int(d["m_c"]),
                    box=tuple(d["box"]) if d.get("box") else None,
                    compact=bool(d.get("compact", False)),
-                   max_active=opt("max_active"),
+                   max_active=opt("max_active"), n_shards=opt("n_shards"),
+                   shard_cap=opt("shard_cap"),
                    layout=d.get("layout", "dense"), row_cap=opt("row_cap"),
                    pair_cap=opt("pair_cap"))
 
@@ -287,13 +308,52 @@ def sfc_twins(domain: Domain, positions: torch.Tensor,
     twins: List[Candidate] = []
     bound: Optional[int] = None
     for c in candidates:
-        if (c.layout != "dense" or c.compact
+        if (c.layout != "dense" or c.compact or c.distributed
                 or not supports_layout(c.backend, c.strategy, "sfc")):
             continue
         if bound is None:
             bound = suggest_pair_cap(domain, positions, slack=slack,
                                      align=align)
         twins.append(dataclasses.replace(c, layout="sfc", pair_cap=bound))
+    return list(dict.fromkeys(twins))
+
+
+def halo_twins(domain: Domain, positions: torch.Tensor,
+               candidates: Sequence[Candidate],
+               shard_counts: Sequence[int], *,
+               cap_slack: float = 1.3, align: int = 8) -> List[Candidate]:
+    """The shard-count candidate axis: for every cell-schedule candidate, a
+    distributed twin per viable shard count, ``backend="halo"`` with the
+    candidate's backend as the per-shard inner, a ``shard_cap`` measured
+    from ``positions`` (the ``m_c`` contract again), and compacted twins
+    re-bounded to the busiest shard's active pencils. Shard counts that do
+    not divide ``nz`` are skipped. A twin stacks its shards on the plan's
+    device (``mesh=None``), so unlike JAX's no count is limited by the
+    visible devices: the JAX package's twins with every count's devices
+    present."""
+    from ..dist.halo import suggest_shard_cap, suggest_shard_max_active
+    twins: List[Candidate] = []
+    caps: Dict[int, int] = {}
+    bounds: Dict[int, int] = {}
+    for ns in dict.fromkeys(shard_counts):
+        if ns < 2 or domain.nz % ns:
+            continue
+        caps[ns] = suggest_shard_cap(domain, positions, ns,
+                                     slack=cap_slack, align=align)
+        for c in candidates:
+            if c.distributed or c.strategy not in CELL_SCHEDULES:
+                continue
+            if c.compact and c.strategy == "allin":
+                continue                 # no per-slab sub-box occupancy
+            max_active = c.max_active
+            if c.compact:
+                if ns not in bounds:
+                    bounds[ns] = suggest_shard_max_active(
+                        domain, positions, ns, align=align)
+                max_active = bounds[ns]
+            twins.append(dataclasses.replace(
+                c, n_shards=ns, shard_cap=caps[ns], box=None,
+                max_active=max_active))
     return list(dict.fromkeys(twins))
 
 
@@ -313,19 +373,23 @@ def prune_candidates(domain: Domain, avg_ppc: float,
     never get to contradict it (the exact failure this tuner exists for).
     Dense and compacted variants of a strategy form separate round-robin
     queues for the same reason, and so do packed- and sfc-layout variants
-    (whose gather/expand overhead the byte model does not see).
+    (whose gather/expand overhead the byte model does not see) and halo
+    variants per shard count, whose exchange the model does not see at
+    all.
 
     ``fill_for``: optional ``Candidate -> fill fraction`` hook used to
     score compacted candidates (measured occupancy; default 1.0).
     """
     def order_key(c: Candidate):
         return (_cost(domain, avg_ppc, c, fill_for), c.backend,
-                c.batch_size, c.m_c, c.box or (), c.compact, c.layout)
+                c.batch_size, c.m_c, c.box or (), c.compact,
+                c.n_shards or 1, c.layout)
 
-    by_strategy: Dict[Tuple[str, bool, str], List[Candidate]] = {}
+    by_strategy: Dict[Tuple[str, bool, int, str], List[Candidate]] = {}
     for c in sorted(candidates, key=order_key):
-        by_strategy.setdefault((c.strategy, c.compact, c.layout),
-                               []).append(c)
+        by_strategy.setdefault(
+            (c.strategy, c.compact, c.n_shards or 1, c.layout),
+            []).append(c)
     queues = sorted(by_strategy.values(),
                     key=lambda q: order_key(q[0]))
     interleaved = [c for round_ in itertools.zip_longest(*queues)
@@ -354,7 +418,9 @@ def kernel_refuses(c: Candidate, kernel: PairKernel,
         if c.m_c > MAX_M_C:
             return f"m_c {c.m_c} > kernels B/C's {MAX_M_C}"
     elif c.strategy == "allin":
-        smem = halo_bytes(c.box or _allin_box(domain, c.m_c), c.m_c)
+        # a distributed twin tiles the slab each shard runs on
+        bdom = slab_domain(domain, c.n_shards) if c.distributed else domain
+        smem = halo_bytes(c.box or _allin_box(bdom, c.m_c), c.m_c)
         if smem > MAX_SMEM:
             return (f"kernel E's halo block of {c.box} at m_c {c.m_c} takes "
                     f"{smem} B of shared memory > {MAX_SMEM}")
@@ -523,15 +589,14 @@ def tune(domain: Domain, kernel: Optional[PairKernel] = None,
          include_compact: bool = True,
          include_packed: bool = True,
          include_sfc: bool = True,
-         shard_counts: Sequence[int] = (),
+         shard_counts: Optional[Sequence[int]] = None,
          top_k: int = DEFAULT_TOP_K,
          reps: Optional[int] = None, budget_s: float = 0.5,
-         device=None,
-         use_cache: bool = True) -> TuneResult:
+         device=None, use_cache: bool = True) -> TuneResult:
     """Measure candidate schedules on ``positions`` and return the fastest.
 
     Enumerates (strategy, backend, batch_size, m_c, allin box) candidates
-    and their compacted, packed and sfc twins, drops those that overflow or
+    and their compacted, packed, sfc and halo (shard-count) twins, drops those that overflow or
     that their kernel would refuse (:func:`kernel_refuses`), prunes to
     ``top_k`` with the traffic model, times each survivor with a
     warm-up-excluded stopwatch (``core.timing.time_fn``), and returns the
@@ -555,28 +620,31 @@ def tune(domain: Domain, kernel: Optional[PairKernel] = None,
         packed-row and SFC-cluster twins (bounds measured from
         ``positions``) of every enumerated candidate whose (backend,
         strategy) implements that path.
-      shard_counts: the halo shard-count axis is not ported; a count above
-        1 raises (ROADMAP.md Queue 1 item 11).
+      shard_counts: halo shard counts to sweep (every cell-schedule
+        candidate gets a ``backend="halo"`` twin per viable count,
+        :func:`halo_twins`). Default: the visible device count when above
+        1, nothing on one device; ``()`` disables the axis.
       top_k: survivors after model pruning; raise it if you suspect the
         model is mis-ranking your regime.
       reps / budget_s: stopwatch controls (see ``time_fn``).
-      device: the device the plans run on; default the positions'.
+      device: the device the plans run on; default the positions'. Its
+        visible device count (``dist.engine.visible_devices``) is the
+        default shard axis and part of the cache key; halo twins stack
+        their shards on ``device`` whatever the count.
       use_cache: disable to force re-measurement (the winner still
         overwrites the cache entry).
     """
     if positions is None:
         raise ValueError("tune() needs positions (it measures real "
                          "executions, not a model)")
-    if any(int(ns) > 1 for ns in shard_counts):
-        raise ValueError(
-            f"shard_counts={tuple(shard_counts)}: the halo shard-count axis "
-            "is not ported to repro_torch yet (ROADMAP.md Queue 1 item 11)")
     kernel = kernel or make_lennard_jones()
     device = positions.device if device is None else torch.device(device)
     if positions.device != device:
         raise ValueError(f"positions are on {positions.device}, the plans "
                          f"would run on {device}; move them first")
     platform = platform_of(device)
+    from ..dist.engine import visible_devices
+    device_count = visible_devices(device)
     if backends is None:
         backends = (("reference", "cuda") if device.type == "cuda"
                     else ("reference",))
@@ -622,6 +690,17 @@ def tune(domain: Domain, kernel: Optional[PairKernel] = None,
                              else sfc_pair_count(domain, counts=counts))
         return _caps[layout]
 
+    # measured per-shard maxima, memoized per shard count: the halo
+    # counterparts of max_count / occ_of, all from the one binning pass
+    _shard_measures: Dict[int, Tuple[int, int]] = {}
+
+    def shard_measures(ns: int) -> Tuple[int, int]:
+        if ns not in _shard_measures:
+            _shard_measures[ns] = (
+                int(shard_slab_counts(domain, counts, ns).max()),
+                int(shard_pencil_active(domain, counts, ns).max()))
+        return _shard_measures[ns]
+
     def active_safe(c: Candidate, strict: bool = True) -> bool:
         if c.layout != "dense":
             what = "row_cap" if c.layout == "packed" else "pair_cap"
@@ -634,6 +713,23 @@ def tune(domain: Domain, kernel: Optional[PairKernel] = None,
                 return False
             if bound < measured_cap(c.layout):
                 return False
+        if c.distributed:
+            ns = c.n_shards
+            if domain.nz % ns:
+                return False
+            if c.shard_cap is None:
+                if strict:
+                    raise ValueError(
+                        f"halo candidate {c} has no shard_cap bound "
+                        "(repro_torch.dist.halo.suggest_shard_cap measures "
+                        "one)")
+                return False
+            load, act = shard_measures(ns)
+            if c.shard_cap < load:
+                return False
+            if c.compact:
+                return c.max_active is not None and c.max_active >= act
+            return True
         if not c.compact:
             return True
         if c.max_active is None:
@@ -649,7 +745,7 @@ def tune(domain: Domain, kernel: Optional[PairKernel] = None,
                          n_units(domain, "xpencil"))
     pencil_fill = _occ[("pencil",)][0] / max(_occ[("pencil",)][1], 1)
     key = cache_key(platform, domain, key_m_c, avg_ppc, kernel, backends,
-                    pencil_fill=pencil_fill)
+                    pencil_fill=pencil_fill, device_count=device_count)
     cfile = cache_path()
 
     # build the requested candidate space first (cheap — no timing): the
@@ -670,6 +766,13 @@ def tune(domain: Domain, kernel: Optional[PairKernel] = None,
         if include_sfc:
             candidates = list(candidates) + sfc_twins(
                 domain, positions, candidates)
+        if shard_counts is None:
+            # the default shard axis: the full device count, when there is
+            # more than one device
+            shard_counts = (device_count,) if device_count > 1 else ()
+        if shard_counts:
+            candidates = list(candidates) + halo_twins(
+                domain, positions, candidates, shard_counts)
     candidates = [c for c in candidates
                   if c.m_c >= max_count and active_safe(c)]
     if not candidates:

@@ -577,6 +577,30 @@ def subbox_occupancy(domain: Domain, counts: torch.Tensor,
                            (nx // bx) * (ny // by) * (nz // bz))
 
 
+def shard_slab_counts(domain: Domain, counts: torch.Tensor,
+                      n_shards: int) -> torch.Tensor:
+    """(n_cells,) cell counts -> (n_shards,) int32 particles per Z-slab
+    shard: the load the halo engine's ``shard_cap`` bound must cover."""
+    if domain.nz % n_shards:
+        raise ValueError(
+            f"nz={domain.nz} not divisible by n_shards={n_shards}")
+    per_plane = counts_grid(domain, counts).sum((-2, -1), dtype=torch.int32)
+    return per_plane.unflatten(-1, (n_shards, domain.nz // n_shards)).sum(
+        -1, dtype=torch.int32)
+
+
+def shard_pencil_active(domain: Domain, counts: torch.Tensor,
+                        n_shards: int) -> torch.Tensor:
+    """(n_cells,) cell counts -> (n_shards,) int32 active (z, y) pencils per
+    Z-slab shard: what the compacted halo path's one ``max_active`` bound,
+    shared by every shard, must cover on the busiest one."""
+    if domain.nz % n_shards:
+        raise ValueError(
+            f"nz={domain.nz} not divisible by n_shards={n_shards}")
+    active = (pencil_counts(domain, counts) > 0).to(torch.int32)
+    return active.unflatten(-1, (n_shards, -1)).sum(-1, dtype=torch.int32)
+
+
 def gather_pencil_rows(plane: torch.Tensor, active_zy: torch.Tensor, ny: int,
                        dz: int = 0, dy: int = 0) -> torch.Tensor:
     """One padded row per pencil id: row ``a`` is the padded

@@ -162,6 +162,12 @@ def _check_supported(p: InteractionPlan) -> None:
             f"{p.strategy!r}: par_part reads raw positions (stale bins "
             "would silently drop its interactions) and naive_n2 bypasses "
             "binning, so neither can reuse a Verlet-skin bin structure")
+    if p._multi_shard:
+        raise ValueError(
+            "plan.trajectory does not run on multi-shard halo plans yet: "
+            "the per-call Z-slab re-partition is exactly the cost the "
+            "skin contract amortizes away (single-shard halo plans fall "
+            "back to their inner backend and work fine)")
 
 
 def trajectory_plan(base: InteractionPlan, skin: float,

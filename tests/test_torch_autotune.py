@@ -113,7 +113,7 @@ def test_cache_round_trips_through_disk(cache_dir, monkeypatch):
     data = json.loads(cfile.read_text())
     [(key, entry)] = data.items()
     assert key.startswith("cpu|dev")
-    assert entry["version"] == at.CACHE_VERSION == 1
+    assert entry["version"] == at.CACHE_VERSION == 2
     assert entry["candidate"]["strategy"] == res1.candidate.strategy
     assert not list(cache_dir.glob("*.tmp"))
 
@@ -321,8 +321,6 @@ def test_cached_compact_winner_with_stale_bound_is_rejected(cache_dir):
 
 def _fields(c, backend_map=None):
     d = c.to_json()
-    for halo_field in ("n_shards", "shard_cap"):      # JAX's, always None
-        d.pop(halo_field, None)
     if backend_map:
         d["backend"] = backend_map.get(d["backend"], d["backend"])
     return d
@@ -534,11 +532,21 @@ def test_a_cache_file_that_does_not_parse_raises_with_its_path(cache_dir,
 
 
 def test_shard_counts_above_one_raise_naming_item_11():
-    dom, pos = _case(4, 100)
-    with pytest.raises(ValueError, match="Queue 1 item 11"):
-        tune(dom, None, pos, shard_counts=(2,))
+    """``shard_counts`` raised naming Queue 1 item 11 until the halo engine
+    was ported; now the shard axis equals JAX's: the halo twins of the
+    enumerated space, field by field and in order (JAX's with every
+    count's devices present: the port's twins stack their shards)."""
+    jdom, pos = _uniform(8, 500, seed=2)
+    dom, mine, theirs = _spaces(jdom, pos, ("reference", "cuda"), [8, 16])
+    t_twins = at.halo_twins(dom, torch.from_numpy(pos), mine, (2, 4, 8))
+    j_twins = jat.halo_twins(jdom, jnp.asarray(pos), theirs, (2, 4, 8),
+                             device_count=8)
+    assert t_twins and {c.n_shards for c in t_twins} == {2, 4, 8}
+    assert [_fields(c) for c in t_twins] == [
+        _fields(c, {"pallas": "cuda"}) for c in j_twins]
+    dom4, pos4 = _case(4, 100)
     with pytest.raises(ValueError, match="move them first"):
-        tune(dom, None, pos.to("meta"), device="cpu")
+        tune(dom4, None, pos4.to("meta"), device="cpu")
 
 
 def test_time_fn_gives_mean_seconds_and_reps():
@@ -577,8 +585,8 @@ def test_backend_matrix_maps_cuda_to_what_jax_maps_pallas_to():
     assert set(mine) == {"cuda", "reference"}
 
 
-# names of repro.core that Queue 1 item 11 (halo) ports: none (item 10,
-# the serving tier, the executor cache and the counters, is ported)
+# names of repro.core not yet in repro_torch.core, by the Queue 1 item that
+# ports them: none (items 10 and 11 are ported)
 NOT_YET = {11: set()}
 
 

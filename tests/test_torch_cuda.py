@@ -10,7 +10,8 @@ import dataclasses
 import pytest
 import torch
 
-from repro_torch.core import (Domain, ParticleState, full_pencil_occupancy,
+from repro_torch.core import (Domain, ParticleState, degradation_ladder,
+                              full_pencil_occupancy,
                               make_gravity, make_high_flop,
                               make_lennard_jones, make_low_flop,
                               make_sph_density, pack_rows,
@@ -1538,3 +1539,165 @@ def test_execute_checked_on_the_card(gen):
         (f, u), report = p.execute_checked(state)
     assert report.nonfinite == 1 and report.retries == 1
     assert torch.equal(f, want[0]) and torch.equal(u, want[1])
+
+
+# ---------------------------------------------------------------------------
+# the halo engine: Z-slab shards stacked on the card's system axis
+# ---------------------------------------------------------------------------
+
+HALO_OPTS = [dict(strategy="xpencil"),
+             dict(strategy="xpencil", compact=True),
+             dict(strategy="xpencil", layout="packed", compact=True),
+             dict(strategy="allin"),
+             dict(strategy="cell_dense", layout="sfc")]
+
+
+def _halo_forces(p, data, kern):
+    """The force kernel of halo plan ``p``'s path on its stacked shards, and
+    its plain version on each shard alone (stacked)."""
+    dom = slab_of(p)
+    kw = dict(m_c=p.m_c, kernel=kern, cutoff2=1.0)
+    n_sys = p.n_shards
+    if p.layout == "packed":
+        act = (pencil_occupancy(dom, data.counts, p.max_active).active
+               if p.compact else None)
+        rows = (full_pencil_occupancy(dom, data.counts.device).active.expand(
+            n_sys, -1) if act is None else act)
+        got = xpencil_packed_forces(data.planes, data.slot_id, data.slot_cell,
+                                    data.cell_offsets, act, nx=dom.nx,
+                                    ny=dom.ny, **kw)
+        want = [S.xpencil_packed_planes(
+            q.planes["x"], q.planes["y"], q.planes["z"], q.slot_id,
+            q.slot_cell, q.cell_offsets, rows[i], nx=dom.nx, ny=dom.ny, **kw)
+            for i, q in ((i, system(data, i)) for i in range(n_sys))]
+    elif p.layout == "sfc":
+        bins = data.bins
+        tgt, src = sfc_device_slot_tables(dom, p.m_c, data.csize, data.curve,
+                                          bins.slot_id.device)
+        got = cell_sfc_forces(bins.planes, bins.slot_id, data.codes, tgt, src,
+                              **kw)
+        want = [S.cell_sfc_tiles(
+            b.planes["x"], b.planes["y"], b.planes["z"], b.slot_id, c.codes,
+            tgt, src, **kw)
+            for b, c in ((system(bins, i), system(data, i))
+                         for i in range(n_sys))]
+    elif p.strategy == "allin":
+        got = allin_forces(data.planes, data.slot_id, box=p.box, **kw)
+        want = [S.allin_planes(b.planes["x"], b.planes["y"], b.planes["z"],
+                               b.slot_id, box=p.box, **kw)
+                for b in (system(data, i) for i in range(n_sys))]
+    elif p.compact:
+        act = pencil_occupancy(dom, data.counts, p.max_active).active
+        got = xpencil_sparse_forces(data.planes, data.slot_id, act, nx=dom.nx,
+                                    ny=dom.ny, **kw)
+        want = [S.xpencil_sparse_planes(
+            b.planes["x"], b.planes["y"], b.planes["z"], b.slot_id, act[i],
+            nx=dom.nx, ny=dom.ny, **kw)
+            for i, b in ((i, system(data, i)) for i in range(n_sys))]
+    else:
+        got = xpencil_forces(data.planes, data.slot_id, nx=dom.nx, **kw)
+        want = [S.xpencil_planes(b.planes["x"], b.planes["y"], b.planes["z"],
+                                 b.slot_id, nx=dom.nx, **kw)
+                for b in (system(data, i) for i in range(n_sys))]
+    return got, tuple(torch.stack(w) for w in zip(*want))
+
+
+def slab_of(p):
+    from repro_torch.core.domain import slab_domain
+    return slab_domain(p.domain, p.n_shards)
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("opts", HALO_OPTS,
+                         ids=["dense", "compact", "packed", "allin", "sfc"])
+def test_halo_plan_on_the_card_matches_one_device_and_plain(gen, periodic,
+                                                            opts):
+    """A 4-shard halo plan on the card against the same strategy's
+    one-device plan (scale-relative 3e-4) with the same launches, and its
+    force kernel on the stacked shards against the plain version on each
+    shard."""
+    from repro_torch.dist.engine import halo_impl
+    dom = Domain.cubic(16, cutoff=1.0, periodic=periodic)
+    pos = dom.sample_uniform(16 ** 3 * 4, generator=gen, device="cuda")
+    state = ParticleState(pos)
+    kern = make_lennard_jones()
+    p1 = plan(dom, kern, positions=pos, **opts)
+    ph = plan(dom, kern, positions=pos, m_c=p1.m_c, backend="halo",
+              n_shards=4, **opts)
+    f1, u1 = p1.execute(state)
+    f, u = ph.execute(state)
+    for g, w in ((f, f1), (u, u1)):
+        scale = max(float(w.abs().max()), 1.0)
+        assert float((g - w).abs().max()) / scale <= 3e-4
+    data, inner = halo_impl(ph).layout(ParticleState(pos[None]))
+    assert inner.backend == "cuda"
+    got, want = _halo_forces(ph, data, kern)
+    for g, w in zip(got, want):
+        scale = max(float(w.abs().max()), 1.0)
+        assert float((g - w).abs().max()) / scale <= 3e-4
+
+
+def test_halo_paths_on_the_card_are_bit_equal_and_batch_equals_loop(gen):
+    dom = Domain.cubic(16, cutoff=1.0)
+    pos = dom.sample_uniform(16 ** 3 * 4, generator=gen, device="cuda")
+    state = ParticleState(pos)
+    kern = make_lennard_jones()
+    pd = plan(dom, kern, positions=pos, backend="halo", n_shards=4,
+              strategy="xpencil")
+    want = pd.execute(state)
+    for opts in HALO_OPTS[1:3]:
+        got = plan(dom, kern, positions=pos, m_c=pd.m_c, backend="halo",
+                   n_shards=4, **opts).execute(state)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    stack = torch.stack([pos, pos.flip(0)])
+    fb, ub = pd.execute_batch(ParticleState(stack))
+    for i in range(2):
+        fi, ui = pd.execute(ParticleState(stack[i]))
+        assert torch.equal(fb[i], fi) and torch.equal(ub[i], ui)
+    xpencil_forces.launches = 0
+    pd.execute_batch(ParticleState(stack))
+    torch.cuda.synchronize()
+    assert xpencil_forces.launches == 1
+
+
+def test_halo_shard_loss_on_the_card_shrinks(gen):
+    from repro_torch.testing import chaos
+    dom = Domain.cubic(16, cutoff=1.0, periodic=True)
+    pos = dom.sample_uniform(16 ** 3 * 4, generator=gen, device="cuda")
+    state = ParticleState(pos)
+    p = plan(dom, make_lennard_jones(), positions=pos, backend="halo",
+             n_shards=4, strategy="xpencil", layout="packed")
+    with chaos.inject(chaos.FaultSpec("dist.exchange", "shard_loss",
+                                      max_fires=1)):
+        (f, u), report = p.execute_checked(state)
+    assert report.shard_shrinks == 1 and report.plan.n_shards == 2
+    assert report.plan.halo_inner == "cuda"
+    got = report.plan.execute(state)
+    assert torch.equal(f, got[0]) and torch.equal(u, got[1])
+    assert all(r.halo_inner == "cuda" for r in degradation_ladder(p))
+
+
+def test_halo_sfc_shard_loss_on_the_card_covers_its_pairs(gen):
+    """The sfc plan's shrink re-measures its per-shard ``pair_cap``: 2 slabs
+    each hold about twice the cluster pairs of 4."""
+    from repro_torch.core import cell_counts
+    from repro_torch.dist.engine import shard_sfc_pairs
+    from repro_torch.testing import chaos
+    dom = Domain.cubic(16, cutoff=1.0)
+    pos = dom.sample_uniform(16 ** 3 * 4, generator=gen, device="cuda")
+    state = ParticleState(pos)
+    kw = dict(positions=pos, strategy="cell_dense", layout="sfc")
+    p1 = plan(dom, make_lennard_jones(), **kw)
+    p = plan(dom, make_lennard_jones(), m_c=p1.m_c, backend="halo",
+             n_shards=4, **kw)
+    with chaos.inject(chaos.FaultSpec("dist.exchange", "shard_loss",
+                                      max_fires=1)):
+        (f, u), report = p.execute_checked(state)
+    q = report.plan
+    assert report.shard_shrinks == 1 and q.n_shards == 2
+    assert q.pair_cap >= max(shard_sfc_pairs(dom, cell_counts(dom, pos), 2))
+    f1, u1 = p1.execute(state)
+    scale = max(float(f1.abs().max()), 1.0)
+    assert float((f - f1).abs().max()) / scale <= 3e-4
+    assert float((u - u1).abs().max()) / max(float(u1.abs().max()),
+                                             1.0) <= 3e-4
