@@ -111,7 +111,15 @@ the main paths through ``plan(...).execute()`` and checks and times them:
     yardstick, never called by the port); the prefill's logits against a
     prefill that runs G's plain version instead, both against a prefill of
     the weights upcast to fp32, and the comparison once more under torch's
-    default precision flags.
+    default precision flags;
+  * gemma2-2b training at full width and depth: kernel Gb (G's backward)
+    against its plain version over a sweep, at the local layers' shape in
+    bf16 and in fp32, each run twice bit-equal, timed beside the backward
+    of ``scaled_dot_product_attention``; three ``make_train_step`` steps
+    on 2 x 8192 tokens (remat, AdamW), 26 G and 13 Gb launches a step,
+    timed and profiled; the first step against the same step with G and
+    Gb's plain versions (the loss, every gradient against an fp32 model's,
+    the updated params); the smoke-width model memorizing one batch.
 
 Per particle, the compacted and packed paths and kernel E must equal the
 dense X-pencil path (kernel B) bit for bit; kernel F sums in another order
@@ -244,6 +252,28 @@ LOGITS_REL_TOL = 2e-2
 # rounding and not for an error of the kernel, which would add a term of
 # the logits' own size.
 FP32_GATE_FACTOR = 1.5
+
+# gemma2-2b training: one step of B x S tokens at full width and depth
+# (bf16, remat, AdamW), the serving phase's shape, so every local layer runs
+# kernels G and Gb over full windows; TRAIN_STEPS steps, the first one the
+# main path whose launches are counted, the later ones timed
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 8192, 3
+# kernel Gb against its plain version: kernel G's tolerances, bf16 as a
+# relative L2 over each gradient (one bf16 rounding of each output is
+# 2^-9), fp32 within 3e-4 of each gradient's own largest element
+GB_TOL = {torch.float32: 3e-4, torch.bfloat16: 2e-2}
+GB_FP32_CASE = (1, 8, 4, 2048, 256, 512, 50.0)   # B, H, KH, S, D, window, cap
+# the train step with G and Gb against the same step with their plain
+# versions, from the same params and AdamW state: the loss and each updated
+# leaf that does not start at zero within 2e-2 relative (L2), the
+# prefill-logits gate's reasoning (bf16 roundings through 26 layers,
+# sqrt(26) * 2^-8); each leaf's gradient within FP32_GATE_FACTOR x the
+# plain-G gradient's distance to an fp32 model's (two bf16 paths differ by
+# a few % in a gradient, as far as each lies from fp32)
+STEP_REL_TOL = 2e-2
+# the smoke-width model (fp32) memorizing one batch on the card: the twin
+# of tests/test_train_ckpt_fault.py::test_loss_decreases (30 steps there)
+SMOKE_TRAIN_STEPS, SMOKE_TRAIN_DROP = 50, 0.5
 
 
 def log(*args):
@@ -808,6 +838,405 @@ def lm_serving(seed: int, dev, reset_launches, launch_counts,
     return res
 
 
+def kernel_gb_bound(b, h, kh, s, d, window, itemsize):
+    """(bound ms, what sets it, FLOP, bytes) of one call of kernel Gb: 10 D
+    FLOP per in-window pair (q.k and dout.v recomputed, the dV, dK and dQ
+    products) against the inputs' peak; q, k, v, out, dout read and dq, dk,
+    dv written once."""
+    flops = 10 * d * b * h * window_pairs(s, window)
+    n_bytes = itemsize * b * s * d * (4 * h + 4 * kh)
+    peak = BF16_OPS_PER_S if itemsize == 2 else F32_OPS_PER_S
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes > t_ops else "operations", flops, n_bytes)
+
+
+def gb_inputs(gen, dev, b, h, kh, s, d, window, softcap, dtype, amp=2.0):
+    """q, k, v, kernel G's out and a random dout for kernel Gb."""
+    from repro_torch.kernels.window_attn import window_attention
+    q = (torch.randn((b, h, s, d), generator=gen, device=dev) * amp)
+    k = (torch.randn((b, kh, s, d), generator=gen, device=dev) * amp)
+    v = torch.randn((b, kh, s, d), generator=gen, device=dev)
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    out = window_attention(q, k, v, window=window, blk=1, softcap=softcap)
+    dout = torch.randn((b, h, s, d), generator=gen, device=dev).to(dtype)
+    return q, k, v, out, dout
+
+
+def check_gb_case(args, window, softcap):
+    """Kernel Gb on ``args`` = (q, k, v, out, dout) against its plain
+    version, twice, bit-equal; -> (max abs error, [error of dq, dk, dv]).
+    bf16: relative L2 of each gradient; fp32: error of each gradient's own
+    scale. At window 1 a row sees one key, so dq and dk are zero but for
+    rounding: both are held to dv's scale."""
+    from repro_torch.kernels.window_attn import (window_attention_bwd,
+                                                 window_attention_bwd_plain)
+    q = args[0]
+    got = window_attention_bwd(*args, window=window, softcap=softcap)
+    again = window_attention_bwd(*args, window=window, softcap=softcap)
+    want = window_attention_bwd_plain(*args, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    what = (f"kernel Gb vs plain, q {tuple(q.shape)} k "
+            f"{tuple(args[1].shape)} window={window} softcap={softcap} "
+            f"{q.dtype}")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{what}: two runs differ")
+    tol = GB_TOL[q.dtype]
+    errs, worst = [], 0.0
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        g, w = g.float(), w.float()
+        if g.dtype != torch.float32 or not bool(g.isfinite().all()):
+            raise AssertionError(f"{what}: {name} non-finite")
+        worst = max(worst, float((g - w).abs().max()))
+        if window == 1 and name != "dv":
+            errs.append(float((g - w).abs().max())
+                        / float(want[2].float().abs().max()))
+        elif q.dtype == torch.bfloat16:
+            errs.append(float((g - w).norm() / w.norm()))
+        else:
+            errs.append(float((g - w).abs().max() / w.abs().max()))
+        if not errs[-1] <= tol:
+            raise AssertionError(f"{what}: {name} error {errs[-1]:.3e} > "
+                                 f"{tol}")
+    if any(t.dtype != q.dtype for t in got):
+        raise AssertionError(f"{what}: outputs not in {q.dtype}")
+    return worst, errs
+
+
+def check_kernel_gb(gen, dev):
+    """Kernel Gb against its plain version over a sweep (B, GQA ratio, D,
+    windows 1 to past S, softcap, S not a multiple of the 32-row tile, fp32
+    and bf16), each case run twice bit-equal; -> (cases, max abs error)."""
+    cases = [(b, h, kh, s, d, window, softcap, dtype)
+             for b, h, kh in ((1, 4, 4), (2, 8, 2), (1, 8, 1))
+             for s, d in ((256, 64), (200, 256), (130, 20))
+             for window, softcap in ((1, 50.0), (37, 0.0), (64, 50.0),
+                                     (300, 50.0))
+             for dtype in (torch.float32, torch.bfloat16)]
+    worst = 0.0
+    for b, h, kh, s, d, window, softcap, dtype in cases:
+        args = gb_inputs(gen, dev, b, h, kh, s, d, window, softcap, dtype)
+        worst = max(worst, check_gb_case(args, window, softcap)[0])
+    return len(cases), worst
+
+
+def lm_training(seed: int, dev, reset_launches, launch_counts):
+    """gemma2-2b training at full width and depth: kernel Gb at the local
+    layers' shape against its plain version and the SDPA-backward
+    yardstick, the main path (``make_train_step``: loss, gradients through
+    G and Gb under remat, AdamW) counted and timed, the same first step with
+    G and Gb swapped for their plain versions, and the smoke-width model
+    memorizing one batch on the card."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data import DataConfig, batch_at
+    from repro_torch.kernels.window_attn import (window_attention,
+                                                 window_attention_bwd,
+                                                 window_attention_bwd_plain,
+                                                 window_attention_plain)
+    from repro_torch.models import model as M
+    from repro_torch.optim import AdamConfig, init_opt_state
+    from repro_torch.train import make_loss_fn, make_train_step
+
+    t_phase = time.perf_counter()
+    split = {}                    # seconds of each part of the phase
+
+    def mark(part):
+        torch.cuda.synchronize()
+        split[part] = time.perf_counter() - t_phase - sum(split.values())
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cfg = get_config(LM_ARCH)
+    n_local = cfg.n_layers // 2
+
+    # -- kernel Gb at the local layers' shape, bf16 softcap 50 -----------------
+    shape = (TRAIN_BATCH, cfg.n_heads, cfg.n_kv_heads, TRAIN_SEQ,
+             cfg.head_dim, cfg.window)
+    b, h, kh, s, d, window = shape
+    args = gb_inputs(gen, dev, *shape, cfg.attn_softcap, torch.bfloat16)
+    gb_err, gb_errs = check_gb_case(args, window, cfg.attn_softcap)
+    kw = dict(window=window, softcap=cfg.attn_softcap)
+    gb_ms = cuda_ms(lambda: window_attention_bwd(*args, **kw), reps=5)
+    gb_plain_ms = cuda_ms(lambda: window_attention_bwd_plain(*args, **kw),
+                          reps=2)
+    gb0_ms = cuda_ms(lambda: window_attention_bwd(*args, window=window),
+                     reps=3)
+    gb_bound_ms, gb_bound_by, gb_flops, gb_bytes = kernel_gb_bound(
+        b, h, kh, s, d, window, 2)
+    # the yardstick: SDPA's backward through autograd, band mask, softcap 0
+    q, k, v, _, dout = (t.detach().requires_grad_() for t in args)
+    pos = torch.arange(s, device=dev)
+    band = (pos[None, :] <= pos[:, None]) & \
+        (pos[:, None] - pos[None, :] < window)
+    o = F.scaled_dot_product_attention(q, k, v, attn_mask=band,
+                                       enable_gqa=True)
+    sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        o, (q, k, v), dout, retain_graph=True), reps=3)
+    del q, k, v, o, dout, band, args
+    fp32_args = gb_inputs(gen, dev, *GB_FP32_CASE, torch.float32)
+    gb32_err, gb32_errs = check_gb_case(fp32_args, GB_FP32_CASE[5],
+                                        GB_FP32_CASE[6])
+    gb32_ms = cuda_ms(lambda: window_attention_bwd(
+        *fp32_args, window=GB_FP32_CASE[5], softcap=GB_FP32_CASE[6]),
+        reps=3)
+    del fp32_args
+    log(f"kernel Gb at {shape} bf16 softcap {cfg.attn_softcap}: relative "
+        f"L2 (dq, dk, dv) {gb_errs} (tol {GB_TOL[torch.bfloat16]}), "
+        f"bit-equal twice; {gb_ms:.3f} ms (softcap 0: {gb0_ms:.3f}), plain "
+        f"{gb_plain_ms:.3f} ms, bound "
+        f"{gb_bound_ms:.4f} ms ({gb_bound_by}), SDPA backward "
+        f"{sdpa_bwd_ms:.3f} ms; fp32 {GB_FP32_CASE}: own-scale errors "
+        f"{gb32_errs}, {gb32_ms:.3f} ms")
+    torch.cuda.empty_cache()
+    mark("kernel Gb checks and times")
+
+    # -- the main path: make_train_step at full width and depth ----------------
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed, device=dev)
+    params0 = _map(params, torch.clone)
+    n_params = sum(t.numel() for t in _leaves(params))
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH)
+    batches = [dict(zip(("tokens", "labels"), batch_at(data, i, device=dev)))
+               for i in range(TRAIN_STEPS)]
+    opt_cfg = AdamConfig(total_steps=TRAIN_STEPS, warmup_steps=1,
+                         moment_dtype=cfg.moment_dtype)
+    step = make_train_step(cfg, opt_cfg)
+    opt = init_opt_state(params, opt_cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses, norms = [], [], []
+    for i in range(TRAIN_STEPS):
+        if i == 0:
+            reset_launches()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics, params, opt = step(params, opt, batches[i])
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        if i == 0:
+            launches = launch_counts()
+            routes = dict(window_attention.launches_by_route)
+            params_g1 = _map(params, torch.clone)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {"window_attention": 2 * n_local, "window_attention_bwd": n_local}
+    if launches != want or routes != {"wgmma": 2 * n_local, "simt": 0}:
+        raise AssertionError(f"a train step launched {launches} (G by route "
+                             f"{routes}), want {want}, G all on the wgmma "
+                             f"route (forward and remat's recompute)")
+    if int(opt["step"]) != TRAIN_STEPS or not all(
+            np.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"train steps: losses {losses}, grad norms "
+                             f"{norms}, AdamW step {int(opt['step'])}")
+    ms = statistics.median(step_ms[1:])
+    mark("init and train steps")
+    dev_ms, kernels, launch_calls = profile_card_only(
+        lambda: step(params, opt, batches[0]))
+    mark("profiled step")
+    by_group = group_kernel_times(kernels)
+    # Gb's device time per call: its kernels' share of the step's profile
+    # (13 calls; a profiler session around Gb alone, like one around G
+    # alone, can see no kernel on the card)
+    gb_dev_ms = by_group["kernel Gb"] / n_local
+    if gb_dev_ms <= 0:
+        raise AssertionError("the train step's profile holds no kernel Gb "
+                             "time")
+    log(f"gemma2-2b train step ({n_params} parameters, bf16, B={TRAIN_BATCH}"
+        f" S={TRAIN_SEQ}, remat, AdamW): {ms:.1f} ms a step (steps "
+        f"{[round(x, 1) for x in step_ms]}), "
+        f"{TRAIN_BATCH * TRAIN_SEQ / ms * 1e3:.0f} tokens/s, peak "
+        f"{peak_gb:.2f} GB allocated; launches {launches}; losses {losses}, "
+        f"grad norms {norms}; device busy {dev_ms / ms:.3f} of a step, "
+        f"{launch_calls} launch calls a step; by group {by_group}")
+    del opt
+    torch.cuda.empty_cache()
+
+    # -- the same first step with G and Gb's plain versions ---------------------
+    class PlainWindow(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, window, blk, softcap):
+            out = window_attention_plain(q, k, v, window=window, blk=blk,
+                                         softcap=softcap)
+            ctx.save_for_backward(q, k, v, out)
+            ctx.kw = dict(window=window, softcap=softcap)
+            return out
+
+        @staticmethod
+        def backward(ctx, dout):
+            return (*window_attention_bwd_plain(*ctx.saved_tensors, dout,
+                                                **ctx.kw), None, None, None)
+
+    kernel_g = M.window_attention
+
+    def plain_g(q, k, v, *, window, blk, softcap):
+        return PlainWindow.apply(q, k, v, window, blk, softcap)
+
+    def grads_at(p):
+        """(loss, gradient leaves) of the first batch at params ``p``."""
+        live = _map(p, lambda t: t.detach().requires_grad_())
+        loss, _ = loss_fn(live, batches[0])
+        return float(loss.detach()), torch.autograd.grad(
+            loss, list(_leaves(live)))
+
+    # the gradients, where the kernels' error enters linearly: each leaf's
+    # bf16 gradient with G and Gb, and with their plain versions, against
+    # the gradient of an fp32 model of the same weights (plain versions)
+    del params
+    torch.cuda.empty_cache()
+    loss_fn = make_loss_fn(dataclasses.replace(cfg, dtype="float32"))
+    M.window_attention = plain_g
+    _, grads_32 = grads_at(_map(params0, lambda t: t.float()))
+    _, grads_p = grads_at(params0)
+    M.window_attention = kernel_g
+    _, grads_g = grads_at(params0)
+    paths = [path for path, _ in _paired(params0, params0)]
+    grad_rel, grad_ratio = {}, {}
+    for path, g, p_, w in zip(paths, grads_g, grads_p, grads_32):
+        g, p_ = g.float(), p_.float()
+        grad_rel[path] = float((g - p_).norm() / p_.norm())
+        grad_ratio[path] = float((g - w).norm() / (p_ - w).norm())
+    del grads_g, grads_p, grads_32
+    worst_grad = max(grad_rel, key=grad_rel.get)
+    worst_ratio = max(grad_ratio, key=grad_ratio.get)
+    mark("gradients: G, plain, fp32")
+
+    # the step: loss and updated params
+    zero_init = {path for path, (a, _) in _paired(params0, params0)
+                 if not bool(a.any())}
+    opt = init_opt_state(params0, opt_cfg)
+    M.window_attention = plain_g
+    reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    metrics_p, params_p1, opt = step(params0, opt, batches[0])
+    end.record()
+    end.synchronize()
+    M.window_attention = kernel_g
+    plain_step_ms = start.elapsed_time(end)
+    mark("plain-G step")
+    if launch_counts():
+        raise AssertionError(f"the plain-G step launched {launch_counts()}")
+    loss_p, norm_p = float(metrics_p["loss"]), float(metrics_p["grad_norm"])
+    loss_rel = abs(losses[0] - loss_p) / abs(loss_p)
+    leaf_rel = {}
+    for path, (a, b_) in _paired(params_g1, params_p1):
+        leaf_rel[path] = float((a.float() - b_.float()).norm()
+                               / b_.float().norm())
+    # a leaf that starts at zero (the norms' scales) is its first AdamW
+    # update, ~lr * sign(g) an element, so the sign of a gradient element
+    # near 0 flips it by 2 lr: that measures Adam, not the kernels, and
+    # such a leaf is held through its gradient above
+    worst_leaf = max(set(leaf_rel) - zero_init, key=leaf_rel.get)
+    worst_zero = max(zero_init, key=leaf_rel.get)
+    log(f"train step with G and Gb vs their plain versions: loss "
+        f"{losses[0]:.6f} vs {loss_p:.6f} (relative {loss_rel:.3e}, tol "
+        f"{STEP_REL_TOL}); grad norm {norms[0]:.6f} vs {norm_p:.6f}; "
+        f"gradients relative L2, worst leaf {worst_grad} "
+        f"{grad_rel[worst_grad]:.3e}; distance to the fp32 model's gradient "
+        f"over the plain-G one's, worst leaf {worst_ratio} "
+        f"{grad_ratio[worst_ratio]:.4f} (gate {FP32_GATE_FACTOR}); updated "
+        f"params relative L2, worst "
+        f"leaf {worst_leaf} {leaf_rel[worst_leaf]:.3e} (zero-initialized: "
+        f"{worst_zero} {leaf_rel[worst_zero]:.3e}); plain step "
+        f"{plain_step_ms:.1f} ms")
+    if not (loss_rel <= STEP_REL_TOL and np.isfinite(norm_p)
+            and grad_ratio[worst_ratio] <= FP32_GATE_FACTOR
+            and leaf_rel[worst_leaf] <= STEP_REL_TOL):
+        raise AssertionError(f"train step with G and Gb vs plain: loss "
+                             f"relative {loss_rel:.3e}, leaf {worst_leaf} "
+                             f"{leaf_rel[worst_leaf]:.3e} (tol "
+                             f"{STEP_REL_TOL}); gradient of {worst_ratio} "
+                             f"{grad_ratio[worst_ratio]:.4f} x the plain-G "
+                             f"gradient's distance to the fp32 model's "
+                             f"(gate {FP32_GATE_FACTOR})")
+    del params0, params_g1, params_p1, opt, batches
+    torch.cuda.empty_cache()
+
+    # -- the smoke-width model memorizes one batch on the card -------------------
+    scfg = get_smoke_config(LM_ARCH)
+    sparams = M.init_params(scfg, seed, device=dev)
+    sopt_cfg = AdamConfig(lr=1e-3, total_steps=64, warmup_steps=2)
+    sopt = init_opt_state(sparams, sopt_cfg)
+    sstep = make_train_step(scfg, sopt_cfg)
+    sbatch = dict(zip(("tokens", "labels"), batch_at(
+        DataConfig(vocab_size=scfg.vocab_size, seq_len=32, global_batch=4),
+        0, device=dev)))
+    reset_launches()
+    t0 = time.perf_counter()
+    smoke_losses = []
+    for _ in range(SMOKE_TRAIN_STEPS):
+        m, sparams, sopt = sstep(sparams, sopt, sbatch)
+        smoke_losses.append(float(m["loss"]))
+    smoke_s = time.perf_counter() - t0
+    mark("smoke width")
+    smoke_launches = launch_counts()
+    s_local = scfg.n_layers // 2
+    if smoke_launches != {"window_attention": 2 * s_local * SMOKE_TRAIN_STEPS,
+                          "window_attention_bwd": s_local * SMOKE_TRAIN_STEPS}:
+        raise AssertionError(f"smoke training launched {smoke_launches}")
+    if not smoke_losses[-1] < smoke_losses[0] - SMOKE_TRAIN_DROP:
+        raise AssertionError(f"smoke training: loss {smoke_losses[0]:.4f} -> "
+                             f"{smoke_losses[-1]:.4f}, want a drop of more "
+                             f"than {SMOKE_TRAIN_DROP}")
+    log(f"gemma2-2b smoke width ({scfg.dtype}) on one batch: loss "
+        f"{smoke_losses[0]:.4f} -> {smoke_losses[-1]:.4f} in "
+        f"{SMOKE_TRAIN_STEPS} steps, {smoke_s:.2f} s, launches "
+        f"{smoke_launches}")
+
+    res = {
+        "case": f"{LM_ARCH} {cfg.dtype}, B={TRAIN_BATCH}, S={TRAIN_SEQ}, "
+                f"remat, AdamW (moments {cfg.moment_dtype}), "
+                f"{TRAIN_STEPS} steps",
+        "n_params": n_params, "init_s": init_s, "launches": launches,
+        "routes": routes, "step_ms": ms, "step_ms_all": step_ms,
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / ms * 1e3,
+        "peak_allocated_gb": peak_gb, "losses": losses, "grad_norms": norms,
+        "device_ms": dev_ms, "busy_share": dev_ms / ms,
+        "launch_calls_per_step": launch_calls,
+        "device_ms_by_group": by_group,
+        "top_kernels": [(k_[:72], t) for k_, t in kernels[:8]],
+        "plain_step_ms": plain_step_ms, "plain_loss": loss_p,
+        "plain_grad_norm": norm_p, "loss_rel": loss_rel,
+        "worst_grad": worst_grad, "worst_grad_rel_l2": grad_rel[worst_grad],
+        "worst_grad_fp32_ratio_leaf": worst_ratio,
+        "worst_grad_fp32_ratio": grad_ratio[worst_ratio],
+        "grad_rel_l2": grad_rel, "grad_fp32_ratio": grad_ratio,
+        "worst_leaf": worst_leaf, "worst_leaf_rel_l2": leaf_rel[worst_leaf],
+        "worst_zero_init_leaf": worst_zero,
+        "worst_zero_init_leaf_rel_l2": leaf_rel[worst_zero],
+        "kernel_gb_ms": gb_ms, "kernel_gb_softcap0_ms": gb0_ms,
+        "kernel_gb_device_ms": gb_dev_ms,
+        "kernel_gb_device_ms_by_kernel": [
+            (k_[:60], t / n_local) for k_, t in kernels
+            if any(g in k_ for g in dict(KERNEL_GROUPS)["kernel Gb"])],
+        "kernel_gb_plain_ms": gb_plain_ms,
+        "kernel_gb_bound_ms": gb_bound_ms, "kernel_gb_bound_by": gb_bound_by,
+        "kernel_gb_gflop": gb_flops / 1e9, "kernel_gb_mbytes": gb_bytes / 1e6,
+        "kernel_gb_tflops": gb_flops / gb_ms / 1e9,
+        "kernel_gb_rel_l2": gb_errs, "kernel_gb_max_abs_err": gb_err,
+        "kernel_gb_fp32_case": GB_FP32_CASE, "kernel_gb_fp32_errs": gb32_errs,
+        "kernel_gb_fp32_max_abs_err": gb32_err, "kernel_gb_fp32_ms": gb32_ms,
+        "sdpa_bwd_ms": sdpa_bwd_ms,
+        "smoke_losses": [smoke_losses[0], smoke_losses[-1]],
+        "smoke_s": smoke_s, "smoke_launches": smoke_launches,
+        "shapes": f"q, out, dout ({b}, {h}, {s}, {d}), k, v ({b}, {kh}, {s},"
+                  f" {d}) bf16, window {window}, softcap {cfg.attn_softcap}",
+    }
+    res["phase_s"] = time.perf_counter() - t_phase
+    res["phase_split_s"] = split
+    log(f"training phase: {res['phase_s']:.1f} s, by part {split}")
+    log("gemma2-2b training: " + json.dumps(res))
+    return res
+
+
 def precision_flags():
     """The three precision flags the card checks set, as they stand."""
     return {"matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
@@ -852,6 +1281,30 @@ def device_kernels(prof, reps: int):
         # that saw no kernel on the card would pass them untested
         raise AssertionError("torch.profiler recorded no device time")
     return total, sum(e.count for e in events) / reps, kernels
+
+
+def profile_card_only(fn):
+    """(device ms, [(kernel, ms), ...] largest first, the host's launch
+    calls) of one call of ``fn()`` under ``torch.profiler`` with the CUDA
+    activity only: the launch calls are CUDA runtime records, and without
+    the CPU ops a train step's ~330,000 records parse in ~30 s where the
+    CPU and CUDA activities' took ~190 s (measured on an H100)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    averages = prof.key_averages()
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3)
+                      for e in averages if e.device_type == cuda),
+                     key=lambda kv: -kv[1])
+    total = sum(ms for _, ms in kernels)
+    if total <= 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    calls = sum(e.count for e in averages if e.device_type != cuda
+                and e.key.startswith(LAUNCH_CALLS))
+    return total, kernels, calls
 
 
 def device_time(fn, reps: int = 1, sessions: int = 2):
@@ -913,6 +1366,7 @@ def launches_in_turns(fns: dict, reps: int, sessions: int) -> dict:
 # kernel-name groups of the LM's device time, tried in order
 KERNEL_GROUPS = (
     ("kernel G", ("window_attn",)),
+    ("kernel Gb", ("bwd_stats_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel")),
     ("fp32 GEMM (flash and decode attention)", ("f32f32", "gemmSN", "sgemm",
                                                  "<float")),
     ("bf16 GEMM (projections, MLP, logits)", ("nvjet", "bf16")),
@@ -934,6 +1388,15 @@ def _map(tree, fn):
     if isinstance(tree, dict):
         return {k: _map(v, fn) for k, v in tree.items()}
     return fn(tree)
+
+
+def _paired(a, b, prefix=""):
+    """(path, (leaf of a, leaf of b)) over two dicts of one structure."""
+    if isinstance(a, dict):
+        for k in a:
+            yield from _paired(a[k], b[k], f"{prefix}/{k}")
+    else:
+        yield prefix, (a, b)
 
 
 def _leaves(tree):
@@ -2220,7 +2683,8 @@ def main(argv=None) -> int:
                                          xpencil_sparse_interactions)
     from repro_torch.kernels.prefix_sum import prefix_sum
     from repro_torch.kernels.sfc import cell_sfc_forces
-    from repro_torch.kernels.window_attn import window_attention
+    from repro_torch.kernels.window_attn import (window_attention,
+                                                 window_attention_bwd)
     from repro_torch.kernels.xpencil import (MAX_SMEM, MAX_TILE_ROWS,
                                              chunk_cells, packed_smem_bytes,
                                              packed_tile_rows,
@@ -2235,7 +2699,8 @@ def main(argv=None) -> int:
                 "xpencil_packed_forces": xpencil_packed_forces,
                 "allin_forces": allin_forces,
                 "cell_sfc_forces": cell_sfc_forces,
-                "window_attention": window_attention}
+                "window_attention": window_attention,
+                "window_attention_bwd": window_attention_bwd}
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -3783,6 +4248,16 @@ def main(argv=None) -> int:
                              f"in its SASS: {g_sass}")
     lm = lm_serving(args.seed, dev, reset_launches, launch_counts,
                     precision_defaults)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gb_checks, gb_sweep_err = check_kernel_gb(gen, dev)
+    log(f"kernel Gb: {gb_checks} cases (B, H/KH 1-8, D 20-256, window 1 to "
+        f"> S, softcap, fp32 and bf16, S not a multiple of 32) within "
+        f"{GB_TOL[torch.float32]} (fp32, own scale) / "
+        f"{GB_TOL[torch.bfloat16]} (bf16, relative L2) of the plain "
+        f"version, each bit-equal over two runs; max |diff| "
+        f"{gb_sweep_err:.3e}; {time.perf_counter() - t0:.1f} s")
+    train = lm_training(args.seed, dev, reset_launches, launch_counts)
 
     a, b = new_cases["a"], new_cases["b"]
     sfc_main = sfc_results[0]
@@ -3933,8 +4408,36 @@ def main(argv=None) -> int:
          "tflops": lm["kernel_g_tflops"],
          "sdpa_causal_flash_ms": lm["sdpa_causal_flash_ms"],
          "sdpa_causal_flash_tflops": lm["sdpa_causal_flash_tflops"],
-         "sass": g_sass,
+         "sass": g_sass, "training_launches":
+             train["launches"]["window_attention"],
          "shapes": lm["shapes"], "checks_passed": g_checks + 1},
+        {"name": "window_attention_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/window_attn_bwd.cu",
+         "replaces": None,
+         "replaces_note": "kernel G's gradient; JAX trains through XLA's "
+                          "autodiff of window_attention_blocked",
+         "launches": train["launches"]["window_attention_bwd"],
+         "main_case": train["case"],
+         "max_abs_err": max(gb_sweep_err, train["kernel_gb_max_abs_err"],
+                            train["kernel_gb_fp32_max_abs_err"]),
+         "ms": train["kernel_gb_ms"], "plain_ms": train["kernel_gb_plain_ms"],
+         "bound_ms": train["kernel_gb_bound_ms"],
+         "bound_by": train["kernel_gb_bound_by"],
+         "library_ms": train["sdpa_bwd_ms"],
+         "library_call": "scaled_dot_product_attention(attn_mask=band, "
+                         "enable_gqa=True), softcap 0: its backward "
+                         "through autograd",
+         "softcap0_ms": train["kernel_gb_softcap0_ms"],
+         "device_ms": train["kernel_gb_device_ms"],
+         "device_ms_from": "torch.profiler, a train step's 13 calls",
+         "kernel_route": "SIMT fp32, three launches (stats, dK/dV, dQ)",
+         "tflops": train["kernel_gb_tflops"],
+         "rel_l2": train["kernel_gb_rel_l2"],
+         "fp32_case": {"shape": train["kernel_gb_fp32_case"],
+                       "errs": train["kernel_gb_fp32_errs"],
+                       "ms": train["kernel_gb_fp32_ms"]},
+         "training_launches": train["launches"]["window_attention_bwd"],
+         "shapes": train["shapes"], "checks_passed": gb_checks + 2},
     ]}
     for entry in report["kernels"]:
         entry["trajectory_launches"] = traj_rec["launches"].get(

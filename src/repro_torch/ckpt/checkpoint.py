@@ -9,7 +9,8 @@ temp name and atomically renamed, so a crashed writer never leaves a half
 checkpoint that restore would accept.
 
 Leaves are tensors (saved from the host; restored onto the template leaf's
-device with its dtype) and Python ints and floats. Dataclasses flatten by
+device with its dtype) and Python ints and floats. A bfloat16 tensor is
+saved as its exact float32 values, where JAX writes ml_dtypes' bfloat16. Dataclasses flatten by
 field and dicts by key, without ``jax.tree_util``; ``None``, bools and
 strings are structure, taken from the template on restore.
 
@@ -150,7 +151,12 @@ def _rebuild(tree: Tree, loaded: Dict[str, Any], prefix: str = "") -> Tree:
 
 
 def _host(leaf) -> np.ndarray:
+    """A leaf as numpy; a bfloat16 tensor as its exact float32 values
+    (numpy has no bfloat16; ``restore`` casts back to the template's
+    dtype, bit for bit)."""
     if isinstance(leaf, torch.Tensor):
+        if leaf.dtype == torch.bfloat16:
+            leaf = leaf.float()
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
 

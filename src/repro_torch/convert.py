@@ -1,9 +1,10 @@
 """Carry state between the JAX package and the port.
 
 On the particle side the state is a domain, a pair kernel, particles and
-bins; on the LM side it is the params tree (nested dicts of arrays). The
-JAX objects are read by attribute (duck typing) or handed over as numpy
-arrays, so this module imports neither JAX nor ``repro``.
+bins; on the LM side it is the params tree (nested dicts of arrays), the
+AdamW state and the data cursor. The JAX objects are read by attribute
+(duck typing) or handed over as numpy arrays, so this module imports
+neither JAX nor ``repro``.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from .core.domain import Domain
 from .core.interactions import (PairKernel, make_gravity, make_high_flop,
                                 make_lennard_jones, make_low_flop,
                                 make_sph_density)
+from .data.pipeline import DataState
 from .models.model import check_ported
 
 _FACTORIES = {
@@ -122,3 +124,23 @@ def params_from_jax(cfg, tree, device) -> dict:
             return {k: walk(v) for k, v in node.items()}
         return _tensor_from_numpy(node, device)
     return walk(tree)
+
+
+def opt_state_from_jax(cfg, state, device) -> dict:
+    """The port's AdamW state from JAX's ``init_opt_state`` / ``adam_update``
+    output after ``np.asarray`` (``{"m": tree, "v": tree, "step": int32
+    scalar}``): the moments leaf by leaf as :func:`params_from_jax` carries
+    params, ``step`` a 0-d int32 tensor on ``device``."""
+    if set(state) != {"m", "v", "step"}:
+        raise ValueError(f"an AdamW state has keys ['m', 'step', 'v'], got "
+                         f"{sorted(state)}")
+    return {"m": params_from_jax(cfg, state["m"], device),
+            "v": params_from_jax(cfg, state["v"], device),
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=device)}
+
+
+def data_state_from_dict(d) -> DataState:
+    """The port's data cursor from JAX's ``DataState.to_dict()`` (the
+    checkpoint's ``extra``); the cursor is a step count on both sides."""
+    return DataState.from_dict(d)

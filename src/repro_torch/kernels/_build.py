@@ -87,6 +87,12 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "window_attention_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                                  _F, _I, _P),
     },
+    "window_attn_bwd.cu": {
+        # q, k, v, out, dout, dq, dk, dv, lse, delta, B, H, KH, S, D,
+        # window, softcap, scale, bf16, stream
+        "window_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                 _I, _I, _I, _I, _I, _F, _F, _I, _P),
+    },
     "window_attn_sm90.cu": {
         # q, k, v, o, B, H, KH, S, D, window, softcap, scale, stream
         "window_attention_sm90": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,

@@ -20,6 +20,15 @@ On a CPU tensor the wrapper runs :func:`window_attention_plain`; on a CUDA
 tensor it launches kernel G or raises. ``window_attention.launches`` counts
 the launches, ``window_attention.launches_by_route`` the launches of each
 route.
+
+``window_attention`` is a ``torch.autograd.Function``: its backward is
+:func:`window_attention_bwd`, which launches kernel Gb
+(``csrc/window_attn_bwd.cu``, fp32 arithmetic on the CUDA cores, three
+launches a call) on a CUDA tensor or raises, and runs
+:func:`window_attention_bwd_plain` on a CPU tensor.
+``window_attention_bwd.launches`` counts its calls on the card. JAX has no
+Pallas backward: it trains through XLA's autodiff of the plain
+``window_attention_blocked``.
 """
 
 from __future__ import annotations
@@ -32,6 +41,8 @@ NEG_INF = -1.0e30
 MAX_D = 256
 TILE_Q, TILE_K = 32, 32               # window_attn.cu kBQ, kBK
 WGMMA_Q, WGMMA_K, WGMMA_STAGES = 128, 64, 2   # window_attn_sm90.cu
+BWD_TILE = 32                         # window_attn_bwd.cu kBQ = kBK
+BWD_PLAIN_BLOCK = 128                 # queries a block of Gb's plain version
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -60,6 +71,15 @@ def wgmma_smem_bytes(d: int) -> int:
     1024-byte atom."""
     return (2 * d * (WGMMA_Q + 2 * WGMMA_STAGES * WGMMA_K)
             + 8 * (1 + 3 * WGMMA_STAGES) + 1024)
+
+
+def bwd_smem_bytes(d: int) -> int:
+    """Shared memory kernel Gb's dK/dV launch stages per block, its
+    largest (window_attn_bwd.cu ``dkdv_smem``): fp32 Q, dout, K and V tiles
+    at kernel G's padded stride, the P and dS tiles, lse and delta."""
+    padded = 4 * ((d + 3) // 4 | 1)
+    return 4 * (4 * BWD_TILE * padded + 2 * BWD_TILE * BWD_TILE
+                + 2 * BWD_TILE)
 
 
 def _check(q, k, v, window: int, blk: int) -> None:
@@ -109,25 +129,60 @@ def window_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, h, s, d).to(q.dtype)
 
 
+def _check_cuda(what: str, tensors) -> None:
+    """Raise unless the named tensors share one dtype, float32 or bfloat16,
+    and one device."""
+    (_, first), rest = tensors[0], tensors[1:]
+    if first.dtype not in _DTYPE_CODE or any(
+            t.dtype != first.dtype or t.device != first.device
+            for _, t in rest):
+        got = ", ".join(f"{n} {t.dtype} on {t.device}" for n, t in tensors)
+        raise ValueError(f"{what} takes {', '.join(n for n, _ in tensors)} "
+                         f"of one dtype, float32 or bfloat16, on one device; "
+                         f"got {got}")
+
+
 def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      window: int, blk: int = 128,
                      softcap: float = 0.0) -> torch.Tensor:
     """Causal sliding-window attention: key j is visible to query i when
-    ``j <= i`` and ``i - j < window``. Returns (B, H, S, D) in q's dtype."""
+    ``j <= i`` and ``i - j < window``. Returns (B, H, S, D) in q's dtype.
+    Differentiable in q, k and v (kernel Gb on the card)."""
     _check(q, k, v, window, blk)
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"window_attention runs on cpu or cuda, not "
+                         f"{q.device}")
+    return _WindowAttention.apply(q, k, v, window, blk, softcap)
+
+
+class _WindowAttention(torch.autograd.Function):
+    """Kernel G forward, kernel Gb backward (plain versions on the CPU).
+    Saves q, k, v and the output, as JAX's ``_flash_fwd`` saves its
+    residuals; Gb recomputes each row's log-sum-exp itself."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, blk, softcap):
+        out = _forward(q, k, v, window=window, blk=blk, softcap=softcap)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.window, ctx.softcap = window, softcap
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = window_attention_bwd(q, k, v, out, dout,
+                                          window=ctx.window,
+                                          softcap=ctx.softcap)
+        return dq, dk, dv, None, None, None
+
+
+def _forward(q, k, v, *, window: int, blk: int, softcap: float):
+    """Kernel G on a CUDA tensor, its plain version on a CPU tensor."""
     if q.device.type == "cpu":
         return window_attention_plain(q, k, v, window=window, blk=blk,
                                       softcap=softcap)
-    if q.device.type != "cuda":
-        raise ValueError(f"window_attention runs on cpu or cuda, not "
-                         f"{q.device}")
-    if (q.dtype not in _DTYPE_CODE or k.dtype != q.dtype
-            or v.dtype != q.dtype or k.device != q.device
-            or v.device != q.device):
-        raise ValueError(f"window_attention: kernel G takes q, k, v of one "
-                         f"dtype, float32 or bfloat16, on one device; got "
-                         f"{q.dtype}, {k.dtype}, {v.dtype} on {q.device}, "
-                         f"{k.device}, {v.device}")
+    _check_cuda("window_attention: kernel G", [("q", q), ("k", k),
+                                               ("v", v)])
     b, h, s, d = q.shape
     if d > MAX_D:
         raise ValueError(f"window_attention: kernel G takes head_dim <= "
@@ -163,3 +218,102 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 window_attention.launches = 0
 window_attention.launches_by_route = {"wgmma": 0, "simt": 0}
+
+
+# ---------------------------------------------------------------------------
+# backward: kernel Gb
+# ---------------------------------------------------------------------------
+
+
+def window_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, out: torch.Tensor,
+                               dout: torch.Tensor, *, window: int,
+                               softcap: float = 0.0):
+    """Kernel Gb's plain version: the gradient of
+    :func:`window_attention_plain` by its explicit formulas, per block of
+    ``BWD_PLAIN_BLOCK`` queries over the keys of its window, in fp32 (JAX's
+    ``_flash_bwd`` on the window's band): P from each row's log-sum-exp,
+    ``delta = rowsum(dout * out)``, the softcap derivative with ``s / cap``
+    clipped to [-1, 1], dK and dV summed over the GQA group. -> (dq, dk,
+    dv) in the inputs' dtypes."""
+    _check(q, k, v, window, 1)
+    b, h, s, d = q.shape
+    kh = k.shape[1]
+    g = h // kh
+    scale = 1.0 / (d ** 0.5)
+    qf = q.float().reshape(b, kh, g, s, d) * scale
+    dof = dout.float().reshape(b, kh, g, s, d)
+    delta = (dof * out.float().reshape(b, kh, g, s, d)).sum(-1)
+    kf, vf = k.float()[:, :, None], v.float()[:, :, None]
+    dq = torch.empty_like(qf)
+    dk = torch.zeros((b, kh, s, d), device=q.device)
+    dv = torch.zeros((b, kh, s, d), device=q.device)
+    pos = torch.arange(s, device=q.device)
+    for q0 in range(0, s, BWD_PLAIN_BLOCK):
+        q1 = min(q0 + BWD_PLAIN_BLOCK, s)
+        k0 = max(0, q0 - window + 1)
+        sc = qf[..., q0:q1, :] @ kf[..., k0:q1, :].transpose(-1, -2)
+        if softcap > 0.0:
+            sc = softcap * torch.tanh(sc / softcap)
+        qp, kp = pos[q0:q1, None], pos[None, k0:q1]
+        mask = (kp <= qp) & (qp - kp < window)
+        sc = torch.where(mask, sc, NEG_INF)
+        lse = torch.logsumexp(sc, -1, keepdim=True)
+        p = torch.where(mask, torch.exp(sc - lse), 0.0)
+        dp = dof[..., q0:q1, :] @ vf[..., k0:q1, :].transpose(-1, -2)
+        ds = p * (dp - delta[..., q0:q1, None])
+        if softcap > 0.0:
+            t = torch.clamp(sc / softcap, -1.0, 1.0)
+            ds = ds * (1.0 - t * t)
+        dq[..., q0:q1, :] = ds @ kf[..., k0:q1, :]
+        dk[:, :, k0:q1] += (ds.transpose(-1, -2) @ qf[..., q0:q1, :]).sum(2)
+        dv[:, :, k0:q1] += (p.transpose(-1, -2) @ dof[..., q0:q1, :]).sum(2)
+    return ((dq * scale).reshape(b, h, s, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def window_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         out: torch.Tensor, dout: torch.Tensor, *,
+                         window: int, softcap: float = 0.0):
+    """The gradient of :func:`window_attention` at output ``out`` and
+    output gradient ``dout``: kernel Gb on CUDA tensors, its plain version
+    on CPU tensors. -> (dq (B, H, S, D), dk, dv (B, KH, S, D)) in the
+    inputs' dtype."""
+    _check(q, k, v, window, 1)
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"window_attention_bwd: out and dout must have q's "
+                         f"shape {tuple(q.shape)}, got {tuple(out.shape)}, "
+                         f"{tuple(dout.shape)}")
+    if q.device.type == "cpu":
+        return window_attention_bwd_plain(q, k, v, out, dout, window=window,
+                                          softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"window_attention_bwd runs on cpu or cuda, not "
+                         f"{q.device}")
+    _check_cuda("window_attention_bwd: kernel Gb",
+                [("q", q), ("k", k), ("v", v), ("out", out),
+                 ("dout", dout)])
+    b, h, s, d = q.shape
+    if d > MAX_D:
+        raise ValueError(f"window_attention_bwd: kernel Gb takes head_dim "
+                         f"<= {MAX_D}, got {d}")
+    if bwd_smem_bytes(d) > MAX_SMEM:
+        raise ValueError(f"window_attention_bwd: head_dim {d} needs "
+                         f"{bwd_smem_bytes(d)} bytes of shared memory, at "
+                         f"most {MAX_SMEM}")
+    if b * h > 65535:
+        raise ValueError(f"window_attention_bwd: B * H = {b * h} > 65535")
+    q, k, v, out, dout = (t.contiguous() for t in (q, k, v, out, dout))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    launch("window_attn_bwd.cu", "window_attention_bwd", q, q.data_ptr(),
+           k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+           dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
+           delta.data_ptr(), b, h, k.shape[1], s, d, int(window),
+           float(softcap), 1.0 / (d ** 0.5), _DTYPE_CODE[q.dtype])
+    window_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+window_attention_bwd.launches = 0

@@ -3,9 +3,11 @@
 The port of ``repro/models/attention.py``, in plain PyTorch:
 
   flash_attention   full causal attention as a double loop over (q, kv)
-                    chunks with online softmax, forward only (training, and
-                    with it the backward pass, is a later slice: ROADMAP
-                    Queue 1 item 13).
+                    chunks with online softmax; a ``torch.autograd.Function``
+                    whose backward is JAX's ``_flash_bwd`` (P recomputed
+                    from the saved log-sum-exp, dK/dV accumulated per KV
+                    chunk), its products in ``torch.matmul`` as JAX leaves
+                    them to XLA.
   window_attention_blocked
                     sliding-window attention over window-sized blocks, each
                     attending to (previous, self). The model's local layers
@@ -39,6 +41,16 @@ def _softcap(s: Tensor, cap: float) -> Tensor:
     return cap * torch.tanh(s / cap) if cap > 0.0 else s
 
 
+def _softcap_grad(s_capped: Tensor, cap: float) -> Tensor:
+    """d softcap / d s from the *capped* value, with ``s / cap`` clipped to
+    [-1, 1] as JAX's ``_flash_bwd`` clips it: a masked score (-1e30) then
+    gets a finite derivative, which its P = 0 cancels."""
+    if cap <= 0.0:
+        return torch.ones_like(s_capped)
+    t = torch.clamp(s_capped / cap, -1.0, 1.0)
+    return 1.0 - t * t
+
+
 def _split_gqa(q: Tensor, kh: int) -> Tensor:
     b, h, s, d = q.shape
     return q.reshape(b, kh, h // kh, s, d)
@@ -67,18 +79,46 @@ def _pv(p: Tensor, v: Tensor) -> Tensor:
 
 
 # ---------------------------------------------------------------------------
-# full causal flash (double chunk loop, forward only)
+# full causal flash (double chunk loop, custom backward)
 # ---------------------------------------------------------------------------
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
                     softcap: float = 0.0, q_chunk: int = 512,
                     k_chunk: int = 512) -> Tensor:
     """Memory-efficient attention. q (B,H,Sq,D); k,v (B,KH,Skv,D).
+    Differentiable in q, k and v; the backward recomputes P chunk by chunk
+    from the forward's log-sum-exp, so no (Sq, Skv) matrix is kept."""
+    return _FlashAttention.apply(q, k, v, causal, softcap, q_chunk, k_chunk)
 
-    Under ``causal`` a KV chunk wholly after a query chunk is skipped: JAX
-    visits it, but chunk 0 already made every row's running max finite, so
-    such a chunk adds exp(-1e30 - m) = 0 and rescales by exp(0) = 1, and
-    skipping it changes no bit."""
+
+class _FlashAttention(torch.autograd.Function):
+    """JAX's ``custom_vjp`` pair: saves (q, k, v, out, lse) as
+    ``_flash_fwd`` does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, softcap, q_chunk, k_chunk):
+        out, lse = _flash_fwd(q, k, v, causal, softcap, q_chunk, k_chunk)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, softcap, q_chunk, k_chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        dq, dk, dv = _flash_bwd(*ctx.args, ctx.saved_tensors, dout)
+        return dq, dk, dv, None, None, None, None
+
+
+def _last_chunk(causal: bool, qi: int, qc: int, kc: int, nk: int) -> int:
+    """KV chunks 0 ... last - 1 meet query chunk ``qi``: under ``causal`` a
+    KV chunk wholly after the query chunk is skipped. JAX visits it, but
+    there every score is -1e30, so in the forward it adds exp(-1e30 - m) =
+    0 and rescales by exp(0) = 1 (chunk 0 already made every running max
+    finite), and in the backward its P is 0; skipping it changes no bit."""
+    return min(nk, ((qi + 1) * qc - 1) // kc + 1) if causal else nk
+
+
+def _flash_fwd(q, k, v, causal, softcap, q_chunk, k_chunk):
+    """-> (out (B,H,Sq,D) in q's dtype, lse (B,KH,G,Sq) fp32)."""
     b, h, sq, d = q.shape
     kh, skv = k.shape[1], k.shape[2]
     g = h // kh
@@ -86,6 +126,7 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
     nq, nk = sq // qc, skv // kc
     qg = _split_gqa(q, kh) * d ** -0.5          # in q's dtype, as JAX
     out = torch.empty((b, kh, g, sq, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, kh, g, sq), device=q.device)
     rows = torch.arange(qc, device=q.device)[:, None]
     cols = torch.arange(kc, device=q.device)[None, :]
     for qi in range(nq):
@@ -93,8 +134,7 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
         m = torch.full((b, kh, g, qc, 1), NEG_INF, device=q.device)
         l = torch.zeros((b, kh, g, qc, 1), device=q.device)
         acc = torch.zeros((b, kh, g, qc, d), device=q.device)
-        last = min(nk, ((qi + 1) * qc - 1) // kc + 1) if causal else nk
-        for ki in range(last):
+        for ki in range(_last_chunk(causal, qi, qc, kc, nk)):
             s = _scores(qblk, k[:, :, ki * kc:(ki + 1) * kc], softcap)
             if causal:
                 s = torch.where(qi * qc + rows >= ki * kc + cols, s, NEG_INF)
@@ -104,8 +144,55 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
             l = l * alpha + p.sum(-1, keepdim=True)
             acc = acc * alpha + _pv(p, v[:, :, ki * kc:(ki + 1) * kc])
             m = m_new
-        out[:, :, :, qi * qc:(qi + 1) * qc] = acc / l.clamp_min(1e-30)
-    return out.reshape(b, h, sq, d)
+        l = l.clamp_min(1e-30)
+        out[:, :, :, qi * qc:(qi + 1) * qc] = acc / l
+        lse[..., qi * qc:(qi + 1) * qc] = (m + torch.log(l))[..., 0]
+    return out.reshape(b, h, sq, d), lse
+
+
+def _flash_bwd(causal, softcap, q_chunk, k_chunk, res, dout):
+    """JAX's ``_flash_bwd``: delta = rowsum(dout * out), P = exp(s - lse)
+    per (q, kv) chunk, dS through the softcap derivative, dQ per query
+    chunk and dK, dV accumulated per KV chunk in fp32 with the GQA group
+    summed. -> (dq, dk, dv) in the inputs' dtypes."""
+    q, k, v, out, lse = res
+    b, h, sq, d = q.shape
+    kh, skv = k.shape[1], k.shape[2]
+    g = h // kh
+    qc, kc = _chunk_for(sq, q_chunk), _chunk_for(skv, k_chunk)
+    nq, nk = sq // qc, skv // kc
+    scale = d ** -0.5
+    qg = _split_gqa(q, kh) * scale                  # in q's dtype, as JAX
+    do = _split_gqa(dout.float(), kh)
+    delta = (do * _split_gqa(out.float(), kh)).sum(-1)   # (b, kh, g, sq)
+    dq = torch.empty((b, kh, g, sq, d), device=q.device)
+    dk = torch.zeros((b, kh, skv, d), device=q.device)
+    dv = torch.zeros((b, kh, skv, d), device=q.device)
+    rows = torch.arange(qc, device=q.device)[:, None]
+    cols = torch.arange(kc, device=q.device)[None, :]
+    for qi in range(nq):
+        sl = slice(qi * qc, (qi + 1) * qc)
+        qblk, doblk = qg[:, :, :, sl], do[:, :, :, sl]
+        lseblk, dblk = lse[..., sl, None], delta[..., sl, None]
+        dq_blk = torch.zeros((b, kh, g * qc, d), device=q.device)
+        for ki in range(_last_chunk(causal, qi, qc, kc, nk)):
+            kk = slice(ki * kc, (ki + 1) * kc)
+            kf, vf = k[:, :, kk].float(), v[:, :, kk].float()
+            s = _scores(qblk, k[:, :, kk], softcap)
+            if causal:
+                s = torch.where(qi * qc + rows >= ki * kc + cols, s, NEG_INF)
+            p = torch.exp(s - lseblk)                   # (b, kh, g, qc, kc)
+            dp = (doblk.flatten(2, 3) @ vf.transpose(-1, -2)).view_as(p)
+            ds = p * (dp - dblk)
+            if softcap > 0.0:
+                ds = ds * _softcap_grad(s, softcap)
+            ds2, p2 = ds.flatten(2, 3), p.flatten(2, 3)
+            dv[:, :, kk] += p2.transpose(-1, -2) @ doblk.flatten(2, 3)
+            dk[:, :, kk] += ds2.transpose(-1, -2) @ qblk.flatten(2, 3).float()
+            dq_blk += ds2 @ kf
+        dq[:, :, :, sl] = (dq_blk * scale).view(b, kh, g, qc, d)
+    return (dq.reshape(b, h, sq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 # ---------------------------------------------------------------------------

@@ -13,8 +13,12 @@ Modes:
 Where the port differs in structure: a local layer whose window is shorter
 than the sequence runs kernel G (``kernels.ops.window_attention``) where
 JAX runs the plain ``window_attention_blocked``; the two compute the same
-function. MoE, SSM and hybrid stacks, encoder-decoder and VLM inputs are
-not ported (ROADMAP Queue 1 item 13) and raise.
+function, and G's gradient is kernel Gb. ``forward_hidden`` and
+``forward`` take ``remat`` (default True, as JAX's): each decoder layer
+then runs under ``torch.utils.checkpoint`` and its activations are
+recomputed in the backward pass (JAX's ``nothing_saveable`` policy). MoE,
+SSM and hybrid stacks, encoder-decoder and VLM inputs are not ported
+(ROADMAP Queue 1 item 13) and raise.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core._device import resolve_device
@@ -149,19 +154,38 @@ def _decoder_layer(cfg: ModelConfig, p: Params, x: Tensor, positions: Tensor,
 # ---------------------------------------------------------------------------
 
 
+def _unstack(tree, n: int):
+    """The n layers' params, each a tree of views: ``unbind`` once a leaf,
+    so the backward stacks each leaf's n gradients in one op (a ``select``
+    a layer would scatter each into a zero stacked tensor)."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in parts} for i in range(n)]
+    return tree.unbind(0)
+
+
 def _run_decoder_stack(cfg: ModelConfig, params: Params, x: Tensor,
-                       positions: Tensor, collect_kv: bool = False):
+                       positions: Tensor, collect_kv: bool = False,
+                       remat: bool = False):
     """Loop over the stacked decoder layers -> (x, aux_loss, kv or None).
 
     gemma2 (``local_global``) runs (local, global) layer pairs, as JAX's
-    pair scan does."""
+    pair scan does. With ``remat`` each layer runs under
+    ``torch.utils.checkpoint`` and keeps only its input for the backward
+    pass."""
     kinds = ([i % 2 == 0 for i in range(cfg.n_layers)] if cfg.local_global
              else [False] * cfg.n_layers)
     aux = torch.zeros((), device=x.device)
     ks, vs = [], []
+    layers = _unstack(params["layers"], cfg.n_layers)
     for i, is_local in enumerate(kinds):
-        x, a, k, v = _decoder_layer(cfg, _index(params["layers"], i), x,
-                                    positions, is_local)
+        if remat:
+            x, a, k, v = checkpoint(_decoder_layer, cfg, layers[i], x,
+                                    positions, is_local,
+                                    use_reentrant=False)
+        else:
+            x, a, k, v = _decoder_layer(cfg, layers[i], x, positions,
+                                        is_local)
         aux = aux + a
         if collect_kv:
             ks.append(k)
@@ -190,12 +214,13 @@ def lm_head(cfg: ModelConfig, params: Params) -> Tensor:
 
 
 def logits_transform(cfg: ModelConfig):
-    """The final logit softcap, applied in place (the same roundings as
-    JAX's ``cap * tanh(l / cap)``, without three logits-sized
-    temporaries)."""
+    """The final logit softcap with the roundings of JAX's ``cap * tanh(l
+    / cap)``: in place when ``l`` needs no gradient (no logits-sized
+    temporaries), out of place when autograd must keep tanh's output."""
     if cfg.logit_softcap > 0.0:
         cap = cfg.logit_softcap
-        return lambda l: l.div_(cap).tanh_().mul_(cap)
+        return lambda l: (torch.tanh(l / cap) * cap if l.requires_grad
+                          else l.div_(cap).tanh_().mul_(cap))
     return lambda l: l
 
 
@@ -205,18 +230,20 @@ def _logits(cfg: ModelConfig, params: Params, x: Tensor) -> Tensor:
 
 
 def forward_hidden(cfg: ModelConfig, params: Params, tokens: Tensor,
-                   **extras) -> Tuple[Tensor, Tensor]:
-    """Final-norm hidden states (B, S, d) and the aux loss."""
+                   remat: bool = True, **extras) -> Tuple[Tensor, Tensor]:
+    """Final-norm hidden states (B, S, d) and the aux loss — the train loss
+    applies the LM head chunk by chunk, so the full (B, S, V) logits never
+    exist. ``remat`` recomputes each layer in the backward pass."""
     check_ported(cfg)
     x, positions = _embed_inputs(cfg, params, tokens, extras)
-    x, aux, _ = _run_decoder_stack(cfg, params, x, positions)
+    x, aux, _ = _run_decoder_stack(cfg, params, x, positions, remat=remat)
     return apply_norm(x, params["final_norm"], cfg.norm), aux
 
 
 def forward(cfg: ModelConfig, params: Params, tokens: Tensor,
-            **extras) -> Tuple[Tensor, Tensor]:
+            remat: bool = True, **extras) -> Tuple[Tensor, Tensor]:
     """Full-sequence logits. Returns (logits (B, S, V), aux_loss)."""
-    x, aux = forward_hidden(cfg, params, tokens, **extras)
+    x, aux = forward_hidden(cfg, params, tokens, remat=remat, **extras)
     return logits_transform(cfg)(x @ lm_head(cfg, params)), aux
 
 

@@ -29,6 +29,8 @@ from repro_torch.kernels.pack import pack_slots
 from repro_torch.kernels.prefix_sum import prefix_sum
 from repro_torch.kernels.sfc import cell_sfc_forces, sfc_warp_smem_bytes
 from repro_torch.kernels.window_attn import (route, window_attention,
+                                             window_attention_bwd,
+                                             window_attention_bwd_plain,
                                              window_attention_plain)
 from repro_torch.kernels.xpencil import (MAX_M_C, MAX_ROW_CAP, MAX_SMEM,
                                          MAX_TILE_ROWS, chunk_cells,
@@ -1076,6 +1078,113 @@ def test_gemma_smoke_prefill_launches_kernel_g(gen):
                                 max_len=36)
     torch.testing.assert_close(logits.cpu(), want, rtol=2e-3, atol=2e-3)
     torch.testing.assert_close(cache["k"].cpu(), cache_cpu["k"], rtol=2e-3,
+                               atol=2e-3)
+
+
+def _window_bwd_inputs(gen, b, h, kh, s, d, window, softcap, dtype):
+    q = torch.randn((b, h, s, d), generator=gen, device="cuda") * 2
+    k = torch.randn((b, kh, s, d), generator=gen, device="cuda") * 2
+    v = torch.randn((b, kh, s, d), generator=gen, device="cuda")
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    out = window_attention(q, k, v, window=window, blk=1, softcap=softcap)
+    dout = torch.randn((b, h, s, d), generator=gen, device="cuda").to(dtype)
+    return q, k, v, out, dout
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-4),
+                                       (torch.bfloat16, 2e-2)],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,h,kh,s,d,window,softcap", [
+    (1, 4, 4, 128, 16, 5, 0.0), (2, 8, 2, 256, 64, 100, 50.0),
+    (1, 6, 1, 96, 256, 300, 0.0), (2, 8, 4, 192, 64, 64, 50.0),
+    (1, 4, 2, 40, 20, 13, 0.0), (1, 8, 4, 200, 256, 77, 50.0)])
+def test_window_bwd_kernel_matches_plain(gen, b, h, kh, s, d, window,
+                                         softcap, dtype, tol):
+    """Kernel Gb against its plain version: fp32 within 3e-4 of each
+    gradient's own scale, bf16 within 2e-2 relative L2 (kernel G's
+    tolerances); one launch a call, outputs in the inputs' dtype."""
+    args = _window_bwd_inputs(gen, b, h, kh, s, d, window, softcap, dtype)
+    window_attention_bwd.launches = 0
+    got = window_attention_bwd(*args, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert window_attention_bwd.launches == 1
+    want = window_attention_bwd_plain(*args, window=window, softcap=softcap)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        g, w = g.float(), w.float()
+        if dtype == torch.float32:
+            err = float((g - w).abs().max() / w.abs().max())
+        else:
+            err = float((g - w).norm() / w.norm())
+        assert err <= tol
+
+
+def test_window_bwd_kernel_is_deterministic(gen):
+    """No atomics: two runs give the same bits, at a GQA shape whose dK and
+    dV sum four query heads."""
+    args = _window_bwd_inputs(gen, 2, 8, 2, 320, 128, 100, 50.0,
+                              torch.bfloat16)
+    first = window_attention_bwd(*args, window=100, softcap=50.0)
+    for _ in range(3):
+        again = window_attention_bwd(*args, window=100, softcap=50.0)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_window_attention_backward_launches_kernel_gb(gen):
+    """loss.backward() through window_attention on the card runs kernel Gb
+    once, and its gradients equal a direct window_attention_bwd call."""
+    q, k, v, _, dout = _window_bwd_inputs(gen, 1, 4, 2, 128, 64, 48, 50.0,
+                                          torch.bfloat16)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    window_attention.launches = window_attention_bwd.launches = 0
+    out = window_attention(*leaves, window=48, blk=32, softcap=50.0)
+    out.backward(dout)
+    assert window_attention.launches == 1
+    assert window_attention_bwd.launches == 1
+    want = window_attention_bwd(q, k, v, out.detach(), dout, window=48,
+                                softcap=50.0)
+    for leaf, w in zip(leaves, want):
+        assert torch.equal(leaf.grad, w)
+
+
+def test_window_bwd_wrapper_raises_past_head_dim_256(gen):
+    q = torch.zeros((1, 2, 32, 264), device="cuda")
+    with pytest.raises(ValueError, match="head_dim <= 256"):
+        window_attention_bwd(q, q, q, q, q, window=8)
+    h = q[..., :8].half()
+    with pytest.raises(ValueError, match="one dtype"):
+        window_attention_bwd(h, h, h, h, h, window=8)
+
+
+def test_gemma_smoke_train_step_runs_g_and_gb(gen):
+    """One smoke-width train step on the card: each local layer runs G
+    twice (forward and remat's recompute) and Gb once; the loss and the
+    updated params match the same step on the CPU (plain versions) within
+    2e-3."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.optim import AdamConfig, init_opt_state
+    from repro_torch.train import make_train_step
+    cfg = get_smoke_config("gemma2-2b")
+    opt_cfg = AdamConfig(lr=1e-4, total_steps=8, warmup_steps=1)
+    params = M.init_params(cfg, 0)
+    params_cpu = _to_cpu(params)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 33), generator=gen,
+                           device="cuda")
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    step = make_train_step(cfg, opt_cfg)
+    window_attention.launches = window_attention_bwd.launches = 0
+    m, params, _ = step(params, init_opt_state(params, opt_cfg), batch)
+    torch.cuda.synchronize()
+    n_local = cfg.n_layers // 2
+    assert window_attention.launches == 2 * n_local
+    assert window_attention_bwd.launches == n_local
+    m_cpu, params_cpu, _ = step(params_cpu, init_opt_state(params_cpu,
+                                                           opt_cfg),
+                                _to_cpu(batch))
+    assert abs(float(m["loss"]) - float(m_cpu["loss"])) <= \
+        2e-3 * abs(float(m_cpu["loss"]))
+    torch.testing.assert_close(_to_cpu(params), params_cpu, rtol=2e-3,
                                atol=2e-3)
 
 

@@ -85,7 +85,9 @@ def test_import_needs_no_nvcc_triton_or_jax(tmp_path):
             "repro_torch.convert, repro_torch.configs, repro_torch.models, "
             "repro_torch.models.serving, repro_torch.kernels.window_attn, "
             "repro_torch.physics, repro_torch.traj, repro_torch.ckpt, "
-            "repro_torch.testing, repro_torch.dist, repro_torch.serve\n"
+            "repro_torch.testing, repro_torch.dist, repro_torch.serve, "
+            "repro_torch.optim, repro_torch.data, repro_torch.train, "
+            "repro_torch.train.serve, repro_torch.launch.train\n"
             "bad = [m for m in ('jax', 'triton', 'repro') if m in sys.modules]\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PATH=str(tmp_path), PYTHONPATH=str(ROOT / "src"))
