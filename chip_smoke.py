@@ -114,10 +114,12 @@ the main paths through ``plan(...).execute()`` and checks and times them:
     default precision flags;
   * gemma2-2b training at full width and depth: kernel Gb (G's backward)
     against its plain version over a sweep, at the local layers' shape in
-    bf16 and in fp32, each run twice bit-equal, timed beside the backward
-    of ``scaled_dot_product_attention``; three ``make_train_step`` steps
-    on 2 x 8192 tokens (remat, AdamW), 26 G and 13 Gb launches a step,
-    timed and profiled; the first step against the same step with G and
+    bf16 and in fp32, each case on the route ``bwd_route(dtype, D)`` names
+    (bf16 wgmma/TMA reading G's lse, or SIMT) and run twice bit-equal, the
+    wgmma route's SASS counted, the gemma case timed beside its SIMT body
+    and the backward of ``scaled_dot_product_attention``; three
+    ``make_train_step`` steps on 2 x 8192 tokens (remat, AdamW), 26 G and
+    13 Gb launches a step, all on the wgmma routes, timed and profiled; the first step against the same step with G and
     Gb's plain versions (the loss, every gradient against an fp32 model's,
     the updated params); the smoke-width model memorizing one batch.
 
@@ -838,12 +840,13 @@ def lm_serving(seed: int, dev, reset_launches, launch_counts,
     return res
 
 
-def kernel_gb_bound(b, h, kh, s, d, window, itemsize):
+def kernel_gb_bound(b, h, kh, s, d, window, itemsize, flop_per_pair=10):
     """(bound ms, what sets it, FLOP, bytes) of one call of kernel Gb: 10 D
     FLOP per in-window pair (q.k and dout.v recomputed, the dV, dK and dQ
-    products) against the inputs' peak; q, k, v, out, dout read and dq, dk,
-    dv written once."""
-    flops = 10 * d * b * h * window_pairs(s, window)
+    products; 14 D for the work the wgmma route does, which computes q.k
+    and dout.v in both its dK/dV and its dQ launch) against the inputs'
+    peak; q, k, v, out, dout read and dq, dk, dv written once."""
+    flops = flop_per_pair * d * b * h * window_pairs(s, window)
     n_bytes = itemsize * b * s * d * (4 * h + 4 * kh)
     peak = BF16_OPS_PER_S if itemsize == 2 else F32_OPS_PER_S
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
@@ -852,33 +855,43 @@ def kernel_gb_bound(b, h, kh, s, d, window, itemsize):
 
 
 def gb_inputs(gen, dev, b, h, kh, s, d, window, softcap, dtype, amp=2.0):
-    """q, k, v, kernel G's out and a random dout for kernel Gb."""
-    from repro_torch.kernels.window_attn import window_attention
+    """((q, k, v, kernel G's out, a random dout), G's lse) for kernel Gb;
+    the lse is None where G's route is "simt" (its Gb computes its own)."""
+    from repro_torch.kernels.window_attn import window_attention_with_lse
     q = (torch.randn((b, h, s, d), generator=gen, device=dev) * amp)
     k = (torch.randn((b, kh, s, d), generator=gen, device=dev) * amp)
     v = torch.randn((b, kh, s, d), generator=gen, device=dev)
     q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
-    out = window_attention(q, k, v, window=window, blk=1, softcap=softcap)
+    out, lse = window_attention_with_lse(q, k, v, window=window, blk=1,
+                                         softcap=softcap)
     dout = torch.randn((b, h, s, d), generator=gen, device=dev).to(dtype)
-    return q, k, v, out, dout
+    return (q, k, v, out, dout), lse
 
 
-def check_gb_case(args, window, softcap):
-    """Kernel Gb on ``args`` = (q, k, v, out, dout) against its plain
-    version, twice, bit-equal; -> (max abs error, [error of dq, dk, dv]).
-    bf16: relative L2 of each gradient; fp32: error of each gradient's own
-    scale. At window 1 a row sees one key, so dq and dk are zero but for
-    rounding: both are held to dv's scale."""
-    from repro_torch.kernels.window_attn import (window_attention_bwd,
+def check_gb_case(args, lse, window, softcap):
+    """Kernel Gb on ``args`` = (q, k, v, out, dout) and G's ``lse`` against
+    its plain version, twice, bit-equal, on the route ``bwd_route`` names;
+    -> (max abs error, [error of dq, dk, dv]). bf16: relative L2 of each
+    gradient; fp32: error of each gradient's own scale. At window 1 a row
+    sees one key, so dq and dk are zero but for rounding: both are held to
+    dv's scale."""
+    from repro_torch.kernels.window_attn import (bwd_route,
+                                                 window_attention_bwd,
                                                  window_attention_bwd_plain)
     q = args[0]
-    got = window_attention_bwd(*args, window=window, softcap=softcap)
-    again = window_attention_bwd(*args, window=window, softcap=softcap)
+    way = bwd_route(q.dtype, q.shape[-1])
+    before = window_attention_bwd.launches_by_route[way]
+    got = window_attention_bwd(*args, window=window, softcap=softcap,
+                               lse=lse)
+    again = window_attention_bwd(*args, window=window, softcap=softcap,
+                                 lse=lse)
     want = window_attention_bwd_plain(*args, window=window, softcap=softcap)
     torch.cuda.synchronize()
     what = (f"kernel Gb vs plain, q {tuple(q.shape)} k "
             f"{tuple(args[1].shape)} window={window} softcap={softcap} "
-            f"{q.dtype}")
+            f"{q.dtype} ({way})")
+    if window_attention_bwd.launches_by_route[way] != before + 2:
+        raise AssertionError(f"{what}: did not take the {way} route")
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"{what}: two runs differ")
     tol = GB_TOL[q.dtype]
@@ -905,8 +918,11 @@ def check_gb_case(args, window, softcap):
 
 def check_kernel_gb(gen, dev):
     """Kernel Gb against its plain version over a sweep (B, GQA ratio, D,
-    windows 1 to past S, softcap, S not a multiple of the 32-row tile, fp32
-    and bf16), each case run twice bit-equal; -> (cases, max abs error)."""
+    windows 1 to past S, softcap, S not a multiple of the 32 or 64-row
+    tiles, fp32 and bf16), each case run twice bit-equal on the route
+    ``bwd_route`` names (bf16 at D 64 and 256: wgmma; D 20 and fp32:
+    SIMT); -> (cases, max abs error, cases by route)."""
+    from repro_torch.kernels.window_attn import bwd_route
     cases = [(b, h, kh, s, d, window, softcap, dtype)
              for b, h, kh in ((1, 4, 4), (2, 8, 2), (1, 8, 1))
              for s, d in ((256, 64), (200, 256), (130, 20))
@@ -914,10 +930,13 @@ def check_kernel_gb(gen, dev):
                                      (300, 50.0))
              for dtype in (torch.float32, torch.bfloat16)]
     worst = 0.0
+    by_route = {"wgmma": 0, "simt": 0}
     for b, h, kh, s, d, window, softcap, dtype in cases:
-        args = gb_inputs(gen, dev, b, h, kh, s, d, window, softcap, dtype)
-        worst = max(worst, check_gb_case(args, window, softcap)[0])
-    return len(cases), worst
+        args, lse = gb_inputs(gen, dev, b, h, kh, s, d, window, softcap,
+                              dtype)
+        worst = max(worst, check_gb_case(args, lse, window, softcap)[0])
+        by_route[bwd_route(dtype, d)] += 1
+    return len(cases), worst, by_route
 
 
 def lm_training(seed: int, dev, reset_launches, launch_counts):
@@ -932,10 +951,12 @@ def lm_training(seed: int, dev, reset_launches, launch_counts):
 
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.data import DataConfig, batch_at
-    from repro_torch.kernels.window_attn import (window_attention,
+    from repro_torch.kernels.window_attn import (_bwd_simt, bwd_route,
+                                                 window_attention,
                                                  window_attention_bwd,
                                                  window_attention_bwd_plain,
-                                                 window_attention_plain)
+                                                 window_attention_plain,
+                                                 window_attention_with_lse)
     from repro_torch.models import model as M
     from repro_torch.optim import AdamConfig, init_opt_state
     from repro_torch.train import make_loss_fn, make_train_step
@@ -955,18 +976,36 @@ def lm_training(seed: int, dev, reset_launches, launch_counts):
     shape = (TRAIN_BATCH, cfg.n_heads, cfg.n_kv_heads, TRAIN_SEQ,
              cfg.head_dim, cfg.window)
     b, h, kh, s, d, window = shape
-    args = gb_inputs(gen, dev, *shape, cfg.attn_softcap, torch.bfloat16)
-    gb_err, gb_errs = check_gb_case(args, window, cfg.attn_softcap)
+    gb_route = bwd_route(torch.bfloat16, d)
+    if gb_route != "wgmma":
+        raise AssertionError(f"kernel Gb at {shape} bf16 routes to "
+                             f"{gb_route}, not wgmma")
+    args, lse = gb_inputs(gen, dev, *shape, cfg.attn_softcap,
+                          torch.bfloat16)
+    gb_err, gb_errs = check_gb_case(args, lse, window, cfg.attn_softcap)
     kw = dict(window=window, softcap=cfg.attn_softcap)
-    gb_ms = cuda_ms(lambda: window_attention_bwd(*args, **kw), reps=5)
+    gb_ms = cuda_ms(lambda: window_attention_bwd(*args, **kw, lse=lse),
+                    reps=5)
     gb_plain_ms = cuda_ms(lambda: window_attention_bwd_plain(*args, **kw),
                           reps=2)
-    gb0_ms = cuda_ms(lambda: window_attention_bwd(*args, window=window),
-                     reps=3)
+    # softcap 0 needs G's lse of the uncapped scores
+    lse0 = window_attention_with_lse(*args[:3], window=window, blk=1)[1]
+    gb0_ms = cuda_ms(lambda: window_attention_bwd(*args, window=window,
+                                                  lse=lse0), reps=3)
+    del lse0
+    # the SIMT body on the same inputs: the route this PR replaced here
+    simt_out = tuple(torch.empty_like(t) for t in args[:3])
+    gb_simt_ms = cuda_ms(lambda: _bwd_simt(*args, *simt_out, window,
+                                           cfg.attn_softcap), reps=2,
+                         warmup=1)
+    del simt_out
     gb_bound_ms, gb_bound_by, gb_flops, gb_bytes = kernel_gb_bound(
         b, h, kh, s, d, window, 2)
+    gb_work_bound_ms, _, gb_work_flops, _ = kernel_gb_bound(
+        b, h, kh, s, d, window, 2, flop_per_pair=14)
     # the yardstick: SDPA's backward through autograd, band mask, softcap 0
     q, k, v, _, dout = (t.detach().requires_grad_() for t in args)
+    del lse
     pos = torch.arange(s, device=dev)
     band = (pos[None, :] <= pos[:, None]) & \
         (pos[:, None] - pos[None, :] < window)
@@ -975,18 +1014,25 @@ def lm_training(seed: int, dev, reset_launches, launch_counts):
     sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
         o, (q, k, v), dout, retain_graph=True), reps=3)
     del q, k, v, o, dout, band, args
-    fp32_args = gb_inputs(gen, dev, *GB_FP32_CASE, torch.float32)
-    gb32_err, gb32_errs = check_gb_case(fp32_args, GB_FP32_CASE[5],
+    fp32_args, fp32_lse = gb_inputs(gen, dev, *GB_FP32_CASE, torch.float32)
+    if fp32_lse is not None:
+        raise AssertionError("kernel G's SIMT route returned an lse")
+    gb32_err, gb32_errs = check_gb_case(fp32_args, None, GB_FP32_CASE[5],
                                         GB_FP32_CASE[6])
     gb32_ms = cuda_ms(lambda: window_attention_bwd(
         *fp32_args, window=GB_FP32_CASE[5], softcap=GB_FP32_CASE[6]),
         reps=3)
     del fp32_args
-    log(f"kernel Gb at {shape} bf16 softcap {cfg.attn_softcap}: relative "
+    log(f"kernel Gb at {shape} bf16 softcap {cfg.attn_softcap}, route "
+        f"{gb_route}: relative "
         f"L2 (dq, dk, dv) {gb_errs} (tol {GB_TOL[torch.bfloat16]}), "
-        f"bit-equal twice; {gb_ms:.3f} ms (softcap 0: {gb0_ms:.3f}), plain "
+        f"bit-equal twice; {gb_ms:.3f} ms (softcap 0: {gb0_ms:.3f}), "
+        f"{gb_flops / gb_ms / 1e9:.1f} TFLOP/s of the 10 D gradient, "
+        f"{gb_work_flops / gb_ms / 1e9:.1f} of the 14 D work done; SIMT "
+        f"body {gb_simt_ms:.3f} ms; plain "
         f"{gb_plain_ms:.3f} ms, bound "
-        f"{gb_bound_ms:.4f} ms ({gb_bound_by}), SDPA backward "
+        f"{gb_bound_ms:.4f} ms ({gb_bound_by}; the work done "
+        f"{gb_work_bound_ms:.4f}), SDPA backward "
         f"{sdpa_bwd_ms:.3f} ms; fp32 {GB_FP32_CASE}: own-scale errors "
         f"{gb32_errs}, {gb32_ms:.3f} ms")
     torch.cuda.empty_cache()
@@ -1024,13 +1070,16 @@ def lm_training(seed: int, dev, reset_launches, launch_counts):
         if i == 0:
             launches = launch_counts()
             routes = dict(window_attention.launches_by_route)
+            gb_routes = dict(window_attention_bwd.launches_by_route)
             params_g1 = _map(params, torch.clone)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     want = {"window_attention": 2 * n_local, "window_attention_bwd": n_local}
-    if launches != want or routes != {"wgmma": 2 * n_local, "simt": 0}:
+    if launches != want or routes != {"wgmma": 2 * n_local, "simt": 0} or \
+            gb_routes != {"wgmma": n_local, "simt": 0}:
         raise AssertionError(f"a train step launched {launches} (G by route "
-                             f"{routes}), want {want}, G all on the wgmma "
-                             f"route (forward and remat's recompute)")
+                             f"{routes}, Gb {gb_routes}), want {want}, G "
+                             f"and Gb all on the wgmma route (G: forward "
+                             f"and remat's recompute)")
     if int(opt["step"]) != TRAIN_STEPS or not all(
             np.isfinite(x) for x in losses + norms):
         raise AssertionError(f"train steps: losses {losses}, grad norms "
@@ -1052,7 +1101,8 @@ def lm_training(seed: int, dev, reset_launches, launch_counts):
         f" S={TRAIN_SEQ}, remat, AdamW): {ms:.1f} ms a step (steps "
         f"{[round(x, 1) for x in step_ms]}), "
         f"{TRAIN_BATCH * TRAIN_SEQ / ms * 1e3:.0f} tokens/s, peak "
-        f"{peak_gb:.2f} GB allocated; launches {launches}; losses {losses}, "
+        f"{peak_gb:.2f} GB allocated; launches {launches}, Gb by route "
+        f"{gb_routes}; losses {losses}, "
         f"grad norms {norms}; device busy {dev_ms / ms:.3f} of a step, "
         f"{launch_calls} launch calls a step; by group {by_group}")
     del opt
@@ -1196,7 +1246,8 @@ def lm_training(seed: int, dev, reset_launches, launch_counts):
                 f"remat, AdamW (moments {cfg.moment_dtype}), "
                 f"{TRAIN_STEPS} steps",
         "n_params": n_params, "init_s": init_s, "launches": launches,
-        "routes": routes, "step_ms": ms, "step_ms_all": step_ms,
+        "routes": routes, "gb_routes": gb_routes, "step_ms": ms,
+        "step_ms_all": step_ms,
         "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / ms * 1e3,
         "peak_allocated_gb": peak_gb, "losses": losses, "grad_norms": norms,
         "device_ms": dev_ms, "busy_share": dev_ms / ms,
@@ -1212,7 +1263,11 @@ def lm_training(seed: int, dev, reset_launches, launch_counts):
         "worst_leaf": worst_leaf, "worst_leaf_rel_l2": leaf_rel[worst_leaf],
         "worst_zero_init_leaf": worst_zero,
         "worst_zero_init_leaf_rel_l2": leaf_rel[worst_zero],
+        "kernel_gb_route": gb_route,
         "kernel_gb_ms": gb_ms, "kernel_gb_softcap0_ms": gb0_ms,
+        "kernel_gb_simt_ms": gb_simt_ms,
+        "kernel_gb_work_bound_ms": gb_work_bound_ms,
+        "kernel_gb_work_tflops": gb_work_flops / gb_ms / 1e9,
         "kernel_gb_device_ms": gb_dev_ms,
         "kernel_gb_device_ms_by_kernel": [
             (k_[:60], t / n_local) for k_, t in kernels
@@ -1365,8 +1420,10 @@ def launches_in_turns(fns: dict, reps: int, sessions: int) -> dict:
 
 # kernel-name groups of the LM's device time, tried in order
 KERNEL_GROUPS = (
+    ("kernel Gb", ("bwd_stats_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel",
+                   "bwd_sm90_prep_kernel", "bwd_sm90_dkdv_kernel",
+                   "bwd_sm90_dq_kernel")),
     ("kernel G", ("window_attn",)),
-    ("kernel Gb", ("bwd_stats_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel")),
     ("fp32 GEMM (flash and decode attention)", ("f32f32", "gemmSN", "sgemm",
                                                  "<float")),
     ("bf16 GEMM (projections, MLP, logits)", ("nvjet", "bf16")),
@@ -2844,8 +2901,8 @@ def main(argv=None) -> int:
     def reset_launches():
         for w in wrappers.values():
             w.launches = 0
-        window_attention.launches_by_route = dict.fromkeys(
-            window_attention.launches_by_route, 0)
+        for w in (window_attention, window_attention_bwd):
+            w.launches_by_route = dict.fromkeys(w.launches_by_route, 0)
 
     def launch_counts():
         return {n: w.launches for n, w in wrappers.items() if w.launches}
@@ -4250,9 +4307,14 @@ def main(argv=None) -> int:
                     precision_defaults)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    gb_checks, gb_sweep_err = check_kernel_gb(gen, dev)
+    gb_checks, gb_sweep_err, gb_by_route = check_kernel_gb(gen, dev)
+    gb_sass = sass_counts("window_attn_bwd_sm90.cu")
+    if not (gb_sass["HGMMA"] and gb_sass["UTMALDG"]):
+        raise AssertionError(f"kernel Gb's wgmma route: no HGMMA or UTMALDG "
+                             f"in its SASS: {gb_sass}")
     log(f"kernel Gb: {gb_checks} cases (B, H/KH 1-8, D 20-256, window 1 to "
-        f"> S, softcap, fp32 and bf16, S not a multiple of 32) within "
+        f"> S, softcap, fp32 and bf16, S not a multiple of 32 or 64; "
+        f"routes {gb_by_route}; wgmma route SASS {gb_sass}) within "
         f"{GB_TOL[torch.float32]} (fp32, own scale) / "
         f"{GB_TOL[torch.bfloat16]} (bf16, relative L2) of the plain "
         f"version, each bit-equal over two runs; max |diff| "
@@ -4412,7 +4474,8 @@ def main(argv=None) -> int:
              train["launches"]["window_attention"],
          "shapes": lm["shapes"], "checks_passed": g_checks + 1},
         {"name": "window_attention_bwd", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/window_attn_bwd.cu",
+         "source": "src/repro_torch/kernels/csrc/window_attn_bwd_sm90.cu",
+         "simt_source": "src/repro_torch/kernels/csrc/window_attn_bwd.cu",
          "replaces": None,
          "replaces_note": "kernel G's gradient; JAX trains through XLA's "
                           "autodiff of window_attention_blocked",
@@ -4430,7 +4493,14 @@ def main(argv=None) -> int:
          "softcap0_ms": train["kernel_gb_softcap0_ms"],
          "device_ms": train["kernel_gb_device_ms"],
          "device_ms_from": "torch.profiler, a train step's 13 calls",
-         "kernel_route": "SIMT fp32, three launches (stats, dK/dV, dQ)",
+         "kernel_route": "wgmma (bf16 tensor cores, TMA; prep, dK/dV, dQ "
+                         "launches; reads G's lse); main path routes "
+                         f"{train['gb_routes']}, sweep routes {gb_by_route}; "
+                         "fp32 and other D: SIMT (stats, dK/dV, dQ)",
+         "simt_ms": train["kernel_gb_simt_ms"],
+         "work_bound_ms": train["kernel_gb_work_bound_ms"],
+         "work_tflops": train["kernel_gb_work_tflops"],
+         "sass": gb_sass,
          "tflops": train["kernel_gb_tflops"],
          "rel_l2": train["kernel_gb_rel_l2"],
          "fp32_case": {"shape": train["kernel_gb_fp32_case"],

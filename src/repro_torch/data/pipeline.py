@@ -8,10 +8,11 @@ which is what makes the bitwise restart test possible. The batch of
 seeded by a counter-based hash of those three numbers (splitmix64), so no
 state carries from one step to the next.
 
-The port does not reproduce ``jax.random``'s threefry bits, and a CPU and a
-CUDA generator give different tokens from one seed: the stream is
-deterministic per device type. Tests that compare the two packages feed
-both the same numpy batch. Loss curves on this data are meaningless
+The port does not reproduce ``jax.random``'s threefry bits: tests that
+compare the two packages feed both the same numpy batch. The tokens are
+drawn on a CPU generator and then copied to the batch's device, so the
+stream is the same on every device: a run started on the card and resumed
+on the CPU (or the other way round) trains on the same tokens. Loss curves on this data are meaningless
 language-wise but exactly reproducible.
 """
 
@@ -71,11 +72,11 @@ def batch_at(cfg: DataConfig, step: int, host_index: int = 0,
         raise ValueError(f"global_batch {cfg.global_batch} does not split "
                          f"over {n_hosts} hosts")
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
+    gen = torch.Generator()
     gen.manual_seed(_stream_seed(cfg.stream_id, step, host_index))
     toks = torch.randint(0, cfg.vocab_size,
                          (cfg.global_batch // n_hosts, cfg.seq_len + 1),
-                         generator=gen, dtype=torch.int32, device=dev)
+                         generator=gen, dtype=torch.int32).to(dev)
     return toks[:, :-1], toks[:, 1:]
 
 

@@ -93,10 +93,18 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "window_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                  _I, _I, _I, _I, _I, _F, _F, _I, _P),
     },
+    "window_attn_bwd_sm90.cu": {
+        # q, k, v, out, dout, lse, dq, dk, dv, lse2, delta, B, H, KH, S, D,
+        # window, softcap, scale, stream
+        "window_attention_bwd_sm90": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                      _P, _I, _I, _I, _I, _I, _I, _F, _F,
+                                      _P),
+    },
     "window_attn_sm90.cu": {
-        # q, k, v, o, B, H, KH, S, D, window, softcap, scale, stream
-        "window_attention_sm90": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                                  _F, _P),
+        # q, k, v, o, lse (or NULL), B, H, KH, S, D, window, softcap, scale,
+        # stream
+        "window_attention_sm90": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _F, _F, _P),
     },
 }
 

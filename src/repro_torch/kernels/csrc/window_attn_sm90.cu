@@ -41,13 +41,16 @@
 // last wave. The softcap's tanh is 1 - 2 / (exp(2x) + 1) with ex2 and a fast
 // divide: its absolute error (~1e-7) is what the score sees, where
 // tanh.approx's 2^-11 relative error would move a capped score by ~0.025.
+// Asked for a pointer (a forward whose gradient is wanted), the epilogue
+// also writes each row's log-sum-exp in fp32, the residual kernel Gb's wgmma
+// route (window_attn_bwd_sm90.cu) reads instead of recomputing the scores.
+// The PTX wrappers, descriptors and tensor maps live in wgmma.cuh.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "wgmma.cuh"
 
 namespace {
+
+using namespace sm90;
 
 constexpr int kBQ = 128;                   // query rows per block
 constexpr int kBK = 64;                    // keys per K/V tile
@@ -56,12 +59,8 @@ constexpr int kThreads = 384;              // producer + 2 consumer warpgroups
 constexpr int kConsumerThreads = 256;
 constexpr float kNegInf = -1.0e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr size_t kMaxSmem = 232448;
-
-// Columns per shared-memory block: the largest of 64, 32, 16 dividing D.
-__host__ __device__ constexpr int block_cols(int d) {
-  return d % 64 == 0 ? 64 : (d % 32 == 0 ? 32 : 16);
-}
 
 // Bytes of shared memory one block asks for: Q, the K and V rings, the
 // mbarriers, and 1 KB of slack to align the base to the swizzle atom.
@@ -70,206 +69,19 @@ __host__ __device__ constexpr size_t smem_bytes(int d) {
          1024;
 }
 
-// -- PTX wrappers ------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Wait until the barrier's phase with the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// TMA: the box at (c0, c1, c2) of a 3-D tensor map into shared memory,
-// completion counted in bytes on `bar`.
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keep the compiler from moving reads or writes of wgmma operands across the
-// asynchronous instructions (CUTLASS's warpgroup_fence_operand).
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-// wgmma shared-memory descriptor: start address, leading and stride byte
-// offsets (16-byte units) and the swizzle of the layout (1 = 128 B, 2 = 64
-// B, 3 = 32 B).
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, uint32_t swizzle) {
-  return (uint64_t)((addr >> 4) & 0x3FFF) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)swizzle << 62);
-}
-
-// -- wgmma (generated operand lists) -----------------------------------------
-
-// D (64 x 64, fp32) (+)= A (64 x 16, smem) . B (16 x 64, smem), both K-major.
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                               uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// D (64 x 16, fp32) += A (64 x 16, registers) . B (16 x 16, smem, MN-major).
-__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4],
-                                               uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D (64 x 32, fp32) += A (64 x 16, registers) . B (16 x 32, smem, MN-major).
-__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
-                                               uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D (64 x 64, fp32) += A (64 x 16, registers) . B (16 x 64, smem, MN-major).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
-                                               uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <int W>
-__device__ __forceinline__ void wgmma_rs(float (&d)[W / 2],
-                                         const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (W == 64) {
-    wgmma_rs_n64(d, a, db);
-  } else if constexpr (W == 32) {
-    wgmma_rs_n32(d, a, db);
-  } else {
-    wgmma_rs_n16(d, a, db);
-  }
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // .x in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 // -- the kernel ----------------------------------------------------------------
 //
-// Accumulator fragment of a 64 x N wgmma (per thread: warp w of the
-// warpgroup, lane l, quad q = l % 4): element 4 i + 2 h + e sits at row
-// 16 w + l / 4 + 8 h, column 8 i + 2 q + e.
+// Accumulator layout and shared-memory tiles: wgmma.cuh.
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 window_attn_sm90_kernel(__grid_constant__ const CUtensorMap tm_q,
                         __grid_constant__ const CUtensorMap tm_k,
                         __grid_constant__ const CUtensorMap tm_v,
-                        __nv_bfloat16* __restrict__ o, int BH, int H,
-                        int group, int KH, int S, int window,
-                        float score_log2, float cap_in, float cap_log2) {
+                        __nv_bfloat16* __restrict__ o,
+                        float* __restrict__ lse, int BH, int H, int group,
+                        int KH, int S, int window, float score_log2,
+                        float cap_in, float cap_log2) {
   constexpr int W = block_cols(D);          // columns per smem block
   constexpr int NB = D / W;                 // column blocks
   constexpr int RB = 2 * W;                 // bytes per row of a block
@@ -477,11 +289,14 @@ window_attn_sm90_kernel(__grid_constant__ const CUtensorMap tm_q,
       mbar_arrive(empty(s));
     }
 
-    // ---- epilogue: o = acc / max(l, 1e-30), bf16x2 stores ---------------------
+    // ---- epilogue: o = acc / max(l, 1e-30), bf16x2 stores; lse in natural
+    // log units of the scaled, capped score (m_run is in log2 units) -------
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int row = row_a + 8 * hh;
       const float den = fmaxf(quad_sum(l_run[hh]), 1e-30f);
+      if (lse != nullptr && row < S && (lane & 3) == 0)
+        lse[(long long)bh * S + row] = (m_run[hh] + log2f(den)) * kLn2;
       if (row < S) {
         __nv_bfloat16* orow = o + ((long long)bh * S + row) * D;
 #pragma unroll
@@ -500,53 +315,10 @@ window_attn_sm90_kernel(__grid_constant__ const CUtensorMap tm_q,
 
 // -- host side -----------------------------------------------------------------
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime, so nothing links libcuda.
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 3-D map of a contiguous (heads, S, D) bf16 tensor, boxes of W columns x
-// `rows` rows of one head, swizzled as the wgmma descriptors expect.
-bool make_map(CUtensorMap* map, const void* ptr, int heads, int S, int D,
-              int rows) {
-  const int w = block_cols(D);
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S,
-                              (cuuint64_t)heads};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)w, (cuuint32_t)rows, 1};
-  const cuuint32_t estr[3] = {1, 1, 1};
-  const CUtensorMapSwizzle swz =
-      w == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-              : (w == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B);
-  EncodeTiled encode = encode_fn();
-  return encode != nullptr &&
-         encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(ptr), dims, strides, box, estr,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
 cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
-                   const CUtensorMap& tv, void* o, int B, int H, int KH,
-                   int S, int window, float softcap, float scale,
+                   const CUtensorMap& tv, void* o, float* lse, int B, int H,
+                   int KH, int S, int window, float softcap, float scale,
                    cudaStream_t stream) {
   const size_t smem = smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(
@@ -560,8 +332,8 @@ cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
   const float cap_log2 = softcap * kLog2e;
   window_attn_sm90_kernel<D><<<(unsigned)(B * H * nq), kThreads, smem,
                                stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), B * H, H, H / KH, KH, S,
-      window, score_log2, cap_in, cap_log2);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, B * H, H, H / KH, KH,
+      S, window, score_log2, cap_in, cap_log2);
   return cudaGetLastError();
 }
 
@@ -570,13 +342,16 @@ cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
 // Kernel G, bf16 route. q, o of shape (B, H, S, D), k, v of shape (B, KH, S,
 // D), bfloat16, contiguous, 16-byte aligned. H % KH == 0, D % 16 == 0, 16 <=
 // D <= 256, window >= 1; softcap <= 0 means none; scale multiplies the fp32
-// scores (D^-0.5). Allocates nothing and does not synchronise; returns the
-// launch's cudaError_t (cudaErrorInvalidValue for arguments it does not take
-// or a tensor map the driver refuses).
+// scores (D^-0.5). lse, when not NULL, is float32 (B, H, S): each row's
+// natural-log log-sum-exp of its scaled, capped scores, the residual kernel
+// Gb's wgmma route reads; o is the same bit for bit with or without it.
+// Allocates nothing and does not synchronise; returns the launch's
+// cudaError_t (cudaErrorInvalidValue for arguments it does not take or a
+// tensor map the driver refuses).
 extern "C" int window_attention_sm90(const void* q, const void* k,
-                                     const void* v, void* o, int B, int H,
-                                     int KH, int S, int D, int window,
-                                     float softcap, float scale,
+                                     const void* v, void* o, void* lse,
+                                     int B, int H, int KH, int S, int D,
+                                     int window, float softcap, float scale,
                                      void* stream) {
   if (B < 1 || S < 1) return cudaSuccess;
   if (H < 1 || KH < 1 || H % KH || D < 16 || D > 256 || D % 16 ||
@@ -585,7 +360,7 @@ extern "C" int window_attention_sm90(const void* q, const void* k,
       ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16)
     return cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, B * H, S, D, kBQ) ||
+  if (!bind_device(q) || !make_map(&tq, q, B * H, S, D, kBQ) ||
       !make_map(&tk, k, B * KH, S, D, kBK) ||
       !make_map(&tv, v, B * KH, S, D, kBK))
     return cudaErrorInvalidValue;
@@ -593,8 +368,8 @@ extern "C" int window_attention_sm90(const void* q, const void* k,
   switch (D / 16) {
 #define G_CASE(n)                                                          \
   case n:                                                                  \
-    return launch<16 * n>(tq, tk, tv, o, B, H, KH, S, window, softcap,     \
-                          scale, st);
+    return launch<16 * n>(tq, tk, tv, o, static_cast<float*>(lse), B, H,   \
+                          KH, S, window, softcap, scale, st);
     G_CASE(1) G_CASE(2) G_CASE(3) G_CASE(4) G_CASE(5) G_CASE(6) G_CASE(7)
     G_CASE(8) G_CASE(9) G_CASE(10) G_CASE(11) G_CASE(12) G_CASE(13)
     G_CASE(14) G_CASE(15) G_CASE(16)
