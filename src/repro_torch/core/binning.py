@@ -616,9 +616,9 @@ def gather_pencil_rows(plane: torch.Tensor, active_zy: torch.Tensor, ny: int,
 #
 # Each padded (z, y) pencil row stores its particles contiguously (cell
 # order kept) under a static ``row_cap`` bound with the replan contract of
-# m_c; per-cell start offsets come from the paper's §6 scan (kernel A on a
-# CUDA tensor), so the dense layout's contiguous 3-cell X-window becomes an
-# (offset, length) range.
+# m_c; per-cell start offsets come from the paper's §6 scan of each row
+# (inside the pack kernel on a CUDA tensor), so the dense layout's
+# contiguous 3-cell X-window becomes an (offset, length) range.
 
 
 @dataclasses.dataclass
@@ -669,54 +669,44 @@ def pack_rows(domain: Domain, bins: CellBins, row_cap: int) -> PackedRows:
 
     Per padded row, the occupied slots give per-cell counts, the §6 scan
     turns them into start offsets, and every occupied dense slot (cell c,
-    rank r) moves to packed position ``offsets[c] + r``. The scan is one
-    rank-1 exclusive scan over all rows' counts, of every stacked system
-    (kernel A on a CUDA tensor), minus each row's first entry: exact in
-    int32 and equal to a per-row scan. Slots past ``row_cap`` are dropped. The moves are
-    ``kernels.pack.pack_slots`` (one kernel on a CUDA tensor,
-    :func:`pack_slots_plain` on a CPU one).
+    rank r) moves to packed position ``offsets[c] + r``; slots past
+    ``row_cap`` are dropped. All of it is ``kernels.pack.pack_slots``: one
+    call of the pack kernel on a CUDA tensor, :func:`pack_slots_plain` on a
+    CPU one.
     """
     from ..kernels.pack import pack_slots
-    from ..kernels.prefix_sum import prefix_sum
 
-    nx, ny, nz = domain.ncells
-    m_c = bins.m_c
-    shape4 = (*bins.slot_id.shape[:-3], nz + 2, ny + 2, nx + 2, m_c)
-
-    occupied = bins.slot_id.view(shape4) >= 0
-    cell_counts_p = occupied.sum(-1, dtype=torch.int32)    # (nzp, nyp, nx+2)
-    flat_scan = exclusive_prefix_sum(cell_counts_p.reshape(-1),
-                                     scan=prefix_sum).view(cell_counts_p.shape)
-    offsets = flat_scan - flat_scan[..., :1]
-    row_counts = cell_counts_p.sum(-1, dtype=torch.int32)  # (nzp, nyp)
-    cell_offsets = torch.cat([offsets, row_counts[..., None]], dim=-1)
-    planes, slot_id, slot_cell, particle_slot = pack_slots(
-        bins, offsets, row_counts, nx=nx, ny=ny, row_cap=row_cap)
+    nx, ny, _ = domain.ncells
+    planes, slot_id, slot_cell, cell_offsets, row_counts, particle_slot = \
+        pack_slots(bins, nx=nx, ny=ny, row_cap=row_cap)
     return PackedRows(planes=planes, slot_id=slot_id, slot_cell=slot_cell,
                       cell_offsets=cell_offsets, row_counts=row_counts,
                       counts=bins.counts, particle_slot=particle_slot,
-                      row_cap=row_cap, m_c=m_c)
+                      row_cap=row_cap, m_c=bins.m_c)
 
 
-def pack_slots_plain(bins: CellBins, offsets: torch.Tensor,
-                     row_counts: torch.Tensor, *, nx: int, ny: int,
-                     row_cap: int):
-    """The plain version of ``kernels.pack.pack_slots``: the packed planes,
-    ``slot_id``, ``slot_cell`` and ``particle_slot`` of
-    :func:`pack_rows` from the dense bins and each row's exclusive cell
-    ``offsets`` (``row_counts`` is unused: the scatters drop what they do
-    not write), in JAX's scatters. Stacked bins run system by system."""
+def pack_slots_plain(bins: CellBins, *, nx: int, ny: int, row_cap: int):
+    """The plain version of ``kernels.pack.pack_slots``, JAX's
+    ``pack_rows`` in PyTorch: each padded row's cell counts and their
+    exclusive §6 scan, then the scatters of every field, id and cell
+    through a destination per dense slot, and the per-particle map. ->
+    (planes, slot_id, slot_cell, cell_offsets, row_counts, particle_slot).
+    Stacked bins run system by system."""
     if bins.slot_id.dim() == 4:
-        outs = [pack_slots_plain(system(bins, b), offsets[b], row_counts[b],
-                                 nx=nx, ny=ny, row_cap=row_cap)
+        outs = [pack_slots_plain(system(bins, b), nx=nx, ny=ny,
+                                 row_cap=row_cap)
                 for b in range(bins.slot_id.shape[0])]
         return ({k: torch.stack([o[0][k] for o in outs]) for k in bins.planes},
-                *(torch.stack([o[i] for o in outs]) for i in (1, 2, 3)))
+                *(torch.stack([o[i] for o in outs]) for i in range(1, 6)))
     m_c = bins.m_c
     nzp, nyp = bins.slot_id.shape[:2]
     dev = bins.slot_id.device
     shape4 = (nzp, nyp, nx + 2, m_c)
     occupied = bins.slot_id.view(shape4) >= 0
+    cell_counts_p = occupied.sum(-1, dtype=torch.int32)    # (nzp, nyp, nx+2)
+    offsets = exclusive_prefix_sum(cell_counts_p)          # §6 scan, per row
+    row_counts = cell_counts_p.sum(-1, dtype=torch.int32)  # (nzp, nyp)
+    cell_offsets = torch.cat([offsets, row_counts[..., None]], dim=-1)
 
     rank = torch.arange(m_c, dtype=torch.int32, device=dev)
     dest = offsets[..., None] + rank                       # (nzp,nyp,nx+2,m_c)
@@ -757,7 +747,8 @@ def pack_slots_plain(bins: CellBins, offsets: torch.Tensor,
     pos_in_row = torch.clamp(pos_in_row, max=row_cap)
     particle_slot = (((zp - 1) * ny + (yp - 1)) * (row_cap + 1)
                      + pos_in_row).to(torch.int32)
-    return planes, slot_id, slot_cell, particle_slot
+    return (planes, slot_id, slot_cell, cell_offsets, row_counts,
+            particle_slot)
 
 
 def unpack_scatter(domain: Domain, packed: PackedRows,

@@ -6,8 +6,9 @@ allin        the paper's All-in-SM schedule (kernel E, csrc/allin.cu)
 sfc          Par-Cell over the SFC cluster-pair list (kernel F,
              csrc/sfc.cu)
 prefix_sum   the paper's §6 scan (kernel A, csrc/prefix_sum.cu)
-pack         the packed-row layout's slot moves after the scan
-             (``pack_slots``, csrc/pack.cu; called by core.binning.pack_rows)
+pack         the packed-row layout: counts, row scans, slot moves and
+             the particle map (``pack_slots``, csrc/pack.cu; all of
+             core.binning.pack_rows)
 window_attn  causal sliding-window attention of the LM's local layers
              (kernel G: bf16 on tensor cores, csrc/window_attn_sm90.cu;
              fp32 and other head dims on CUDA cores, csrc/window_attn.cu)

@@ -42,8 +42,9 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     },
     "pack.cu": {
         # src, dst (arrays of n_fields pointers), fill (n_fields unsigned),
-        # n_fields, slot_id, offsets, row_counts, dense_slot, psid, pcell,
-        # pslot, n_sys, nx, ny, nz, m_c, row_cap, n_particles, stream
+        # n_fields, slot_id, dense_slot, psid, pcell, cell_offsets,
+        # row_counts, pslot, n_sys, nx, ny, nz, m_c, row_cap, n_particles,
+        # stream
         "pack_rows_f32": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                           _I, _I, _I, _I, _I, _P),
     },

@@ -184,9 +184,9 @@ def test_dense_compact_packed_equal_and_launch(gen, periodic):
     for compact, layout, want in (
             (False, "dense", {"prefix_sum": 1, "xpencil_forces": 1}),
             (True, "dense", {"prefix_sum": 1, "xpencil_sparse_forces": 1}),
-            (False, "packed", {"prefix_sum": 2, "pack_slots": 1,
+            (False, "packed", {"prefix_sum": 1, "pack_slots": 1,
                                "xpencil_packed_forces": 1}),
-            (True, "packed", {"prefix_sum": 2, "pack_slots": 1,
+            (True, "packed", {"prefix_sum": 1, "pack_slots": 1,
                               "xpencil_packed_forces": 1})):
         p = plan(dom, kern, positions=pos, compact=compact, layout=layout,
                  strategy="xpencil")
@@ -530,60 +530,109 @@ def test_packed_kernel_over_occupancy_lists(gen):
 
 # -- the pack kernel ---------------------------------------------------------
 
+def _halo_pack_input(gen, periodic):
+    """The stacked shards' bins that ``dist.engine`` hands ``pack_rows`` on
+    a packed halo plan (slot ids offset by each shard's index), and its
+    local domain and row_cap."""
+    from repro_torch.dist import engine as E
+    dom = Domain.cubic(8, periodic=periodic)
+    pos = dom.sample_uniform(8 ** 3 * 4, generator=gen, device="cuda")
+    p = plan(dom, positions=pos, backend="halo", n_shards=4,
+             halo_inner="cuda", strategy="xpencil", layout="packed")
+    seen, real = [], E.pack_rows
+    E.pack_rows = lambda d, b, row_cap: seen.append((d, b, row_cap)) or \
+        real(d, b, row_cap)
+    try:
+        E.halo_impl(p).layout(ParticleState(pos[None]))
+    finally:
+        E.pack_rows = real
+    return seen[0]
+
+
+PACK_OUTPUTS = ("slot_id", "slot_cell", "cell_offsets", "row_counts",
+                "particle_slot")
+
+
 @pytest.mark.parametrize("scene", ["open", "periodic", "row_cap_overflow",
-                                   "m_c_overflow", "blob", "fields"])
+                                   "m_c_overflow", "m_c_odd", "blob",
+                                   "fields", "stacked", "refresh_bins",
+                                   "halo", "halo_periodic"])
 def test_pack_kernel_equals_plain(gen, scene):
-    """The pack kernel's planes, ids, cells and particle slots torch.equal
-    to the plain scatters' on the same bins (an overflowing row_cap,
-    particles the dense binning dropped, the blob, extra float and int
-    fields), and ``pack_rows`` on the card to ``pack_rows`` on the CPU."""
+    """Every output of the pack kernel (the planes, ids, cells, cell
+    offsets, row counts and particle slots) torch.equal to its plain
+    version on the same bins: an overflowing row_cap, particles the dense
+    binning dropped, m_c not a multiple of 4 (the kernel reads one id a
+    load), the blob, extra float and int fields, stacked systems with a
+    padding system, ``refresh_bins``' bins, the halo's shards with offset
+    slot ids; one launch of the wrapper, and ``pack_rows`` on the card
+    equal to ``pack_rows`` on the CPU."""
+    from repro_torch.core.binning import refresh_bins
+    row_cap = None
     if scene == "blob":
         dom, pos = _blob(gen, 16, 20000, sigma_frac=0.1)
+    elif scene.startswith("halo"):
+        dom, bins, row_cap = _halo_pack_input(gen, scene == "halo_periodic")
     else:
         dom = Domain(box=(7.0, 5.0, 4.0), ncells=(7, 5, 4), cutoff=1.0,
-                     periodic=scene == "periodic")
+                     periodic=scene in ("periodic", "refresh_bins"))
         pos = dom.sample_uniform(500, generator=gen, device="cuda")
     nx, ny, nz = dom.ncells
-    m_c = 3 if scene == "m_c_overflow" else suggest_m_c(dom, pos)
-    row_cap = 12 if scene == "row_cap_overflow" else suggest_row_cap(dom,
-                                                                      pos)
-    fields = None
-    if scene == "fields":
-        fields = {"mass": torch.rand(pos.shape[0], generator=gen,
-                                     device="cuda"),
-                  "tag": torch.arange(pos.shape[0], dtype=torch.int32,
-                                      device="cuda")}
-    bins = bin_particles(dom, pos, fields, m_c=m_c)
-    total = bins.slot_id.numel()
-    assert bool((bins.particle_slot == total).any()) == (
-        scene == "m_c_overflow")
-    occ = bins.slot_id.view(nz + 2, ny + 2, nx + 2, m_c) >= 0
-    cc = occ.sum(-1, dtype=torch.int32)
-    offsets = cc.cumsum(-1, dtype=torch.int32) - cc
-    row_counts = cc.sum(-1, dtype=torch.int32)
-    assert (int(row_counts.max()) > row_cap) == (scene == "row_cap_overflow")
+    if row_cap is None:
+        m_c = suggest_m_c(dom, pos)
+        m_c = {"m_c_overflow": 3, "m_c_odd": m_c | 1}.get(scene, m_c)
+        row_cap = 12 if scene == "row_cap_overflow" else suggest_row_cap(
+            dom, pos)
+        fields = None
+        if scene == "fields":
+            fields = {"mass": torch.rand(pos.shape[0], generator=gen,
+                                         device="cuda"),
+                      "tag": torch.arange(pos.shape[0], dtype=torch.int32,
+                                          device="cuda")}
+        if scene == "stacked":              # system 1 padding throughout
+            dom, states = _stacked_scene(gen, True, n=500, ncells=(7, 5, 4))
+            every = states.positions.reshape(-1, 3)   # covers each system
+            m_c = suggest_m_c(dom, every)
+            row_cap = suggest_row_cap(dom, every)
+            bins = bin_particles(dom, states.positions, m_c=m_c,
+                                 valid=states.valid)
+        else:
+            bins = bin_particles(dom, pos, fields, m_c=m_c)
+        if scene == "refresh_bins":
+            bins = refresh_bins(dom, bins, pos + 0.01 * torch.randn(
+                pos.shape, generator=gen, device="cuda"))
+    m_c = bins.m_c
+    if scene == "m_c_odd":
+        assert m_c % 4 != 0                 # one id a load
+    total = math.prod(bins.slot_id.shape[-3:])      # one system's dump slot
+    if scene in ("open", "periodic", "row_cap_overflow", "m_c_overflow",
+                 "blob", "fields", "m_c_odd"):
+        assert bool((bins.particle_slot == total).any()) == (
+            scene == "m_c_overflow")
     kw = dict(nx=nx, ny=ny, row_cap=row_cap)
-    got = pack_slots(bins, offsets, row_counts, **kw)
-    want = pack_slots_plain(bins, offsets, row_counts, **kw)
+    pack_slots.launches = 0
+    got = pack_slots(bins, **kw)
+    torch.cuda.synchronize()
+    assert pack_slots.launches == 1
+    want = pack_slots_plain(bins, **kw)
     assert sorted(got[0]) == sorted(want[0]) == sorted(bins.planes)
     for name in want[0]:
         g, w = got[0][name], want[0][name]
         assert g.dtype == w.dtype and torch.equal(g, w), name
-    for g, w, name in zip(got[1:], want[1:], ("slot_id", "slot_cell",
-                                               "particle_slot")):
+    for g, w, name in zip(got[1:], want[1:], PACK_OUTPUTS, strict=True):
         assert g.dtype == w.dtype and torch.equal(g, w), name
+    assert (int(got[4].max()) > row_cap) == (scene == "row_cap_overflow")
+    if scene.startswith("halo"):
+        assert bool((bins.slot_id[1] >= bins.particle_slot.shape[-1]).any())
 
-    pack_slots.launches = 0
     on_card = pack_rows(dom, bins, row_cap)
-    assert pack_slots.launches == 1
+    assert pack_slots.launches == 2
     on_cpu = pack_rows(dom, CellBins(
         planes={k: v.cpu() for k, v in bins.planes.items()},
         slot_id=bins.slot_id.cpu(), counts=bins.counts.cpu(),
         offsets=bins.offsets.cpu(), particle_slot=bins.particle_slot.cpu(),
         m_c=m_c), row_cap)
-    assert pack_slots.launches == 1
-    for name in ("slot_id", "slot_cell", "cell_offsets", "row_counts",
-                 "particle_slot"):
+    assert pack_slots.launches == 2
+    for name in PACK_OUTPUTS:
         assert torch.equal(getattr(on_card, name).cpu(),
                            getattr(on_cpu, name)), name
     for name in on_cpu.planes:
@@ -591,8 +640,8 @@ def test_pack_kernel_equals_plain(gen, scene):
     if scene == "fields":
         bins.planes["mass"] = bins.planes["mass"].double()
         with pytest.raises(ValueError, match="4-byte"):
-            pack_slots(bins, offsets, row_counts, **kw)
-        assert pack_slots.launches == 1
+            pack_slots(bins, **kw)
+        assert pack_slots.launches == 2
 
 
 @pytest.mark.parametrize("periodic", [False, True])
@@ -1342,15 +1391,6 @@ def _stacked_scene(gen, periodic, b=3, n=200, ncells=(5, 4, 3)):
     return dom, ParticleState(pos, valid=valid)
 
 
-def _pack_inputs(dom, bins):
-    """Each padded row's exclusive cell offsets and its occupied slots."""
-    nx, ny, nz = dom.ncells
-    occ = bins.slot_id.view(*bins.slot_id.shape[:-3], nz + 2, ny + 2,
-                            nx + 2, bins.m_c) >= 0
-    cc = occ.sum(-1, dtype=torch.int32)
-    return cc.cumsum(-1, dtype=torch.int32) - cc, cc.sum(-1, dtype=torch.int32)
-
-
 BATCH_WRAPPERS = {"B": xpencil_forces, "C": xpencil_sparse_forces,
                   "D": xpencil_packed_forces, "E": allin_forces,
                   "F": cell_sfc_forces, "pack": pack_slots}
@@ -1401,9 +1441,8 @@ def _kernel_outputs(which, dom, bins, kern, plain=False, **kw):
                                     m_c=m_c, **args)
         return cell_sfc_forces(bins.planes, bins.slot_id, sfc.codes, tgt, src,
                                m_c=m_c, **args, **kw)
-    offsets, row_counts = _pack_inputs(dom, bins)
     fn = pack_slots_plain if plain else pack_slots
-    planes, *rest = fn(bins, offsets, row_counts, nx=nx, ny=ny, row_cap=40)
+    planes, *rest = fn(bins, nx=nx, ny=ny, row_cap=40)
     return (*planes.values(), *rest)
 
 
@@ -1478,7 +1517,7 @@ def _covering_plan(dom, states, **kw):
 @pytest.mark.parametrize("periodic", [False, True])
 def test_execute_batch_launches_once_and_equals_loop(gen, periodic):
     """Every "cuda" path: one launch of its kernels for four systems
-    (kernel A once per scan), each system's result equal bit for bit to
+    (kernel A once, in the binning), each system's result equal bit for bit to
     ``execute`` on it alone, the all-padding system's 0."""
     dom, states = _stacked_scene(gen, periodic, b=4, n=300)
     counters = (prefix_sum, pack_slots, xpencil_forces, xpencil_sparse_forces,
@@ -1489,9 +1528,9 @@ def test_execute_batch_launches_once_and_equals_loop(gen, periodic):
             (dict(strategy="xpencil", compact=True),
              {"prefix_sum": 1, "xpencil_sparse_forces": 1}),
             (dict(strategy="xpencil", layout="packed"),
-             {"prefix_sum": 2, "pack_slots": 1, "xpencil_packed_forces": 1}),
+             {"prefix_sum": 1, "pack_slots": 1, "xpencil_packed_forces": 1}),
             (dict(strategy="xpencil", layout="packed", compact=True),
-             {"prefix_sum": 2, "pack_slots": 1, "xpencil_packed_forces": 1}),
+             {"prefix_sum": 1, "pack_slots": 1, "xpencil_packed_forces": 1}),
             (dict(strategy="allin"), {"prefix_sum": 1, "allin_forces": 1}),
             (dict(strategy="cell_dense", layout="sfc"),
              {"prefix_sum": 1, "cell_sfc_forces": 1})):
