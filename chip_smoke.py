@@ -126,6 +126,24 @@ the main paths through ``plan(...).execute()`` and checks and times them:
     13 Gb launches a step, all on the wgmma routes, timed and profiled; the first step against the same step with G and
     Gb's plain versions (the loss, every gradient against an fp32 model's,
     the updated params); the smoke-width model memorizing one batch.
+  * examples: the eight ``examples/torch_*.py`` called in process
+    (``main(argv)``) at the JAX scripts' default arguments, MD at 60 steps,
+    division 4, ppc 5, ``torch_lm_serve`` once per ported arch and
+    ``torch_lm_train`` on qwen1.5-0.5b and gemma2-2b at smoke width: what
+    each returns held (every path on the oracle, MD drift < 0.05, SPH
+    finite, halo shards equal to the one-device plan, no executor built in
+    the serving steady state, a cached autotune plan with no timing run,
+    one dispatch a batch, tokens in range, the smoke loss falling), with
+    its seconds and the kernels it launched;
+  * the dense archs qwen1.5-0.5b, codeqwen1.5-7b and starcoder2-3b at full
+    width and depth (bf16 weights from the seed): ``generate`` on 2
+    prompts of 4096 tokens plus 16 greedy tokens with no kernel launched
+    (every layer global, so kernel G runs 0 times), prefill and decode
+    timed and profiled, the first 4 decode steps' logits against a
+    no-cache ``forward`` over the prompt and those tokens (relative L2
+    <= 2e-2), the prefill's logits against a prefill of the weights upcast
+    to fp32 (<= 5e-2); qwen1.5-0.5b's three train steps on 2 x 4096
+    tokens, each loss within 2e-2 of the fp32-upcast model's.
 
 Per particle, the compacted and packed paths and kernel E must equal the
 dense X-pencil path (kernel B) bit for bit; kernel F sums in another order
@@ -284,6 +302,42 @@ STEP_REL_TOL = 2e-2
 # the smoke-width model (fp32) memorizing one batch on the card: the twin
 # of tests/test_train_ckpt_fault.py::test_loss_decreases (30 steps there)
 SMOKE_TRAIN_STEPS, SMOKE_TRAIN_DROP = 50, 0.5
+
+# the port's examples (examples/torch_*.py), called in process at the JAX
+# scripts' default arguments (MD cut to the verify skill's size), lm_serve
+# once per ported arch and lm_train on the LM examples' default arch and on
+# gemma2-2b, whose local layers run kernels G and Gb
+LM_PORTED = ("gemma2-2b", "qwen1.5-0.5b", "codeqwen1.5-7b", "starcoder2-3b")
+EXAMPLE_RUNS = (
+    ("quickstart", ()),
+    ("md_lennard_jones", ("--steps", "60", "--division", "4", "--ppc", "5")),
+    ("sph_demo", ()),
+    ("distributed_md", ()),
+    ("serve_engine", ()),
+    ("autotune_batch", ()),
+    *(("lm_serve", ("--arch", a)) for a in LM_PORTED),
+    *(("lm_train", ("--arch", a)) for a in ("qwen1.5-0.5b", "gemma2-2b")),
+)
+MD_DRIFT_TOL = 0.05          # the MD example's own OK/HIGH line
+
+# the dense archs at full width and depth (bf16, seed 0), every layer on
+# the global attention path: 2 prompts of 4096 tokens + 16 greedy tokens
+DENSE_ARCHS = ("qwen1.5-0.5b", "codeqwen1.5-7b", "starcoder2-3b")
+DENSE_BATCH, DENSE_PROMPT, DENSE_NEW = 2, 4096, 16
+# (a) the first DENSE_CACHE_STEPS decode steps' logits against a no-cache
+# forward over prompt + generated tokens: both bf16, they differ in how
+# each layer's attention sums (over the cache, or in the flash's chunks)
+# and rounds to bf16, sqrt(L) * 2^-8 = 0.022 at L = 32 layers taken as a
+# random walk
+DENSE_CACHE_STEPS, CACHE_REL_TOL = 4, 2e-2
+# (b) the bf16 prefill's logits against a prefill of the same weights in
+# fp32: every bf16 rounding of the model (the gemma2-2b phase measures
+# 0.0162 over its 26 layers on an H100, ``logits_g_vs_fp32_rel_l2``)
+DENSE_FP32_REL_TOL = 5e-2
+# qwen1.5-0.5b (the LM examples' default) trains at full width: steps of
+# 2 x 4096 tokens, each bf16 loss within 2e-2 relative of the fp32-upcast
+# model's loss on the same batch (STEP_REL_TOL's bf16 reasoning)
+DENSE_TRAIN_ARCH, DENSE_TRAIN_STEPS = "qwen1.5-0.5b", 3
 
 
 def log(*args):
@@ -545,11 +599,12 @@ def sass_counts(source: str):
 
 def logits_diff(got, want, chunk: int = 1024):
     """(||got - want|| / ||want||, max |got - want|) over (B, S, V) logits,
-    a chunk of positions at a time."""
+    a chunk of positions at a time on ``want``'s device."""
     num = den = 0.0
     worst = 0.0
     for i in range(0, want.shape[1], chunk):
-        g, w = got[:, i:i + chunk].float(), want[:, i:i + chunk].float()
+        g = got[:, i:i + chunk].to(want.device).float()
+        w = want[:, i:i + chunk].float()
         d = g - w
         num += float((d * d).sum())
         den += float((w * w).sum())
@@ -1298,6 +1353,345 @@ def lm_training(seed: int, dev, reset_launches, launch_counts):
     log(f"training phase: {res['phase_s']:.1f} s, by part {split}")
     log("gemma2-2b training: " + json.dumps(res))
     return res
+
+
+def load_example(name: str):
+    """``examples/torch_<name>.py`` as a module (its ``main(argv)``)."""
+    import importlib.util
+    path = ROOT / "examples" / f"torch_{name}.py"
+    spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def check_example(name: str, argv, out: dict, launches: dict) -> None:
+    """What example ``name`` returned, and the kernels it launched."""
+    def need(cond, what):
+        if not cond:
+            raise AssertionError(f"example {name} {' '.join(argv)}: {what}"
+                                 f"; returned {out}, launched {launches}")
+
+    need(out["device"].startswith("cuda"), "did not run on the card")
+    if name == "quickstart":
+        need(max(out["rel_err"].values()) <= 3e-4 and not out["replanned"],
+             "a path is off the oracle, or replanned")
+        need({"prefix_sum", "xpencil_forces", "allin_forces",
+              "cell_sfc_forces"} <= set(launches), "a cuda path's kernel "
+             "was not launched")
+    elif name == "md_lennard_jones":
+        need(out["finite"] and out["drift"] < MD_DRIFT_TOL,
+             f"energy drift {out['drift']:.3e} >= {MD_DRIFT_TOL}")
+        need("xpencil_forces" in launches, "kernel B was not launched")
+    elif name == "sph_demo":
+        need(out["finite"] and 0.0 < out["rho_mean"] <= out["rho_max"],
+             "densities not finite and positive")
+        need(launches.get("xpencil_forces", 0) >= 2 * out["steps"],
+             "kernel B not launched twice a step")
+    elif name == "distributed_md":
+        need(out["n_shards"] == 4 and out["compact_bit_equal"]
+             and out["grown_shard_cap"] > 8
+             and out["max_abs_err"] <= 3e-4 * max(out["force_scale"], 1.0),
+             "halo shards off the one-device plan")
+        need({"xpencil_forces", "xpencil_sparse_forces"} <= set(launches),
+             "kernels B and C were not launched")
+    elif name == "serve_engine":
+        need(out["steady_state_recompiles"] == 0, "executors built in the "
+             "steady state")
+        need(out["ok"] == out["requests"], "a request was not served")
+    elif name == "autotune_batch":
+        need(out["cached_timing_runs"] == 0 and out["timed"] > 0,
+             "the cached plan ran timing runs, or nothing was timed")
+        need((out["batch_dispatches"], out["loop_dispatches"]) == (1, 8),
+             "the batch took more than one dispatch")
+    elif name == "lm_serve":
+        need(out["in_vocab"] and out["shape"] == (4, 24), "tokens out of "
+             "range or shape")
+        local = out["arch"].startswith("gemma2")
+        need(launches == ({"window_attention": 2} if local else {}),
+             "kernel G launched where the arch has no local layer, or not "
+             "once a local layer of the prefill")
+    elif name == "lm_train":
+        need(out["loss_falls"] and sorted(out["losses"])[-1] == 199,
+             "the smoke loss did not fall over 200 steps")
+
+
+def examples_phase(reset_launches, launch_counts):
+    """The eight ``examples/torch_*.py`` called in process on the card,
+    each with the launch counts set to 0 just before and read just after;
+    the autotune cache and the checkpoints in fresh ``build/``
+    directories, removed after. -> {"phase_s", "runs": {run: record},
+    "launches": {kernel: launches over all runs}}"""
+    import os
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    scratch = pathlib.Path(tempfile.mkdtemp(prefix="examples_",
+                                            dir=ROOT / "build"))
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(scratch / "autotune")
+    runs = {}
+    for name, argv in EXAMPLE_RUNS:
+        argv = list(argv)
+        if name == "lm_train":
+            argv += ["--ckpt-dir", str(scratch / f"ckpt_{argv[1]}")]
+        mod = load_example(name)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = mod.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = launch_counts()
+        check_example(name, argv, out, launches)
+        label = " ".join([name, *argv[:2]]) if name.startswith("lm_") \
+            else name
+        runs[label] = dict(seconds=seconds, launches=launches,
+                           returned={k: v for k, v in out.items()
+                                     if k != "rel_err"})
+        log(f"example {label}: {seconds:.2f} s, launches {launches}")
+    shutil.rmtree(scratch)
+    os.environ.pop("REPRO_TORCH_AUTOTUNE_CACHE")
+    totals = {}
+    for r in runs.values():
+        for k, v in r["launches"].items():
+            totals[k] = totals.get(k, 0) + v
+    phase_s = time.perf_counter() - t_phase
+    log("examples: " + json.dumps(runs))
+    log(f"examples phase: {phase_s:.1f} s; by run "
+        f"{ {k: round(v['seconds'], 2) for k, v in runs.items()} }")
+    return {"phase_s": phase_s, "runs": runs, "launches": totals}
+
+
+def upcast_in_place(tree) -> None:
+    """Each leaf of ``tree`` replaced by its fp32 copy, one at a time, so
+    each bf16 leaf is freed before the next is copied."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            upcast_in_place(v)
+        else:
+            tree[k] = v.float()
+
+
+def dense_serving(arch: str, seed: int, dev, reset_launches, launch_counts):
+    """One dense arch at full width and depth: ``generate`` counted (no
+    kernel: every layer is global), prefill and decode timed and profiled,
+    the decode cache against a no-cache forward (check a), the bf16
+    prefill against a prefill of the weights upcast to fp32 (check b)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.serving import generate
+
+    cfg = get_config(arch)
+    if cfg.local_global:
+        raise AssertionError(f"{arch} has local layers")
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    rng = np.random.default_rng(seed)
+    b, s, new = DENSE_BATCH, DENSE_PROMPT, DENSE_NEW
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s)),
+                             device=dev)
+    max_len = s + new
+    torch.cuda.reset_peak_memory_stats()
+
+    # -- the main path: counts to 0, generate, counts read ---------------------
+    reset_launches()
+    t0 = time.perf_counter()
+    tokens, logits = generate(cfg, params, prompt, new, max_len=max_len)
+    torch.cuda.synchronize()
+    generate_s = time.perf_counter() - t0
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if launches:
+        raise AssertionError(f"{arch}: generate launched {launches}; every "
+                             f"layer is global, kernel G must not run")
+    if tuple(tokens.shape) != (b, new) or int(tokens.min()) < 0 or \
+            int(tokens.max()) >= cfg.vocab_size:
+        raise AssertionError(f"{arch}: generated tokens out of range")
+    if tuple(logits.shape) != (b, s, cfg.vocab_size) or \
+            not bool(logits.isfinite().all()):
+        raise AssertionError(f"{arch}: prefill logits wrong shape or "
+                             f"non-finite")
+    if not torch.equal(tokens[:, 0], logits[:, -1].argmax(-1)):
+        raise AssertionError(f"{arch}: first token is not the prefill's "
+                             f"greedy token")
+    del logits
+
+    # -- prefill and decode timed; the decode steps' logits kept -------------------
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    logits_b, cache = M.prefill(cfg, params, prompt, max_len=max_len)
+    end.record()
+    end.synchronize()
+    prefill_ms = start.elapsed_time(end)
+    tok = logits_b[:, -1:].argmax(-1)
+    fed, step_logits, dec_ms = [tok], [], []
+    for idx in range(s, max_len - 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        lg, cache = M.decode_step(cfg, params, cache, tok, idx)
+        end.record()
+        end.synchronize()
+        dec_ms.append(start.elapsed_time(end))
+        if len(step_logits) < DENSE_CACHE_STEPS:
+            step_logits.append(lg[:, 0])
+        tok = lg.argmax(-1)
+        fed.append(tok)
+    same_tokens = torch.equal(torch.cat(fed, dim=1), tokens)
+    decode_ms = statistics.median(dec_ms)
+    decode_dev_ms, decode_kernels, decode_calls = profile_card_only(
+        lambda: M.decode_step(cfg, params, cache, tok, max_len - 1))
+    del cache
+    prefill_dev_ms, prefill_kernels, prefill_calls = profile_card_only(
+        lambda: M.prefill(cfg, params, prompt, max_len=max_len))
+
+    # -- (a) the decode cache against a no-cache forward ---------------------------
+    n = DENSE_CACHE_STEPS
+    seq = torch.cat([prompt, *fed[:n]], dim=1)
+    reset_launches()
+    full, _ = M.forward(cfg, params, seq, remat=False)
+    if launch_counts():
+        raise AssertionError(f"{arch}: forward launched {launch_counts()}")
+    cache_rel, cache_worst = logits_diff(torch.stack(step_logits, 1),
+                                         full[:, s:s + n])
+    del full, step_logits
+    if not cache_rel <= CACHE_REL_TOL:
+        raise AssertionError(f"{arch}: {n} decode steps vs a no-cache "
+                             f"forward, relative L2 {cache_rel:.3e} (tol "
+                             f"{CACHE_REL_TOL})")
+
+    # -- (b) the bf16 prefill against the same weights in fp32 ---------------------
+    logits_host = logits_b.cpu()
+    del logits_b
+    upcast_in_place(params)
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    reset_launches()
+    logits_32, cache = M.prefill(cfg32, params, prompt, max_len=s)
+    torch.cuda.synchronize()
+    fp32_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del cache, params
+    if launch_counts():
+        raise AssertionError(f"{arch}: fp32 prefill launched "
+                             f"{launch_counts()}")
+    fp32_rel, fp32_worst = logits_diff(logits_host, logits_32)
+    del logits_32, logits_host
+    torch.cuda.empty_cache()
+    if not fp32_rel <= DENSE_FP32_REL_TOL:
+        raise AssertionError(f"{arch}: bf16 prefill vs fp32, relative L2 "
+                             f"{fp32_rel:.3e} (tol {DENSE_FP32_REL_TOL})")
+    return {
+        "case": f"{arch} {cfg.dtype}, B={b}, prompt {s}, {new} new tokens",
+        "n_params": n_params, "init_s": init_s, "generate_s": generate_s,
+        "launches": launches, "peak_allocated_gb": peak_gb,
+        "fp32_prefill_peak_allocated_gb": fp32_peak_gb,
+        "prefill_ms": prefill_ms, "prefill_device_ms": prefill_dev_ms,
+        "prefill_busy_share": prefill_dev_ms / prefill_ms,
+        "prefill_launch_calls": prefill_calls,
+        "prefill_tokens_per_s": b * s / prefill_ms * 1e3,
+        "prefill_device_ms_by_group": group_kernel_times(prefill_kernels),
+        "prefill_top_kernels": [(k[:72], ms) for k, ms in
+                                prefill_kernels[:6]],
+        "decode_ms_per_token": decode_ms, "decode_ms_all": dec_ms,
+        "decode_device_ms": decode_dev_ms,
+        "decode_busy_share": decode_dev_ms / decode_ms,
+        "decode_launch_calls_per_token": decode_calls,
+        "decode_device_ms_by_group": group_kernel_times(decode_kernels),
+        "decode_tokens_equal_generate": same_tokens,
+        "cache_vs_forward_rel_l2": cache_rel,
+        "cache_vs_forward_max_abs": cache_worst,
+        "bf16_vs_fp32_rel_l2": fp32_rel, "bf16_vs_fp32_max_abs": fp32_worst,
+    }
+
+
+def dense_training(seed: int, dev, reset_launches, launch_counts):
+    """DENSE_TRAIN_ARCH at full width and depth: DENSE_TRAIN_STEPS
+    ``make_train_step`` steps of DENSE_BATCH x DENSE_PROMPT tokens (bf16,
+    remat, AdamW), each loss against the fp32-upcast model's loss on the
+    same batch at the same params; no kernel launched (no local layer)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, batch_at
+    from repro_torch.models import model as M
+    from repro_torch.optim import AdamConfig, init_opt_state
+    from repro_torch.train import make_loss_fn, make_train_step
+
+    cfg = get_config(DENSE_TRAIN_ARCH)
+    params = M.init_params(cfg, seed, device=dev)
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=DENSE_PROMPT,
+                      global_batch=DENSE_BATCH)
+    batches = [dict(zip(("tokens", "labels"), batch_at(data, i, device=dev)))
+               for i in range(DENSE_TRAIN_STEPS)]
+    opt_cfg = AdamConfig(total_steps=DENSE_TRAIN_STEPS, warmup_steps=1,
+                         moment_dtype=cfg.moment_dtype)
+    step = make_train_step(cfg, opt_cfg)
+    opt = init_opt_state(params, opt_cfg)
+    loss32_fn = make_loss_fn(dataclasses.replace(cfg, dtype="float32"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses, losses32, rels = [], [], [], []
+    for i in range(DENSE_TRAIN_STEPS):
+        with torch.no_grad():
+            l32, _ = loss32_fn(_map(params, lambda t: t.float()), batches[i])
+            losses32.append(float(l32))
+        del l32
+        reset_launches()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics, params, opt = step(params, opt, batches[i])
+        end.record()
+        end.synchronize()
+        if launch_counts():
+            raise AssertionError(f"{DENSE_TRAIN_ARCH} train step launched "
+                                 f"{launch_counts()}")
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(metrics["loss"]))
+        rels.append(abs(losses[-1] - losses32[-1]) / abs(losses32[-1]))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(np.isfinite(losses)) or max(rels) > STEP_REL_TOL:
+        raise AssertionError(f"{DENSE_TRAIN_ARCH} train steps: losses "
+                             f"{losses} vs fp32 {losses32}, relative "
+                             f"{rels} (tol {STEP_REL_TOL})")
+    ms = statistics.median(step_ms[1:])
+    del params, opt, batches
+    torch.cuda.empty_cache()
+    return {"case": f"{DENSE_TRAIN_ARCH} {cfg.dtype}, B={DENSE_BATCH}, "
+                    f"S={DENSE_PROMPT}, remat, AdamW, {DENSE_TRAIN_STEPS} "
+                    f"steps",
+            "step_ms": ms, "step_ms_all": step_ms,
+            "tokens_per_s": DENSE_BATCH * DENSE_PROMPT / ms * 1e3,
+            "peak_allocated_gb": peak_gb, "losses": losses,
+            "fp32_losses": losses32, "loss_rel_to_fp32": rels}
+
+
+def dense_lm_phase(seed: int, dev, reset_launches, launch_counts):
+    """The three dense archs served at full width and depth, then
+    DENSE_TRAIN_ARCH's train steps. -> {arch: record, "train": record}"""
+    t_phase = time.perf_counter()
+    out = {}
+    for arch in DENSE_ARCHS:
+        t0 = time.perf_counter()
+        out[arch] = dense_serving(arch, seed, dev, reset_launches,
+                                  launch_counts)
+        out[arch]["seconds"] = time.perf_counter() - t0
+        log(f"{arch}: " + json.dumps(out[arch]))
+    t0 = time.perf_counter()
+    out["train"] = dense_training(seed, dev, reset_launches, launch_counts)
+    out["train"]["seconds"] = time.perf_counter() - t0
+    log(f"{DENSE_TRAIN_ARCH} training: " + json.dumps(out["train"]))
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"dense LM phase: {out['phase_s']:.1f} s")
+    return out
 
 
 def precision_flags():
@@ -4399,6 +4793,10 @@ def main(argv=None) -> int:
         f"version, each bit-equal over two runs; max |diff| "
         f"{gb_sweep_err:.3e}; {time.perf_counter() - t0:.1f} s")
     train = lm_training(args.seed, dev, reset_launches, launch_counts)
+    torch.cuda.empty_cache()
+    examples_rec = examples_phase(reset_launches, launch_counts)
+    torch.cuda.empty_cache()
+    dense_rec = dense_lm_phase(args.seed, dev, reset_launches, launch_counts)
 
     a, b = new_cases["a"], new_cases["b"]
     sfc_main = sfc_results[0]
@@ -4610,6 +5008,11 @@ def main(argv=None) -> int:
         entry["serving_launches"] = serve_rec["serving_launches"].get(
             entry["name"], {})
         entry["halo_launches"] = halo_rec["launches"].get(entry["name"], 0)
+        entry["examples_launches"] = examples_rec["launches"].get(
+            entry["name"], 0)
+        entry["dense_lm_launches"] = sum(
+            dense_rec[a]["launches"].get(entry["name"], 0)
+            for a in DENSE_ARCHS)
         if entry["name"] in batch_launches:
             entry["launches_per_execute_batch"] = sorted(
                 batch_launches[entry["name"]])

@@ -4,7 +4,8 @@ All-in-SM, Par-Part, Par-Cell) and Par-Cell over SFC cell clusters, and
 the MD/SPH runs on top of it (``plan.trajectory``: ``repro_torch.traj``,
 ``physics``, ``ckpt``, ``testing.chaos``), the serving tier
 (``repro_torch.serve``) and Z-slab halo execution (``backend="halo"``:
-``repro_torch.dist``); on the LM side gemma2-2b serving
+``repro_torch.dist``); on the LM side the dense archs (gemma2-2b,
+qwen1.5-0.5b, codeqwen1.5-7b, starcoder2-3b) serving
 (``repro_torch.models``) and training (``repro_torch.train``, ``optim``,
 ``data``, ``launch.train``).
 

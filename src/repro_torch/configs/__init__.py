@@ -1,5 +1,6 @@
-"""Config registry of the port: the JAX package's arch ids, of which only
-gemma2-2b is ported; every other arch raises and names its ROADMAP item."""
+"""Config registry of the port: the JAX package's arch ids, of which the
+dense ones are ported (gemma2-2b, qwen1.5-0.5b, codeqwen1.5-7b,
+starcoder2-3b); every other arch raises and names its ROADMAP item."""
 
 from __future__ import annotations
 
@@ -15,7 +16,10 @@ ARCH_IDS: List[str] = [
     "phi-3-vision-4.2b", "whisper-base",
 ]
 
-_PORTED: Dict[str, str] = {"gemma2-2b": "gemma2_2b"}
+_PORTED: Dict[str, str] = {
+    "gemma2-2b": "gemma2_2b", "qwen1.5-0.5b": "qwen1_5_0_5b",
+    "codeqwen1.5-7b": "codeqwen1_5_7b", "starcoder2-3b": "starcoder2_3b",
+}
 
 
 def _module(arch: str):

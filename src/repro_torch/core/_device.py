@@ -22,3 +22,11 @@ def resolve_device(device=None) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def describe_device(dev: torch.device) -> str:
+    """``"platform: cuda, device: <card's name>"`` for a CUDA device,
+    ``"platform: <type>"`` for any other."""
+    if dev.type == "cuda":
+        return f"platform: cuda, device: {torch.cuda.get_device_name(dev)}"
+    return f"platform: {dev.type}"

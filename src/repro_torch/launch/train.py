@@ -5,7 +5,9 @@ The production loop at a runnable scale: config -> init (seed 0) -> train
 loop with a checkpoint every K steps, restart from the latest checkpoint
 with the data cursor, a straggler watchdog, and the deterministic data
 pipeline, driven by ``dist.fault.run_with_restarts``. It runs on the CUDA
-card unless ``--device`` names another device. One device: JAX's mesh and
+card unless ``--device`` names another device. ``--arch`` takes every id;
+the dense archs (gemma2-2b, qwen1.5-0.5b, codeqwen1.5-7b, starcoder2-3b)
+train, the others raise naming their item. One device: JAX's mesh and
 sharded init wait with the rest of ``launch/`` (ROADMAP Queue 1 item 13).
 """
 

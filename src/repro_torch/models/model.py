@@ -1,9 +1,10 @@
 """Model assembly: init / forward / prefill / decode, decoder-only dense.
 
-The port of ``repro/models/model.py`` for the ``dense`` family (of the
-configs, only gemma2-2b is ported). ``init_params(cfg, seed) -> params`` is
-a nested dict with the layer weights stacked over a leading L dimension,
-as in JAX; the layer scan is a Python loop over that dimension.
+The port of ``repro/models/model.py`` for the ``dense`` family: the
+configs gemma2-2b, qwen1.5-0.5b, codeqwen1.5-7b and starcoder2-3b.
+``init_params(cfg, seed) -> params`` is a nested dict with the layer
+weights stacked over a leading L dimension, as in JAX; the layer scan is a
+Python loop over that dimension.
 
 Modes:
   forward      full-sequence logits

@@ -31,6 +31,10 @@ torch.set_num_threads(1)
 
 TOL = 2e-3
 B, S, N_DECODE = 2, 32, 4          # S = 32 > window 8: every local layer
+PORTED = ["gemma2-2b", "qwen1.5-0.5b", "codeqwen1.5-7b", "starcoder2-3b"]
+# every layer global: QKV bias (qwen, codeqwen), an untied LM head
+# (codeqwen), LayerNorm with bias, GQA 2 and the ungated GELU (starcoder2)
+DENSE = ["qwen1.5-0.5b", "codeqwen1.5-7b", "starcoder2-3b"]
 
 
 @pytest.fixture(scope="module")
@@ -52,14 +56,14 @@ def _close(got, want, tol=TOL):
                                rtol=tol, atol=tol)
 
 
-def test_config_matches_jax():
+@pytest.mark.parametrize("arch", PORTED)
+def test_config_matches_jax(arch):
     from repro.configs import get_config as jax_config
-    full = TC.get_config("gemma2-2b")
-    assert dataclasses.asdict(full) == \
-        dataclasses.asdict(jax_config("gemma2-2b"))
-    assert dataclasses.asdict(TC.get_smoke_config("gemma2-2b")) == \
-        dataclasses.asdict(jax_smoke_config("gemma2-2b"))
-    assert full.param_count() == jax_config("gemma2-2b").param_count()
+    full = TC.get_config(arch)
+    assert dataclasses.asdict(full) == dataclasses.asdict(jax_config(arch))
+    assert dataclasses.asdict(TC.get_smoke_config(arch)) == \
+        dataclasses.asdict(jax_smoke_config(arch))
+    assert full.param_count() == jax_config(arch).param_count()
 
 
 def test_param_tree_matches_jax(setup):
@@ -220,6 +224,42 @@ def test_generate_matches_jax(setup):
     assert compared >= 1
 
 
+@pytest.mark.parametrize("arch", DENSE)
+def test_dense_arch_matches_jax(arch):
+    """``smoke()`` in float32 on JAX's weights: the param tree, forward and
+    prefill logits, the prefill's KV cache and three teacher-forced
+    ``decode_step``s within TOL of JAX's; no kernel launched."""
+    cfg, jcfg = TC.get_smoke_config(arch), jax_smoke_config(arch)
+    jparams = JM.init_params(jcfg, jax.random.PRNGKey(0))
+    params = params_from_jax(cfg, jax.tree.map(np.asarray, jparams), "cpu")
+    mine = TM.init_params(cfg, 0, device="cpu")
+    assert {jax.tree_util.keystr(p): v.shape for p, v in
+            jax.tree_util.tree_flatten_with_path(jparams)[0]} == \
+        {jax.tree_util.keystr(p): tuple(v.shape) for p, v in
+         jax.tree_util.tree_flatten_with_path(mine)[0]}
+    tokens = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (B, S + 3), dtype=np.int32)
+    prompt = tokens[:, :S]
+    j_logits, _ = JM.forward(jcfg, jparams, prompt, remat=False)
+    j_pre, j_cache = JM.prefill(jcfg, jparams, prompt, max_len=S + 3)
+    window_attention.launches = 0
+    t_logits, _ = TM.forward(cfg, params, torch.tensor(prompt))
+    t_pre, t_cache = TM.prefill(cfg, params, torch.tensor(prompt),
+                                max_len=S + 3)
+    _close(t_logits, j_logits)
+    _close(t_pre, j_pre)
+    for name in ("k", "v"):
+        _close(t_cache[name], j_cache[name])
+    j_step = jax.jit(lambda c, t, i: JM.decode_step(jcfg, jparams, c, t, i))
+    for n in range(3):
+        tok = tokens[:, S + n:S + n + 1]
+        j_lg, j_cache = j_step(j_cache, tok, jnp.int32(S + n))
+        t_lg, t_cache = TM.decode_step(cfg, params, t_cache,
+                                       torch.tensor(tok), S + n)
+        _close(t_lg, j_lg)
+    assert window_attention.launches == 0
+
+
 # bf16 against an fp32 model of the same (bf16) weights: the port's
 # relative L2 may be at most this factor of JAX's own bf16 model's. The two
 # bf16 models round at different places (XLA's fusions keep some
@@ -278,7 +318,7 @@ def test_bf16_model_as_close_to_fp32_as_jax(setup):
 
 
 @pytest.mark.parametrize("arch", [a for a in TC.ARCH_IDS
-                                  if a != "gemma2-2b"])
+                                  if a not in PORTED])
 def test_unported_archs_raise_with_roadmap_item(arch):
     with pytest.raises(ValueError, match=r"Queue 1 item 13\b"):
         TC.get_config(arch)
