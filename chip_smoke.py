@@ -143,7 +143,21 @@ the main paths through ``plan(...).execute()`` and checks and times them:
     no-cache ``forward`` over the prompt and those tokens (relative L2
     <= 2e-2), the prefill's logits against a prefill of the weights upcast
     to fp32 (<= 5e-2); qwen1.5-0.5b's three train steps on 2 x 4096
-    tokens, each loss within 2e-2 of the fp32-upcast model's.
+    tokens, each loss within 2e-2 of the fp32-upcast model's;
+  * the MoE archs at full width and reduced depth (grok-1-314b 4 of 64
+    layers, arctic-480b 2 of 35; bf16): ``generate`` on 2 x 4096 + 16
+    with kernel A launched exactly once a MoE layer in the prefill and in
+    each decode step, the prefill's expert offsets ``torch.equal`` to
+    ``paper_prefix_sum``'s, the dropped assignments a layer, prefill and
+    decode timed and profiled, the decode cache against a no-cache
+    forward where nothing drops, layer 0's MoE block in bf16 against a
+    per-expert fp32 reference; mamba2-130m and zamba2-1.2b at full width
+    and depth: a 2 x 4096 prefill timed and profiled, ``generate`` on 2 x
+    256 + 16 (the prompt replayed through decode steps) with no kernel
+    launched, the replay against a no-cache forward in fp32, the middle
+    layer's blocks in bf16 against fp32; mamba2-130m's three train steps
+    on 2 x 4096 tokens; grok-1-314b's smoke config memorizing one batch,
+    kernel A twice a MoE layer a step.
 
 Per particle, the compacted and packed paths and kernel E must equal the
 dense X-pencil path (kernel B) bit for bit; kernel F sums in another order
@@ -305,9 +319,11 @@ SMOKE_TRAIN_STEPS, SMOKE_TRAIN_DROP = 50, 0.5
 
 # the port's examples (examples/torch_*.py), called in process at the JAX
 # scripts' default arguments (MD cut to the verify skill's size), lm_serve
-# once per ported arch and lm_train on the LM examples' default arch and on
-# gemma2-2b, whose local layers run kernels G and Gb
-LM_PORTED = ("gemma2-2b", "qwen1.5-0.5b", "codeqwen1.5-7b", "starcoder2-3b")
+# once per ported arch (at smoke width: 4 prompts of 12 tokens, 24 new) and
+# lm_train on the LM examples' default arch and on gemma2-2b, whose local
+# layers run kernels G and Gb
+LM_PORTED = ("gemma2-2b", "qwen1.5-0.5b", "codeqwen1.5-7b", "starcoder2-3b",
+             "grok-1-314b", "arctic-480b", "mamba2-130m", "zamba2-1.2b")
 EXAMPLE_RUNS = (
     ("quickstart", ()),
     ("md_lennard_jones", ("--steps", "60", "--division", "4", "--ppc", "5")),
@@ -338,6 +354,49 @@ DENSE_FP32_REL_TOL = 5e-2
 # 2 x 4096 tokens, each bf16 loss within 2e-2 relative of the fp32-upcast
 # model's loss on the same batch (STEP_REL_TOL's bf16 reasoning)
 DENSE_TRAIN_ARCH, DENSE_TRAIN_STEPS = "qwen1.5-0.5b", 3
+
+
+# the MoE archs at full width, their depth cut to what fits one 80 GB card
+# with the bf16 weights (grok-1-314b ~9.8 GB a layer, arctic-480b ~27 GB),
+# bf16, seed 0: generate on 2 x 4096 prompt tokens + 16 new, kernel A
+# launched once a MoE layer in the prefill and in every decode step
+MOE_ARCHS = (("grok-1-314b", 4), ("arctic-480b", 2))   # arch, layers kept
+MOE_BATCH, MOE_PROMPT, MOE_NEW = 2, 4096, 16
+# (a) decode vs a no-cache forward where no assignment drops: a short
+# prompt, and the capacity factor E / top_k, at which an expert's
+# capacity is every token (moe_capacity(T, E, k, E / k) > T), so nothing
+# can drop; decode's capacity is the same 8 rows at either factor
+MOE_CACHE_PROMPT = 64
+# (b) one MoE block (layer 0's) in bf16 against an fp32 reference
+# (each expert's weights upcast in turn, no capacity limit) whose input
+# comes through layer 0 in fp32: on the tokens routed to the same experts
+# in both and not dropped in the bf16 run, the bf16 block's relative L2
+# (the bf16 roundings of the block's input, its GEMMs and their outputs,
+# a few 2^-8 taken as a random walk)
+BLOCK_REL_TOL = 2e-2
+# the SSM archs at full width and depth (bf16, seed 0): the prefill of 2 x
+# 4096 tokens timed; generate on 2 x 256 + 16, whose replay of the prompt
+# is one decode step a token (a 4096-token replay would take minutes of
+# launches). With random weights the Mamba stack amplifies each rounding:
+# on an H100 the bf16 replay departs from a bf16 forward by 0.155 / 0.227
+# (mamba2-130m / zamba2-1.2b; reported as bf16_cache_vs_forward_rel_l2),
+# while one block in bf16 is within 0.003-0.008 of fp32. So (a), the
+# replay's last logits and 3 decode steps against a no-cache forward, runs
+# on the weights upcast to fp32, where the SSD's chunked sums and the
+# recurrence's still differ by 3.5e-5 / 6.5e-5 through the depth; 1e-3
+# leaves an order over that and fails a path that rounds to bf16 by two;
+# and (b), bf16 against fp32, is held a block at a time: the middle
+# layer's Mamba-2 mixer (and zamba2's shared attention and MLP) on the
+# bf16 model's hidden state, BLOCK_REL_TOL as for the MoE block. The
+# whole model's bf16 distances are reported, not held
+SSM_ARCHS = ("mamba2-130m", "zamba2-1.2b")
+SSM_REPLAY_PROMPT, SSM_CACHE_STEPS = 256, 3
+SSM_FP32_CACHE_REL_TOL = 1e-3
+# mamba2-130m trains at full width and depth on 2 x 4096 tokens; the MoE
+# backward through the kernel-A dispatch runs on grok-1-314b's smoke config
+# (full-width MoE training waits: one grok layer with AdamW is ~60 GB)
+SSM_TRAIN_ARCH, SSM_TRAIN_STEPS = "mamba2-130m", 3
+MOE_TRAIN_ARCH = "grok-1-314b"
 
 
 def log(*args):
@@ -1405,12 +1464,15 @@ def check_example(name: str, argv, out: dict, launches: dict) -> None:
         need((out["batch_dispatches"], out["loop_dispatches"]) == (1, 8),
              "the batch took more than one dispatch")
     elif name == "lm_serve":
+        from repro_torch.configs import get_smoke_config
         need(out["in_vocab"] and out["shape"] == (4, 24), "tokens out of "
              "range or shape")
-        local = out["arch"].startswith("gemma2")
-        need(launches == ({"window_attention": 2} if local else {}),
-             "kernel G launched where the arch has no local layer, or not "
-             "once a local layer of the prefill")
+        scfg = get_smoke_config(argv[1])
+        # G once a local layer of the prefill (gemma2); A once a MoE layer
+        # of the prefill and of each of the 23 decode steps
+        want = ({"window_attention": 2} if scfg.local_global else
+                {"prefix_sum": 24 * scfg.n_layers} if scfg.n_experts else {})
+        need(launches == want, f"launched other than {want}")
     elif name == "lm_train":
         need(out["loss_falls"] and sorted(out["losses"])[-1] == 199,
              "the smoke loss did not fall over 200 steps")
@@ -1612,11 +1674,14 @@ def dense_serving(arch: str, seed: int, dev, reset_launches, launch_counts):
     }
 
 
-def dense_training(seed: int, dev, reset_launches, launch_counts):
-    """DENSE_TRAIN_ARCH at full width and depth: DENSE_TRAIN_STEPS
-    ``make_train_step`` steps of DENSE_BATCH x DENSE_PROMPT tokens (bf16,
-    remat, AdamW), each loss against the fp32-upcast model's loss on the
-    same batch at the same params; no kernel launched (no local layer)."""
+def dense_training(seed: int, dev, reset_launches, launch_counts,
+                   arch: str = DENSE_TRAIN_ARCH,
+                   n_steps: int = DENSE_TRAIN_STEPS):
+    """``arch`` (DENSE_TRAIN_ARCH, or SSM_TRAIN_ARCH) at full width and
+    depth: ``n_steps`` ``make_train_step`` steps of DENSE_BATCH x
+    DENSE_PROMPT tokens (bf16, remat, AdamW), each loss against the
+    fp32-upcast model's loss on the same batch at the same params; no kernel
+    launched (no local layer, no expert)."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -1625,13 +1690,13 @@ def dense_training(seed: int, dev, reset_launches, launch_counts):
     from repro_torch.optim import AdamConfig, init_opt_state
     from repro_torch.train import make_loss_fn, make_train_step
 
-    cfg = get_config(DENSE_TRAIN_ARCH)
+    cfg = get_config(arch)
     params = M.init_params(cfg, seed, device=dev)
     data = DataConfig(vocab_size=cfg.vocab_size, seq_len=DENSE_PROMPT,
                       global_batch=DENSE_BATCH)
     batches = [dict(zip(("tokens", "labels"), batch_at(data, i, device=dev)))
-               for i in range(DENSE_TRAIN_STEPS)]
-    opt_cfg = AdamConfig(total_steps=DENSE_TRAIN_STEPS, warmup_steps=1,
+               for i in range(n_steps)]
+    opt_cfg = AdamConfig(total_steps=n_steps, warmup_steps=1,
                          moment_dtype=cfg.moment_dtype)
     step = make_train_step(cfg, opt_cfg)
     opt = init_opt_state(params, opt_cfg)
@@ -1639,7 +1704,7 @@ def dense_training(seed: int, dev, reset_launches, launch_counts):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     step_ms, losses, losses32, rels = [], [], [], []
-    for i in range(DENSE_TRAIN_STEPS):
+    for i in range(n_steps):
         with torch.no_grad():
             l32, _ = loss32_fn(_map(params, lambda t: t.float()), batches[i])
             losses32.append(float(l32))
@@ -1652,21 +1717,21 @@ def dense_training(seed: int, dev, reset_launches, launch_counts):
         end.record()
         end.synchronize()
         if launch_counts():
-            raise AssertionError(f"{DENSE_TRAIN_ARCH} train step launched "
+            raise AssertionError(f"{arch} train step launched "
                                  f"{launch_counts()}")
         step_ms.append(start.elapsed_time(end))
         losses.append(float(metrics["loss"]))
         rels.append(abs(losses[-1] - losses32[-1]) / abs(losses32[-1]))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if not all(np.isfinite(losses)) or max(rels) > STEP_REL_TOL:
-        raise AssertionError(f"{DENSE_TRAIN_ARCH} train steps: losses "
+        raise AssertionError(f"{arch} train steps: losses "
                              f"{losses} vs fp32 {losses32}, relative "
                              f"{rels} (tol {STEP_REL_TOL})")
     ms = statistics.median(step_ms[1:])
     del params, opt, batches
     torch.cuda.empty_cache()
-    return {"case": f"{DENSE_TRAIN_ARCH} {cfg.dtype}, B={DENSE_BATCH}, "
-                    f"S={DENSE_PROMPT}, remat, AdamW, {DENSE_TRAIN_STEPS} "
+    return {"case": f"{arch} {cfg.dtype}, B={DENSE_BATCH}, "
+                    f"S={DENSE_PROMPT}, remat, AdamW, {n_steps} "
                     f"steps",
             "step_ms": ms, "step_ms_all": step_ms,
             "tokens_per_s": DENSE_BATCH * DENSE_PROMPT / ms * 1e3,
@@ -1691,6 +1756,525 @@ def dense_lm_phase(seed: int, dev, reset_launches, launch_counts):
     log(f"{DENSE_TRAIN_ARCH} training: " + json.dumps(out["train"]))
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"dense LM phase: {out['phase_s']:.1f} s")
+    return out
+
+
+def moe_block_input(cfg, params, tokens, dtype):
+    """Layer 0's MoE block input (embedding, layer 0's attention and
+    residual, norm2) with the weights in ``dtype``: in the model's dtype
+    the same ops as the model's, in fp32 the upcast weights'."""
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import apply_norm
+
+    lp = M._index(params["layers"], 0)
+    conv = lambda tree: {k: v.to(dtype) for k, v in tree.items()}  # noqa: E731
+    x = params["embed"][tokens].to(dtype)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    cfg_d = dataclasses.replace(cfg, dtype=str(dtype).split(".")[1])
+    h, _, _ = M._self_attention(cfg_d, conv(lp["attn"]),
+                                apply_norm(x, conv(lp["norm1"]), cfg.norm),
+                                positions, False)
+    return apply_norm(x + h, conv(lp["norm2"]), cfg.norm)
+
+
+def moe_reference_block(x32, p, top_k: int, act):
+    """One MoE block in fp32 without a capacity limit, the plain
+    reference of check (b): the fp32 router, the top k of a stable
+    descending sort (the lower expert first on a tie, as ``lax.top_k``),
+    the gates renormalised, each expert's weights upcast in turn (never the
+    whole expert tensor). x32 (T, d) -> (out (T, d), experts (T, k))."""
+    probs = torch.softmax(x32 @ p["router"], dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    vals, idx = vals[:, :top_k], idx[:, :top_k]
+    vals = vals / vals.sum(-1, keepdim=True).clamp_min(1e-9)
+    out = torch.zeros_like(x32)
+    for e in range(p["router"].shape[-1]):
+        tok, j = (idx == e).nonzero(as_tuple=True)
+        if tok.numel():
+            rows = x32[tok]
+            h = act(rows @ p["w_gate"][e].float()) * \
+                (rows @ p["w_up"][e].float())
+            out.index_add_(0, tok, (h @ p["w_down"][e].float())
+                           * vals[tok, j, None])
+    return out, idx
+
+
+def moe_serving(arch: str, n_layers: int, seed: int, dev, reset_launches,
+                launch_counts):
+    """One MoE arch at full width, ``n_layers`` of its layers (bf16):
+    ``generate`` counted (kernel A once a MoE layer in the prefill and in
+    every decode step), prefill and decode timed and profiled, the
+    prefill's expert offsets from kernel A against ``paper_prefix_sum``'s
+    and its dropped assignments a layer, check (a) the decode cache against
+    a no-cache forward where nothing drops, check (b) layer 0's MoE block
+    in bf16 against an fp32 reference."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.prefix import exclusive_prefix_sum, paper_prefix_sum
+    from repro_torch.kernels.prefix_sum import prefix_sum
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import _act
+    from repro_torch.models.moe import moe_capacity, moe_mlp
+    from repro_torch.models.serving import generate
+
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=n_layers)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    weight_gb = sum(t.numel() * t.element_size()
+                    for t in _leaves(params)) / 1e9
+    rng = np.random.default_rng(seed)
+    b, s, new = MOE_BATCH, MOE_PROMPT, MOE_NEW
+    # a decode step reads every weight but the embedding table (each
+    # expert's capacity buffer runs, JAX's design) and the bf16 KV cache
+    decode_bytes = weight_gb * 1e9 - params["embed"].numel() * 2 + \
+        2 * n_layers * b * cfg.n_kv_heads * (s + new) * cfg.head_dim * 2
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s)),
+                             device=dev)
+    max_len = s + new
+    torch.cuda.reset_peak_memory_stats()
+
+    # -- the main path: counts to 0, generate, counts read ---------------------
+    reset_launches()
+    t0 = time.perf_counter()
+    tokens, logits = generate(cfg, params, prompt, new, max_len=max_len)
+    torch.cuda.synchronize()
+    generate_s = time.perf_counter() - t0
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if launches != {"prefix_sum": n_layers * new}:
+        raise AssertionError(f"{arch}: generate launched {launches}, want "
+                             f"kernel A {n_layers} x {new} times (a MoE "
+                             f"layer of the prefill and of {new - 1} decode "
+                             f"steps)")
+    if tuple(tokens.shape) != (b, new) or int(tokens.min()) < 0 or \
+            int(tokens.max()) >= cfg.vocab_size:
+        raise AssertionError(f"{arch}: generated tokens out of range")
+    if tuple(logits.shape) != (b, s, cfg.vocab_size) or \
+            not bool(logits.isfinite().all()):
+        raise AssertionError(f"{arch}: prefill logits wrong shape or "
+                             f"non-finite")
+    if not torch.equal(tokens[:, 0], logits[:, -1].argmax(-1)):
+        raise AssertionError(f"{arch}: first token is not the prefill's "
+                             f"greedy token")
+    del logits
+
+    # -- prefill timed, its routing kept; decode steps timed -----------------------
+    moe_mlp.log = []
+    reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    logits_b, cache = M.prefill(cfg, params, prompt, max_len=max_len)
+    end.record()
+    end.synchronize()
+    prefill_ms = start.elapsed_time(end)
+    prefill_launches = launch_counts()
+    routing, moe_mlp.log = moe_mlp.log, None
+    del logits_b
+    if prefill_launches != {"prefix_sum": n_layers} or \
+            len(routing) != n_layers:
+        raise AssertionError(f"{arch}: a prefill launched "
+                             f"{prefill_launches} over {len(routing)} MoE "
+                             f"layers, want kernel A once a layer")
+    cap = moe_capacity(b * s, cfg.n_experts, cfg.top_k, cfg.capacity_factor)
+    for i, r in enumerate(routing):
+        plain = exclusive_prefix_sum(r.counts, scan=paper_prefix_sum)
+        if not torch.equal(r.offsets, plain) or r.cap != cap or \
+                int(r.counts.sum()) != b * s * cfg.top_k:
+            raise AssertionError(f"{arch} layer {i}: kernel A's expert "
+                                 f"offsets differ from paper_prefix_sum's")
+    dropped = [int((~r.keep).sum()) for r in routing]
+    max_load = [int(r.counts.max()) for r in routing]
+    counts0 = routing[0].counts
+    del routing
+    scan_ms = cuda_ms(lambda: prefix_sum(counts0), 20)
+    scan_plain_ms = cuda_ms(lambda: paper_prefix_sum(counts0), 20)
+    cumsum_ms = cuda_ms(lambda: torch.cumsum(counts0, 0), 20)
+    tok = tokens[:, :1]
+    dec_ms = []
+    for idx in range(s, max_len - 1):
+        reset_launches()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        lg, cache = M.decode_step(cfg, params, cache, tok, idx)
+        end.record()
+        end.synchronize()
+        dec_ms.append(start.elapsed_time(end))
+        if launch_counts() != {"prefix_sum": n_layers}:
+            raise AssertionError(f"{arch}: a decode step launched "
+                                 f"{launch_counts()}, want kernel A once a "
+                                 f"layer")
+        tok = lg.argmax(-1)
+    decode_ms = statistics.median(dec_ms)
+    decode_dev_ms, decode_kernels, decode_calls = profile_card_only(
+        lambda: M.decode_step(cfg, params, cache, tok, max_len - 1))
+    del cache
+    prefill_dev_ms, prefill_kernels, prefill_calls = profile_card_only(
+        lambda: M.prefill(cfg, params, prompt, max_len=max_len))
+
+    # -- (a) the decode cache against a no-cache forward, nothing dropped ------
+    cfg_a = dataclasses.replace(cfg, capacity_factor=cfg.n_experts
+                                / cfg.top_k)
+    pa, n = MOE_CACHE_PROMPT, DENSE_CACHE_STEPS
+    moe_mlp.log = []
+    lg, cache = M.prefill(cfg_a, params, prompt[:, :pa], max_len=pa + n)
+    tok = lg[:, -1:].argmax(-1)
+    fed, step_logits = [tok], []
+    for idx in range(pa, pa + n):
+        lg, cache = M.decode_step(cfg_a, params, cache, tok, idx)
+        step_logits.append(lg[:, 0])
+        tok = lg.argmax(-1)
+        fed.append(tok)
+    seq = torch.cat([prompt[:, :pa], *fed[:n]], dim=1)
+    full_logits, _ = M.forward(cfg_a, params, seq, remat=False)
+    dropped_a = sum(int((~r.keep).sum()) for r in moe_mlp.log)
+    moe_mlp.log = None
+    del cache
+    cache_rel, cache_worst = logits_diff(torch.stack(step_logits, 1),
+                                         full_logits[:, pa:pa + n])
+    del full_logits, step_logits
+    if dropped_a or not cache_rel <= CACHE_REL_TOL:
+        raise AssertionError(f"{arch}: {n} decode steps vs a no-cache "
+                             f"forward (prompt {pa}, capacity factor "
+                             f"{cfg_a.capacity_factor}): {dropped_a} "
+                             f"assignments dropped, relative L2 "
+                             f"{cache_rel:.3e} (tol {CACHE_REL_TOL})")
+
+    # -- (b) layer 0's MoE block, bf16 against an fp32 reference ----------------
+    lp = M._index(params["layers"], 0)
+    xb = moe_block_input(cfg, params, prompt, torch.bfloat16)
+    x32 = moe_block_input(cfg, params, prompt, torch.float32)
+    moe_mlp.log = []
+    out_b, _ = moe_mlp(xb, lp["moe"], top_k=cfg.top_k,
+                       capacity_factor=cfg.capacity_factor, act=cfg.act)
+    [rb], moe_mlp.log = moe_mlp.log, None
+    out_32, idx32 = moe_reference_block(x32.reshape(b * s, -1), lp["moe"],
+                                        cfg.top_k,
+                                        lambda t: _act(t, cfg.act))
+    mine = rb.gate_idx.sort(-1).values
+    ref = idx32.sort(-1).values
+    flipped = 1.0 - float((mine[:, :, None] == ref[:, None, :]).any(-1)
+                          .float().mean())
+    kept = rb.keep[rb.unsort].view(b * s, cfg.top_k).all(-1)
+    same = (mine == ref).all(-1) & kept
+    got = out_b.reshape(b * s, -1)[same].float()
+    want = out_32[same]
+    block_rel = float((got - want).norm() / want.norm())
+    block_worst = float((got - want).abs().max())
+    del xb, x32, out_b, out_32, got, want
+    if not block_rel <= BLOCK_REL_TOL:
+        raise AssertionError(f"{arch}: layer 0's MoE block in bf16 vs fp32 "
+                             f"on {int(same.sum())} tokens, relative L2 "
+                             f"{block_rel:.3e} (tol {BLOCK_REL_TOL})")
+    del params, lp
+    torch.cuda.empty_cache()
+    return {
+        "case": f"{arch} {cfg.dtype}, {n_layers} of {full.n_layers} layers, "
+                f"B={b}, prompt {s}, {new} new tokens",
+        "reduced": {"n_layers": [full.n_layers, n_layers]},
+        "n_params": n_params, "weight_gb": weight_gb, "init_s": init_s,
+        "generate_s": generate_s, "launches": launches,
+        "peak_allocated_gb": peak_gb, "capacity": cap,
+        "dropped_assignments_by_layer": dropped,
+        "assignments_per_layer": b * s * cfg.top_k,
+        "max_expert_load_by_layer": max_load,
+        "kernel_a_ms_at_experts": scan_ms,
+        "kernel_a_plain_ms_at_experts": scan_plain_ms,
+        "cumsum_ms_at_experts": cumsum_ms,
+        "prefill_ms": prefill_ms, "prefill_device_ms": prefill_dev_ms,
+        "prefill_busy_share": prefill_dev_ms / prefill_ms,
+        "prefill_launch_calls": prefill_calls,
+        "prefill_tokens_per_s": b * s / prefill_ms * 1e3,
+        "prefill_device_ms_by_group": group_kernel_times(prefill_kernels),
+        "prefill_top_kernels": [(k[:72], ms) for k, ms in
+                                prefill_kernels[:6]],
+        "decode_ms_per_token": decode_ms, "decode_ms_all": dec_ms,
+        "decode_device_ms": decode_dev_ms,
+        "decode_busy_share": decode_dev_ms / decode_ms,
+        "decode_launch_calls_per_token": decode_calls,
+        "decode_device_ms_by_group": group_kernel_times(decode_kernels),
+        "decode_bytes": decode_bytes,
+        "decode_bound_ms": decode_bytes / HBM_BYTES_PER_S * 1e3,
+        "cache_check": {"prompt": pa, "capacity_factor":
+                        cfg_a.capacity_factor, "dropped": dropped_a},
+        "cache_vs_forward_rel_l2": cache_rel,
+        "cache_vs_forward_max_abs": cache_worst,
+        "block_bf16_vs_fp32_rel_l2": block_rel,
+        "block_bf16_vs_fp32_max_abs": block_worst,
+        "block_tokens_compared": int(same.sum()),
+        "block_assignments_flipped_share": flipped,
+    }
+
+
+def ssm_replay(cfg, params, prompt, tokens, n: int):
+    """The prompt replayed through decode steps from a zeroed cache, then
+    ``n`` decode steps teacher-forced on ``tokens``, each step timed by
+    events. -> (logits at the prompt's last position and the n steps (B,
+    n + 1, V), step ms, the cache)."""
+    from repro_torch.models import model as M
+
+    b, s = prompt.shape
+    cache = M.init_cache(cfg, b, s + n + 1, device=prompt.device)
+    dec_ms, kept = [], []
+    for t in range(s + n):
+        tok = prompt[:, t:t + 1] if t < s else tokens[:, t - s:t - s + 1]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        lg, cache = M.decode_step(cfg, params, cache, tok, t)
+        end.record()
+        end.synchronize()
+        dec_ms.append(start.elapsed_time(end))
+        if t >= s - 1:
+            kept.append(lg[:, 0])
+    return torch.stack(kept, 1), dec_ms, cache
+
+
+def ssm_blocks(cfg, lp, sp, x, positions):
+    """The outputs of one layer's Mamba-2 mixer (``lp``) and, where the
+    shared block ``sp`` is given, of its attention and MLP, on the hidden
+    state ``x``, in the weights' dtype."""
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import apply_norm, mlp
+    from repro_torch.models.ssm import mamba2_block
+
+    out = {"mamba": mamba2_block(
+        apply_norm(x, lp["norm1"], cfg.norm), lp["mamba"],
+        d_inner=cfg.d_inner, state=cfg.ssm_state, n_heads=cfg.ssm_heads,
+        headdim=cfg.ssm_headdim, chunk=cfg.ssm_chunk)}
+    if sp is not None:
+        out["shared attention"], _, _ = M._self_attention(
+            cfg, sp["attn"], apply_norm(x, sp["norm1"], cfg.norm), positions,
+            False)
+        x2 = x + out["shared attention"]
+        out["shared MLP"] = mlp(apply_norm(x2, sp["norm2"], cfg.norm),
+                                sp["mlp"], cfg.act)
+    return out
+
+
+def ssm_serving(arch: str, seed: int, dev, reset_launches, launch_counts):
+    """One SSM or hybrid arch at full width and depth (bf16): ``generate``
+    on SSM_REPLAY_PROMPT tokens counted (no kernel on this path), the
+    prefill of MOE_PROMPT tokens timed and profiled, the replay's decode
+    steps timed; check (a) in fp32, the replay's last logits and
+    SSM_CACHE_STEPS decode steps against a no-cache forward; check (b) the
+    middle layer's Mamba-2 mixer (and zamba2's shared block) in bf16
+    against fp32 on the bf16 model's hidden state. The whole model's bf16
+    distances (replay vs forward, prefill vs fp32) are reported."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.serving import generate
+
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    rng = np.random.default_rng(seed)
+    b, s_long, s, new = MOE_BATCH, MOE_PROMPT, SSM_REPLAY_PROMPT, MOE_NEW
+    prompt_long = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                               (b, s_long)), device=dev)
+    prompt = prompt_long[:, :s]
+    torch.cuda.reset_peak_memory_stats()
+
+    # -- the main path: counts to 0, generate (replay), counts read -----------
+    reset_launches()
+    t0 = time.perf_counter()
+    tokens, logits = generate(cfg, params, prompt, new)
+    torch.cuda.synchronize()
+    generate_s = time.perf_counter() - t0
+    launches = launch_counts()
+    if launches:
+        raise AssertionError(f"{arch}: generate launched {launches}; the "
+                             f"SSM path runs no kernel")
+    if tuple(tokens.shape) != (b, new) or int(tokens.min()) < 0 or \
+            int(tokens.max()) >= cfg.vocab_size or \
+            tuple(logits.shape) != (b, s, cfg.vocab_size) or \
+            not bool(logits.isfinite().all()):
+        raise AssertionError(f"{arch}: generated tokens or prefill logits "
+                             f"out of range, wrong shape or non-finite")
+    del logits
+
+    # -- the long prefill timed and profiled ------------------------------------
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    logits_b, _ = M.prefill(cfg, params, prompt_long)
+    end.record()
+    end.synchronize()
+    prefill_ms = start.elapsed_time(end)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    logits_host = logits_b.cpu()
+    del logits_b
+    prefill_dev_ms, prefill_kernels, prefill_calls = profile_card_only(
+        lambda: M.prefill(cfg, params, prompt_long))
+
+    # -- the replay, each decode step timed; bf16 against a forward ------------
+    n = SSM_CACHE_STEPS
+    replay_b, dec_ms, cache = ssm_replay(cfg, params, prompt, tokens, n)
+    same_first = torch.equal(replay_b[:, 0].argmax(-1), tokens[:, 0])
+    decode_ms = statistics.median(dec_ms)
+    decode_dev_ms, decode_kernels, decode_calls = profile_card_only(
+        lambda: M.decode_step(cfg, params, cache, tokens[:, n:n + 1], s + n))
+    del cache
+    seq = torch.cat([prompt, tokens[:, :n]], dim=1)
+    full_b, _ = M.forward(cfg, params, seq, remat=False)
+    bf16_cache_rel, _ = logits_diff(replay_b, full_b[:, s - 1:s + n])
+    del full_b, replay_b
+
+    # -- (b) the middle layer's blocks, bf16 against fp32 ----------------------
+    mid = cfg.n_layers // 2
+    cfg_mid = dataclasses.replace(cfg, n_layers=mid)
+    positions = torch.arange(s_long, device=dev)
+    x = M.embed_tokens(params["embed"], prompt_long)
+    x = M._run_mamba_stack(cfg_mid, {
+        "layers": _map(params["layers"], lambda t: t[:mid]),
+        "shared_attn": params.get("shared_attn")}, x, positions)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    lp, sp = M._index(params["layers"], mid), params.get("shared_attn")
+    got = ssm_blocks(cfg, lp, sp, x, positions)
+    want = ssm_blocks(cfg32, _map(lp, lambda t: t.float()),
+                      sp and _map(sp, lambda t: t.float()), x.float(),
+                      positions)
+    block_rel = {k: float((got[k].float() - want[k]).norm()
+                          / want[k].norm()) for k in got}
+    del x, got, want, lp, sp
+    if not max(block_rel.values()) <= BLOCK_REL_TOL:
+        raise AssertionError(f"{arch}: layer {mid}'s blocks in bf16 vs "
+                             f"fp32, relative L2 {block_rel} (tol "
+                             f"{BLOCK_REL_TOL})")
+
+    # -- the whole model upcast: the prefill's distance; (a) in fp32 -----------
+    upcast_in_place(params)
+    torch.cuda.empty_cache()
+    logits_32, _ = M.prefill(cfg32, params, prompt_long)
+    fp32_rel, fp32_worst = logits_diff(logits_host, logits_32)
+    del logits_32, logits_host
+    replay_32, _, cache = ssm_replay(cfg32, params, prompt, tokens, n)
+    del cache
+    full_32, _ = M.forward(cfg32, params, seq, remat=False)
+    cache_rel, cache_worst = logits_diff(replay_32, full_32[:, s - 1:s + n])
+    del full_32, replay_32, params
+    torch.cuda.empty_cache()
+    if not same_first or not cache_rel <= SSM_FP32_CACHE_REL_TOL:
+        raise AssertionError(f"{arch}: in fp32, the replay's last logits "
+                             f"and {n} decode steps vs a no-cache forward, "
+                             f"relative L2 {cache_rel:.3e} (tol "
+                             f"{SSM_FP32_CACHE_REL_TOL}); the bf16 replay's "
+                             f"first token as generate's: {same_first}")
+    return {
+        "case": f"{arch} {cfg.dtype}, B={b}, prefill {s_long}; generate "
+                f"on {s} + {new} (the prompt replayed)",
+        "n_params": n_params, "init_s": init_s, "generate_s": generate_s,
+        "launches": launches, "peak_allocated_gb": peak_gb,
+        "prefill_ms": prefill_ms, "prefill_device_ms": prefill_dev_ms,
+        "prefill_busy_share": prefill_dev_ms / prefill_ms,
+        "prefill_launch_calls": prefill_calls,
+        "prefill_tokens_per_s": b * s_long / prefill_ms * 1e3,
+        "prefill_device_ms_by_group": group_kernel_times(prefill_kernels),
+        "prefill_top_kernels": [(k[:72], ms) for k, ms in
+                                prefill_kernels[:6]],
+        "decode_ms_per_token": decode_ms,
+        "decode_device_ms": decode_dev_ms,
+        "decode_busy_share": decode_dev_ms / decode_ms,
+        "decode_launch_calls_per_token": decode_calls,
+        "decode_device_ms_by_group": group_kernel_times(decode_kernels),
+        "replay_first_token_equal_generate": same_first,
+        "fp32_cache_vs_forward_rel_l2": cache_rel,
+        "fp32_cache_vs_forward_max_abs": cache_worst,
+        "bf16_cache_vs_forward_rel_l2": bf16_cache_rel,
+        "blocks_bf16_vs_fp32_rel_l2": block_rel,
+        "bf16_vs_fp32_rel_l2": fp32_rel, "bf16_vs_fp32_max_abs": fp32_worst,
+    }
+
+
+def moe_smoke_training(seed: int, dev, reset_launches, launch_counts):
+    """MOE_TRAIN_ARCH's smoke config memorizing one batch on the card in
+    SMOKE_TRAIN_STEPS steps: the MoE backward through the kernel-A
+    dispatch, kernel A launched twice a MoE layer a step (the forward and
+    remat's recomputation)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import DataConfig, batch_at
+    from repro_torch.models import model as M
+    from repro_torch.optim import AdamConfig, init_opt_state
+    from repro_torch.train import make_train_step
+
+    scfg = get_smoke_config(MOE_TRAIN_ARCH)
+    sparams = M.init_params(scfg, seed, device=dev)
+    sopt_cfg = AdamConfig(lr=1e-3, total_steps=64, warmup_steps=2)
+    sopt = init_opt_state(sparams, sopt_cfg)
+    sstep = make_train_step(scfg, sopt_cfg)
+    sbatch = dict(zip(("tokens", "labels"), batch_at(
+        DataConfig(vocab_size=scfg.vocab_size, seq_len=32, global_batch=4),
+        0, device=dev)))
+    reset_launches()
+    t0 = time.perf_counter()
+    losses, auxs = [], []
+    for _ in range(SMOKE_TRAIN_STEPS):
+        m, sparams, sopt = sstep(sparams, sopt, sbatch)
+        losses.append(float(m["loss"]))
+        auxs.append(float(m["aux"]))
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    want = {"prefix_sum": 2 * scfg.n_layers * SMOKE_TRAIN_STEPS}
+    if launches != want:
+        raise AssertionError(f"{MOE_TRAIN_ARCH} smoke training launched "
+                             f"{launches}, want {want}")
+    if not losses[-1] < losses[0] - SMOKE_TRAIN_DROP:
+        raise AssertionError(f"{MOE_TRAIN_ARCH} smoke training: loss "
+                             f"{losses[0]:.4f} -> {losses[-1]:.4f}, want a "
+                             f"drop of more than {SMOKE_TRAIN_DROP}")
+    return {"case": f"{scfg.name} ({scfg.dtype}) on one batch of 4 x 32, "
+                    f"{SMOKE_TRAIN_STEPS} steps",
+            "seconds": seconds, "launches": launches,
+            "losses": losses[::10] + losses[-1:],
+            "aux": auxs[::10] + auxs[-1:]}
+
+
+def moe_ssm_lm_phase(seed: int, dev, reset_launches, launch_counts):
+    """The MoE archs at full width and reduced depth, the SSM and hybrid
+    archs at full width and depth, mamba2-130m's train steps and the MoE
+    smoke config's training. -> {arch: record, "train", "moe_train",
+    "launches": {kernel: main-path launches}}"""
+    t_phase = time.perf_counter()
+    out = {}
+    for arch, n_layers in MOE_ARCHS:
+        t0 = time.perf_counter()
+        out[arch] = moe_serving(arch, n_layers, seed, dev, reset_launches,
+                                launch_counts)
+        out[arch]["seconds"] = time.perf_counter() - t0
+        log(f"{arch}: " + json.dumps(out[arch]))
+    for arch in SSM_ARCHS:
+        t0 = time.perf_counter()
+        out[arch] = ssm_serving(arch, seed, dev, reset_launches,
+                                launch_counts)
+        out[arch]["seconds"] = time.perf_counter() - t0
+        log(f"{arch}: " + json.dumps(out[arch]))
+    t0 = time.perf_counter()
+    out["train"] = dense_training(seed, dev, reset_launches, launch_counts,
+                                  arch=SSM_TRAIN_ARCH,
+                                  n_steps=SSM_TRAIN_STEPS)
+    out["train"]["seconds"] = time.perf_counter() - t0
+    log(f"{SSM_TRAIN_ARCH} training: " + json.dumps(out["train"]))
+    out["moe_train"] = moe_smoke_training(seed, dev, reset_launches,
+                                          launch_counts)
+    log(f"{MOE_TRAIN_ARCH} smoke training: " + json.dumps(out["moe_train"]))
+    launches = {}
+    for rec in [out[a] for a, _ in MOE_ARCHS] + [out["moe_train"]]:
+        for k, v in rec["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"MoE/SSM LM phase: {out['phase_s']:.1f} s")
     return out
 
 
@@ -4797,6 +5381,9 @@ def main(argv=None) -> int:
     examples_rec = examples_phase(reset_launches, launch_counts)
     torch.cuda.empty_cache()
     dense_rec = dense_lm_phase(args.seed, dev, reset_launches, launch_counts)
+    torch.cuda.empty_cache()
+    moe_ssm_rec = moe_ssm_lm_phase(args.seed, dev, reset_launches,
+                                   launch_counts)
 
     a, b = new_cases["a"], new_cases["b"]
     sfc_main = sfc_results[0]
@@ -5013,6 +5600,8 @@ def main(argv=None) -> int:
         entry["dense_lm_launches"] = sum(
             dense_rec[a]["launches"].get(entry["name"], 0)
             for a in DENSE_ARCHS)
+        entry["moe_lm_launches"] = moe_ssm_rec["launches"].get(
+            entry["name"], 0)
         if entry["name"] in batch_launches:
             entry["launches_per_execute_batch"] = sorted(
                 batch_launches[entry["name"]])

@@ -6,11 +6,13 @@ prefill + greedy decode.
 
 The port of ``lm_serve.py``: batched prefill, the KV cache, one-token
 decode steps (``models.serving.generate``), at the arch's smoke width
-with random weights from seed 0. The port runs the dense archs
-(gemma2-2b, whose local layers run kernel G once the prompt is longer
-than the window, qwen1.5-0.5b, codeqwen1.5-7b, starcoder2-3b); the other
-families (MoE, SSM, hybrid, VLM, encoder-decoder) raise naming their
-ROADMAP item. It runs on the CUDA card, and raises without one unless
+with random weights from seed 0. The port runs the decoder-only archs:
+the dense gemma2-2b (whose local layers run kernel G once the prompt is
+longer than the window), qwen1.5-0.5b, codeqwen1.5-7b and starcoder2-3b,
+the MoE grok-1-314b and arctic-480b (whose expert dispatch runs kernel A),
+and the SSM mamba2-130m and hybrid zamba2-1.2b (whose ``generate``
+replays the prompt through decode steps); the VLM and the
+encoder-decoder raise naming their ROADMAP items. It runs on the CUDA card, and raises without one unless
 ``--device cpu`` is given. The weights and the prompts come from
 ``torch.Generator``s seeded 0 and 1, so they differ from the JAX script's
 (threefry) draw.

@@ -1,6 +1,8 @@
 """Config registry of the port: the JAX package's arch ids, of which the
-dense ones are ported (gemma2-2b, qwen1.5-0.5b, codeqwen1.5-7b,
-starcoder2-3b); every other arch raises and names its ROADMAP item."""
+decoder-only ones are ported (the dense gemma2-2b, qwen1.5-0.5b,
+codeqwen1.5-7b and starcoder2-3b, the MoE grok-1-314b and arctic-480b,
+the SSM mamba2-130m and the hybrid zamba2-1.2b); whisper-base and
+phi-3-vision-4.2b raise and name their ROADMAP items (13.4, 13.5)."""
 
 from __future__ import annotations
 
@@ -19,7 +21,11 @@ ARCH_IDS: List[str] = [
 _PORTED: Dict[str, str] = {
     "gemma2-2b": "gemma2_2b", "qwen1.5-0.5b": "qwen1_5_0_5b",
     "codeqwen1.5-7b": "codeqwen1_5_7b", "starcoder2-3b": "starcoder2_3b",
+    "grok-1-314b": "grok_1_314b", "arctic-480b": "arctic_480b",
+    "mamba2-130m": "mamba2_130m", "zamba2-1.2b": "zamba2_1_2b",
 }
+# the ROADMAP Queue 1 item of each arch still to port
+_ITEM = {"whisper-base": "13.4", "phi-3-vision-4.2b": "13.5"}
 
 
 def _module(arch: str):
@@ -27,7 +33,7 @@ def _module(arch: str):
         raise KeyError(f"unknown arch {arch!r}; have {ARCH_IDS}")
     if arch not in _PORTED:
         raise ValueError(f"arch {arch!r} is not ported yet (ROADMAP Queue 1 "
-                         f"item 13); ported: {sorted(_PORTED)}")
+                         f"item {_ITEM[arch]}); ported: {sorted(_PORTED)}")
     return importlib.import_module(f".{_PORTED[arch]}", __package__)
 
 

@@ -3,7 +3,7 @@
 ``ModelConfig``, ``ShapeCell``, ``SHAPES``, ``shape_by_name`` and
 ``cell_is_runnable`` are copied from ``repro/configs/base.py``, which
 imports JAX. ``input_specs`` (the dry-run's stand-ins) belongs to the
-dry-run tools and is not ported (ROADMAP Queue 1 item 13).
+dry-run tools and is not ported (ROADMAP Queue 1 item 13.6).
 """
 
 from __future__ import annotations

@@ -114,7 +114,9 @@ def params_from_jax(cfg, tree, device) -> dict:
     ``device``; the dict layout is the same on both sides."""
     check_ported(cfg)
     want = {"embed", "final_norm", "layers"} | (
-        set() if cfg.tie_embeddings else {"lm_head"})
+        set() if cfg.tie_embeddings else {"lm_head"}) | (
+        {"shared_attn"} if cfg.family == "hybrid" and cfg.hybrid_attn_every
+        else set())
     if set(tree) != want:
         raise ValueError(f"params of {cfg.name} have keys {sorted(want)}, "
                          f"got {sorted(tree)}")

@@ -13,7 +13,7 @@ Modules:
   compress   int8 gradient compression with error feedback.
 
 ``repro.dist.sharding`` (role-based sharding of the LM's tensors) is not
-ported yet (ROADMAP.md Queue 1 item 13).
+ported yet (ROADMAP.md Queue 1 item 13.6).
 """
 
 from . import compress, engine, fault, halo

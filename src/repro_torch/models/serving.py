@@ -2,7 +2,10 @@
 
 The port of ``repro/models/serving.py``. It runs eagerly (JAX jits the
 decode step); the prompt and every generated token stay on the params'
-device, so the loop never waits on the host between steps.
+device, so the loop never waits on the host between steps. For ``ssm`` and
+``hybrid`` the prefill's cache is zeroed (as JAX's), so ``generate``
+replays the prompt through decode steps to build the state, as JAX's
+does: one decode step a prompt token.
 
 Precision flags: the library sets none. The card checks (``chip_smoke.py``)
 run with ``torch.backends.cuda.matmul.allow_tf32``,
@@ -52,11 +55,18 @@ def generate(cfg: ModelConfig, params, prompt, n_tokens: int,
     (tokens (B, n_tokens), prefill logits (B, S, V))."""
     M.check_ported(cfg)
     prompt = torch.as_tensor(prompt, device=params["embed"].device).long()
-    s = prompt.shape[1]
+    b, s = prompt.shape
     max_len = max_len or (s + n_tokens)
     logits, cache = M.prefill(cfg, params, prompt, max_len=max_len, **extras)
     tok = logits[:, -1:].argmax(-1)
     decode = make_decode_step(cfg)
+    if cfg.family in ("ssm", "hybrid"):
+        # state caches start empty: replay the prompt through decode steps
+        # (O(1) per token) so the state reflects the prefix
+        cache = M.init_cache(cfg, b, max_len, device=prompt.device)
+        for t in range(s):
+            lg, cache = decode(params, cache, prompt[:, t:t + 1], t)
+        tok = lg.argmax(-1)
     outs = [tok]
     for idx in range(s, s + n_tokens - 1):
         lg, cache = decode(params, cache, tok, idx)

@@ -16,7 +16,7 @@ G forward and kernel Gb backward.
 Where the port differs: JAX's ``dist/sharding.py::constrain`` calls are
 GSPMD layout hints that do nothing without a device mesh; the port trains
 on one device and leaves them out (``dist/sharding.py`` waits with
-``launch/``, ROADMAP Queue 1 item 13). The gold logit is read by
+``launch/``, ROADMAP Queue 1 item 13.6). The gold logit is read by
 ``gather``, the same value as JAX's iota comparison (which avoids a gather
 along a vocab-sharded axis). JAX's ``REPRO_LOSS_CHUNKS`` and
 ``REPRO_SCAN_UNROLL`` environment knobs serve its dry-run tools and are not
@@ -117,15 +117,19 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamConfig,
                     compress_pod_grads: bool = False,
                     remat: bool = True) -> Callable:
     """-> train_step(params, opt_state, batch) -> (metrics, params, opt),
-    params and opt updated in place. Families the port does not have raise
-    here (ROADMAP Queue 1 item 13)."""
+    params and opt updated in place. The encoder-decoder and the VLM,
+    which the port does not have, raise here (ROADMAP Queue 1 items 13.4,
+    13.5)."""
     M.check_ported(cfg)
     loss_fn = make_loss_fn(cfg, remat=remat)
 
     def grads_of(params, batch):
         live = tree_map(lambda p: p.detach().requires_grad_(), params)
         loss, parts = loss_fn(live, batch)
-        grads = iter(torch.autograd.grad(loss, list(tree_leaves(live))))
+        # a leaf the loss does not read (a Mamba layer's ``norm2``, which
+        # JAX's init makes too) gets a zero gradient, as under jax.grad
+        grads = iter(torch.autograd.grad(loss, list(tree_leaves(live)),
+                                         materialize_grads=True))
         return (loss.detach(), {k: v.detach() for k, v in parts.items()},
                 tree_map(lambda _: next(grads), live))
 

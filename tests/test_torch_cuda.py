@@ -1329,6 +1329,114 @@ def test_gemma_smoke_train_step_runs_g_and_gb(gen):
                                atol=2e-3)
 
 
+@pytest.mark.parametrize("e", [8, 128])
+def test_moe_dispatch_runs_kernel_a_once_a_call(gen, e):
+    """``moe_mlp`` on the card: kernel A scans the expert counts once a
+    call, its offsets equal the plain scan's, and the output and aux loss
+    equal the same call on the CPU (the plain scan) within 2e-3."""
+    from repro_torch.models.moe import init_moe, moe_mlp
+    p = init_moe(gen, 64, 96, e, torch.float32, "cuda")
+    x = torch.randn((2, 300, 64), generator=gen, device="cuda")
+    prefix_sum.launches = 0
+    moe_mlp.log = []
+    out, aux = moe_mlp(x, p, top_k=2, capacity_factor=1.25)
+    torch.cuda.synchronize()
+    [r], moe_mlp.log = moe_mlp.log, None
+    assert prefix_sum.launches == 1
+    assert torch.equal(r.offsets, plain_prefix.exclusive_prefix_sum(
+        r.counts, scan=plain_prefix.paper_prefix_sum))
+    want, want_aux = moe_mlp(x.cpu(), _to_cpu(p), top_k=2,
+                             capacity_factor=1.25)
+    torch.testing.assert_close(out.cpu(), want, rtol=2e-3, atol=2e-3)
+    assert abs(float(aux) - float(want_aux)) <= 1e-5 * float(want_aux)
+
+
+@pytest.mark.parametrize("arch", ["grok-1-314b", "arctic-480b"])
+def test_moe_smoke_prefill_and_decode_launch_kernel_a(gen, arch):
+    """The MoE smoke configs on the card: kernel A once a layer in the
+    prefill and in a decode step; the logits and the KV cache equal the
+    CPU's within 2e-3."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+    cfg = get_smoke_config(arch)
+    params = M.init_params(cfg, 0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 33), generator=gen,
+                           device="cuda")
+    prefix_sum.launches = 0
+    logits, cache = M.prefill(cfg, params, tokens[:, :32], max_len=33)
+    torch.cuda.synchronize()
+    assert prefix_sum.launches == cfg.n_layers
+    lg, cache = M.decode_step(cfg, params, cache, tokens[:, 32:], 32)
+    torch.cuda.synchronize()
+    assert prefix_sum.launches == 2 * cfg.n_layers
+    params_cpu = _to_cpu(params)
+    want, cache_cpu = M.prefill(cfg, params_cpu, tokens[:, :32].cpu(),
+                                max_len=33)
+    want_lg, cache_cpu = M.decode_step(cfg, params_cpu, cache_cpu,
+                                       tokens[:, 32:].cpu(), 32)
+    torch.testing.assert_close(logits.cpu(), want, rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(lg.cpu(), want_lg, rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(cache["k"].cpu(), cache_cpu["k"], rtol=2e-3,
+                               atol=2e-3)
+
+
+def test_moe_smoke_train_step_runs_kernel_a_twice_a_layer(gen):
+    """grok-1-314b's smoke train step on the card: kernel A twice a layer
+    (the forward and remat's recompute); the loss, the aux loss and the
+    updated params equal the CPU step's within 2e-3."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.optim import AdamConfig, init_opt_state
+    from repro_torch.train import make_train_step
+    cfg = get_smoke_config("grok-1-314b")
+    opt_cfg = AdamConfig(lr=1e-4, total_steps=8, warmup_steps=1)
+    params = M.init_params(cfg, 0)
+    params_cpu = _to_cpu(params)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 33), generator=gen,
+                           device="cuda")
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    step = make_train_step(cfg, opt_cfg)
+    prefix_sum.launches = 0
+    m, params, _ = step(params, init_opt_state(params, opt_cfg), batch)
+    torch.cuda.synchronize()
+    assert prefix_sum.launches == 2 * cfg.n_layers
+    m_cpu, params_cpu, _ = step(params_cpu, init_opt_state(params_cpu,
+                                                           opt_cfg),
+                                _to_cpu(batch))
+    for k in ("loss", "aux"):
+        assert abs(float(m[k]) - float(m_cpu[k])) <= \
+            2e-3 * abs(float(m_cpu[k])), k
+    torch.testing.assert_close(_to_cpu(params), params_cpu, rtol=2e-3,
+                               atol=2e-3)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-1.2b"])
+def test_ssm_smoke_generate_on_the_card_matches_cpu(gen, arch):
+    """The SSM and hybrid smoke configs: ``generate`` (the prompt replayed
+    through decode steps) on the card launches no kernel; its prefill
+    logits equal the CPU's within 2e-3 and a no-cache forward's last
+    logits equal the replay's within 2e-3."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.models.serving import generate
+    cfg = get_smoke_config(arch)
+    params = M.init_params(cfg, 0)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 20), generator=gen,
+                           device="cuda")
+    prefix_sum.launches = window_attention.launches = 0
+    tokens, logits = generate(cfg, params, prompt, 4)
+    torch.cuda.synchronize()
+    assert prefix_sum.launches == window_attention.launches == 0
+    _, want = generate(cfg, _to_cpu(params), prompt.cpu(), 4)
+    torch.testing.assert_close(logits.cpu(), want, rtol=2e-3, atol=2e-3)
+    cache = M.init_cache(cfg, 2, 21)
+    for t in range(20):
+        lg, cache = M.decode_step(cfg, params, cache, prompt[:, t:t + 1], t)
+    torch.testing.assert_close(lg[:, 0], logits[:, -1], rtol=2e-3,
+                               atol=2e-3)
+    assert torch.equal(lg.argmax(-1), tokens[:, :1])
+
+
 def test_bf16_smoke_train_step_takes_the_wgmma_routes(gen):
     """The smoke-width model in bf16 (head_dim 16): a train step runs every
     local layer's G twice and its Gb once, all on the wgmma routes, with a

@@ -9,6 +9,7 @@ none imports JAX or the JAX package.
 
 import ast
 import importlib.util
+import math
 import pathlib
 
 import pytest
@@ -110,7 +111,9 @@ def test_autotune_batch_caches_and_batches(tmp_path, monkeypatch):
     assert (out["batch_dispatches"], out["loop_dispatches"]) == (1, 3)
 
 
-@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "gemma2-2b"])
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "gemma2-2b", "grok-1-314b",
+                                  "arctic-480b", "mamba2-130m",
+                                  "zamba2-1.2b"])
 def test_lm_serve_generates_in_vocab(arch):
     out = _load("lm_serve").main(["--arch", arch, "--new-tokens", "6",
                                   "--device", "cpu"])
@@ -118,8 +121,8 @@ def test_lm_serve_generates_in_vocab(arch):
 
 
 def test_lm_serve_unported_family_raises_naming_the_item():
-    with pytest.raises(ValueError, match="Queue 1 item 13"):
-        _load("lm_serve").main(["--arch", "mamba2-130m", "--device", "cpu"])
+    with pytest.raises(ValueError, match=r"Queue 1 item 13\.4"):
+        _load("lm_serve").main(["--arch", "whisper-base", "--device", "cpu"])
 
 
 def test_lm_train_loss_falls_and_resumes(tmp_path):
@@ -130,3 +133,15 @@ def test_lm_train_loss_falls_and_resumes(tmp_path):
     assert C.latest_step(tmp_path) == 40
     # a finished run in the directory is restored: no step trains again
     assert mod.main(argv)["losses"] == {}
+
+
+@pytest.mark.parametrize("arch", ["grok-1-314b", "zamba2-1.2b"])
+def test_lm_train_takes_the_moe_and_hybrid_archs(arch, tmp_path):
+    """The launcher's loop on a MoE and a hybrid smoke config: 21 steps
+    (logged at 0 and 20), finite losses, a checkpoint at the end."""
+    out = _load("lm_train").main(["--arch", arch, "--steps", "21",
+                                  "--device", "cpu", "--ckpt-dir",
+                                  str(tmp_path)])
+    assert sorted(out["losses"]) == [0, 20] and out["arch"] == arch
+    assert all(math.isfinite(v) for v in out["losses"].values())
+    assert C.latest_step(tmp_path) == 21

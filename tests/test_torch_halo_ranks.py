@@ -9,6 +9,17 @@ boundary planes with ranks r +/- 1 and returns the full result after an
 paths and a batch of 2 systems; 2 ranks run open Z, where both neighbours
 of a rank are one rank. The NCCL form of the same code needs one card per
 rank, and so is not run here.
+
+The launcher runs the ranks together under one deadline, each writing to
+its own files (a rank never blocks on a full pipe while the launcher
+waits on another), and reports every rank's output on any failure. A
+rank saves its results, waits at a second file store until every rank has
+saved (no rank tears its gloo sockets down while another still reads from
+them), destroys the group and leaves by ``os._exit``: the interpreter's
+own teardown aborted a rank now and then under load, after its results
+were saved. Only the rendezvous is retried: if a rank exits before it
+joined the group, the whole set is launched again once with a fresh
+store.
 """
 
 import os
@@ -16,6 +27,7 @@ import pathlib
 import subprocess
 import sys
 import textwrap
+import time
 
 import numpy as np
 import pytest
@@ -38,6 +50,8 @@ CASES = {
 }
 
 RANK = textwrap.dedent("""
+    import datetime
+    import os
     import sys
     import numpy as np
     import torch
@@ -49,8 +63,10 @@ RANK = textwrap.dedent("""
     cases = eval(sys.argv[5])
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method="file://" + store,
-                            world_size=world, rank=rank)
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=120))
     mesh = init_device_mesh("cpu", (world,), mesh_dim_names=("halo",))
+    print("joined", flush=True)
     from repro_torch.core import Domain, ParticleState, plan
     res = {}
     for name, periodic, kw in cases:
@@ -71,33 +87,71 @@ RANK = textwrap.dedent("""
                                                          mesh)
             res["distribute_f"] = d.execute(ParticleState(pos))[0].numpy()
     np.savez(out, **res)
-    dist.barrier()
+    # every rank's gloo traffic has ended once all have saved: only then
+    # does any rank close its sockets
+    done = dist.FileStore(store + "_done", world)
+    done.set(f"saved{rank}", "1")
+    done.wait([f"saved{r}" for r in range(world)])
     dist.destroy_process_group()
+    # skip the interpreter's teardown: the mesh still holds the gloo group,
+    # and destroying it there can abort the process ("terminate called
+    # without an active exception", its threads still joinable) after
+    # every result is saved
+    sys.stdout.flush()
+    os._exit(0)
 """ % {"n": N})
 
 
-def _run_ranks(world: int, tmp_path: pathlib.Path) -> list:
-    """Launch ``world`` rank processes together; -> each rank's results."""
-    store = tmp_path / f"store_{world}"
-    outs = [tmp_path / f"rank{world}_{r}.npz" for r in range(world)]
+def _launch(world: int, run_dir: pathlib.Path, deadline_s: float = 300.0):
+    """Run ``world`` rank processes together, each writing its stdout and
+    stderr to files in ``run_dir``; kill them all at the deadline. ->
+    [(returncode or None if killed, stdout, stderr), ...]"""
+    run_dir.mkdir()
     # the ranks talk over the loopback interface, whatever the host's
     # name resolves to
     env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1",
                GLOO_SOCKET_IFNAME="lo")
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", RANK, str(r), str(world), str(store),
-         str(outs[r]), repr(CASES[world])],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for r in range(world)]
-    runs = []
+    procs, logs = [], []
+    for r in range(world):
+        out = open(run_dir / f"rank{r}.out", "w")
+        err = open(run_dir / f"rank{r}.err", "w")
+        logs.append((out, err))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", RANK, str(r), str(world),
+             str(run_dir / "store"), str(run_dir / f"rank{r}.npz"),
+             repr(CASES[world])],
+            env=env, stdout=out, stderr=err))
+    end = time.monotonic() + deadline_s
     for proc in procs:
         try:
-            out, err = proc.communicate(timeout=240)
-        finally:
+            proc.wait(timeout=max(end - time.monotonic(), 0.0))
+        except subprocess.TimeoutExpired:
+            break
+    runs = []
+    for r, (proc, (out, err)) in enumerate(zip(procs, logs)):
+        if proc.poll() is None:
             proc.kill()
-        runs.append((proc.returncode, out[-2000:], err[-3000:]))
+            proc.wait()
+        out.close()
+        err.close()
+        runs.append((proc.returncode if proc.returncode >= 0 else None,
+                     (run_dir / f"rank{r}.out").read_text()[-2000:],
+                     (run_dir / f"rank{r}.err").read_text()[-3000:]))
+    return runs
+
+
+def _run_ranks(world: int, tmp_path: pathlib.Path) -> list:
+    """Launch ``world`` rank processes together; -> each rank's results.
+    A set in which a rank exited before it joined the group (the gloo
+    rendezvous failed) is launched once more with a fresh store."""
+    for attempt in range(2):
+        run_dir = tmp_path / f"ranks{world}_{attempt}"
+        runs = _launch(world, run_dir)
+        joined = all("joined" in out for _, out, _ in runs)
+        if joined or attempt:
+            break
     assert all(rc == 0 for rc, _, _ in runs), runs
-    return [np.load(o) for o in outs]
+    return [np.load(run_dir / f"rank{r}.npz") for r in range(world)]
 
 
 @pytest.mark.parametrize("world", [4, 2])
