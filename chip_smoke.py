@@ -128,7 +128,7 @@ the main paths through ``plan(...).execute()`` and checks and times them:
     the updated params); the smoke-width model memorizing one batch.
   * examples: the eight ``examples/torch_*.py`` called in process
     (``main(argv)``) at the JAX scripts' default arguments, MD at 60 steps,
-    division 4, ppc 5, ``torch_lm_serve`` once per ported arch and
+    division 4, ppc 5, ``torch_lm_serve`` once per arch (all ten) and
     ``torch_lm_train`` on qwen1.5-0.5b and gemma2-2b at smoke width: what
     each returns held (every path on the oracle, MD drift < 0.05, SPH
     finite, halo shards equal to the one-device plan, no executor built in
@@ -157,7 +157,20 @@ the main paths through ``plan(...).execute()`` and checks and times them:
     launched, the replay against a no-cache forward in fp32, the middle
     layer's blocks in bf16 against fp32; mamba2-130m's three train steps
     on 2 x 4096 tokens; grok-1-314b's smoke config memorizing one batch,
-    kernel A twice a MoE layer a step.
+    kernel A twice a MoE layer a step;
+  * whisper-base and phi-3-vision-4.2b at full width and depth (bf16), no
+    kernel launched (every attention the global flash): ``generate`` on
+    16 clips of 1,500 stub frames (padded to 1,536), Whisper's 4-token
+    start-of-transcript prompt and 128 new tokens, and on 2 requests of 64
+    stub patch embeddings + 4,096 prompt tokens and 16 new (decoding from
+    n_img + S); whisper's encoder, each prefill and the decode steps timed
+    and profiled; the first 4 decode steps against a no-cache ``forward``
+    over the same frames or patches (relative L2 <= 2e-2), the bf16
+    prefill against the weights upcast to fp32 (<= 2e-2), whisper's cached
+    cross-attention K/V ``torch.equal`` to ``enc_h @ wk`` / ``wv``;
+    whisper-base's three train steps on 16 x 1,536 frames and 448 tokens,
+    each loss within 2e-2 of the fp32-upcast model's; phi-3-vision's smoke
+    config memorizing one batch.
 
 Per particle, the compacted and packed paths and kernel E must equal the
 dense X-pencil path (kernel B) bit for bit; kernel F sums in another order
@@ -319,11 +332,12 @@ SMOKE_TRAIN_STEPS, SMOKE_TRAIN_DROP = 50, 0.5
 
 # the port's examples (examples/torch_*.py), called in process at the JAX
 # scripts' default arguments (MD cut to the verify skill's size), lm_serve
-# once per ported arch (at smoke width: 4 prompts of 12 tokens, 24 new) and
+# once per arch, all ten (at smoke width: 4 prompts of 12 tokens, 24 new) and
 # lm_train on the LM examples' default arch and on gemma2-2b, whose local
 # layers run kernels G and Gb
-LM_PORTED = ("gemma2-2b", "qwen1.5-0.5b", "codeqwen1.5-7b", "starcoder2-3b",
-             "grok-1-314b", "arctic-480b", "mamba2-130m", "zamba2-1.2b")
+LM_ARCHS = ("gemma2-2b", "qwen1.5-0.5b", "codeqwen1.5-7b", "starcoder2-3b",
+             "grok-1-314b", "arctic-480b", "mamba2-130m", "zamba2-1.2b",
+             "phi-3-vision-4.2b", "whisper-base")
 EXAMPLE_RUNS = (
     ("quickstart", ()),
     ("md_lennard_jones", ("--steps", "60", "--division", "4", "--ppc", "5")),
@@ -331,7 +345,7 @@ EXAMPLE_RUNS = (
     ("distributed_md", ()),
     ("serve_engine", ()),
     ("autotune_batch", ()),
-    *(("lm_serve", ("--arch", a)) for a in LM_PORTED),
+    *(("lm_serve", ("--arch", a)) for a in LM_ARCHS),
     *(("lm_train", ("--arch", a)) for a in ("qwen1.5-0.5b", "gemma2-2b")),
 )
 MD_DRIFT_TOL = 0.05          # the MD example's own OK/HIGH line
@@ -397,6 +411,31 @@ SSM_FP32_CACHE_REL_TOL = 1e-3
 # (full-width MoE training waits: one grok layer with AdamW is ~60 GB)
 SSM_TRAIN_ARCH, SSM_TRAIN_STEPS = "mamba2-130m", 3
 MOE_TRAIN_ARCH = "grok-1-314b"
+# whisper-base (encoder-decoder) and phi-3-vision-4.2b (VLM prefix) at full
+# width and depth, bf16, seed 0; every attention is the global flash (the
+# encoder's and the cross-attention's non-causal), so no kernel runs.
+# whisper-base serves 16 clips of 30 s a batch: 1,500 frames each (stub
+# frame embeddings, standard normal), zero-padded to enc_seq 1,536, Whisper's
+# 4-token start-of-transcript prompt (<|startoftranscript|><|en|>
+# <|transcribe|><|notimestamps|>, multilingual vocabulary) and 128 new
+# tokens, within its 448-token decoder context
+ENCDEC_ARCH, ENCDEC_BATCH, ENCDEC_FRAMES, ENCDEC_NEW = (
+    "whisper-base", 16, 1500, 128)
+WHISPER_SOT = (50258, 50259, 50359, 50363)
+# phi-3-vision-4.2b serves 2 requests of 64 patch embeddings (0.02 x a
+# standard normal, as examples/lm_serve.py draws them) and 4,096 prompt
+# tokens, 16 new; its decode starts at n_img + S
+VLM_ARCH, VLM_BATCH, VLM_PROMPT, VLM_NEW = "phi-3-vision-4.2b", 2, 4096, 16
+# (a) CACHE_REL_TOL over DENSE_CACHE_STEPS decode steps, as the dense archs;
+# (b) the bf16 prefill against the fp32-upcast weights (fp32 frames):
+# relative L2 2e-2, the dense archs' measured 0.011-0.018 with room
+# (whisper has 12 layers and the cross-attention, phi-3-vision 32)
+ENCDEC_FP32_REL_TOL = 2e-2
+# whisper-base trains at full width and depth: 16 clips x 1,536 frames and
+# 448 decoder tokens a step; phi-3-vision-4.2b's smoke config memorizes one
+# batch (full-width phi-3-vision training waits: its fp32 moments alone
+# are 30.6 GB beside 7.6 GB of weights and as much of gradients)
+ENCDEC_TRAIN_SEQ, ENCDEC_TRAIN_STEPS = 448, 3
 
 
 def log(*args):
@@ -1676,12 +1715,14 @@ def dense_serving(arch: str, seed: int, dev, reset_launches, launch_counts):
 
 def dense_training(seed: int, dev, reset_launches, launch_counts,
                    arch: str = DENSE_TRAIN_ARCH,
-                   n_steps: int = DENSE_TRAIN_STEPS):
-    """``arch`` (DENSE_TRAIN_ARCH, or SSM_TRAIN_ARCH) at full width and
-    depth: ``n_steps`` ``make_train_step`` steps of DENSE_BATCH x
-    DENSE_PROMPT tokens (bf16, remat, AdamW), each loss against the
+                   n_steps: int = DENSE_TRAIN_STEPS,
+                   batch: int = DENSE_BATCH, seq: int = DENSE_PROMPT):
+    """``arch`` (DENSE_TRAIN_ARCH, SSM_TRAIN_ARCH or ENCDEC_ARCH) at full
+    width and depth: ``n_steps`` ``make_train_step`` steps of ``batch`` x
+    ``seq`` tokens (bf16, remat, AdamW), each loss against the
     fp32-upcast model's loss on the same batch at the same params; no kernel
-    launched (no local layer, no expert)."""
+    launched (no local layer, no expert). Whisper's batches carry its
+    ``stub_inputs`` frames (fp32 ones for the fp32 loss)."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -1692,10 +1733,11 @@ def dense_training(seed: int, dev, reset_launches, launch_counts,
 
     cfg = get_config(arch)
     params = M.init_params(cfg, seed, device=dev)
-    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=DENSE_PROMPT,
-                      global_batch=DENSE_BATCH)
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                      global_batch=batch)
+    rng = np.random.default_rng(seed)
     batches = [dict(zip(("tokens", "labels"), batch_at(data, i, device=dev)))
-               for i in range(n_steps)]
+               | stub_inputs(cfg, rng, batch, dev) for i in range(n_steps)]
     opt_cfg = AdamConfig(total_steps=n_steps, warmup_steps=1,
                          moment_dtype=cfg.moment_dtype)
     step = make_train_step(cfg, opt_cfg)
@@ -1706,7 +1748,9 @@ def dense_training(seed: int, dev, reset_launches, launch_counts,
     step_ms, losses, losses32, rels = [], [], [], []
     for i in range(n_steps):
         with torch.no_grad():
-            l32, _ = loss32_fn(_map(params, lambda t: t.float()), batches[i])
+            l32, _ = loss32_fn(_map(params, lambda t: t.float()),
+                               {k: v.float() if v.is_floating_point() else v
+                                for k, v in batches[i].items()})
             losses32.append(float(l32))
         del l32
         reset_launches()
@@ -1730,11 +1774,10 @@ def dense_training(seed: int, dev, reset_launches, launch_counts,
     ms = statistics.median(step_ms[1:])
     del params, opt, batches
     torch.cuda.empty_cache()
-    return {"case": f"{arch} {cfg.dtype}, B={DENSE_BATCH}, "
-                    f"S={DENSE_PROMPT}, remat, AdamW, {n_steps} "
-                    f"steps",
+    return {"case": f"{arch} {cfg.dtype}, B={batch}, S={seq}, remat, "
+                    f"AdamW, {n_steps} steps",
             "step_ms": ms, "step_ms_all": step_ms,
-            "tokens_per_s": DENSE_BATCH * DENSE_PROMPT / ms * 1e3,
+            "tokens_per_s": batch * seq / ms * 1e3,
             "peak_allocated_gb": peak_gb, "losses": losses,
             "fp32_losses": losses32, "loss_rel_to_fp32": rels}
 
@@ -2275,6 +2318,297 @@ def moe_ssm_lm_phase(seed: int, dev, reset_launches, launch_counts):
     out["launches"] = launches
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"MoE/SSM LM phase: {out['phase_s']:.1f} s")
+    return out
+
+
+def stub_inputs(cfg, rng, batch: int, dev) -> dict:
+    """The stub front ends' inputs of ``cfg``, made with numpy from ``rng``
+    in ``cfg.dtype`` on ``dev``: whisper's ``frame_embeds`` (ENCDEC_FRAMES
+    standard-normal frames a clip, zero-padded to ``enc_seq``), the VLM's
+    ``patch_embeds`` (0.02 x a standard normal); none for another
+    family."""
+    import numpy as np
+
+    dtype = getattr(torch, cfg.dtype)
+    if cfg.n_enc_layers:
+        frames = np.zeros((batch, cfg.enc_seq, cfg.d_model), np.float32)
+        frames[:, :ENCDEC_FRAMES] = rng.standard_normal(
+            (batch, ENCDEC_FRAMES, cfg.d_model), dtype=np.float32)
+        return {"frame_embeds": torch.as_tensor(frames, device=dev)
+                .to(dtype)}
+    if cfg.family == "vlm":
+        patches = 0.02 * rng.standard_normal(
+            (batch, cfg.n_img_tokens, cfg.d_model), dtype=np.float32)
+        return {"patch_embeds": torch.as_tensor(patches, device=dev)
+                .to(dtype)}
+    return {}
+
+
+def encdec_vlm_serving(arch: str, seed: int, dev, reset_launches,
+                       launch_counts):
+    """whisper-base or phi-3-vision-4.2b at full width and depth (bf16):
+    ``generate`` counted (no kernel on these paths), the prefill (and
+    whisper's encoder alone) and the decode steps timed and profiled;
+    check (a) the first decode steps against a no-cache ``forward`` over
+    the same frames or patches, (b) the bf16 prefill against a prefill of
+    the weights upcast to fp32 (fp32 frames), and for whisper (c) the
+    prefill's ``cross_k``/``cross_v`` ``torch.equal`` to ``enc_h @ wk`` /
+    ``wv`` computed apart."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.serving import generate
+
+    cfg = get_config(arch)
+    whisper = bool(cfg.n_enc_layers)
+    b, new = (ENCDEC_BATCH, ENCDEC_NEW) if whisper else (VLM_BATCH, VLM_NEW)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    rng = np.random.default_rng(seed)
+    if whisper:
+        prompt = torch.tensor([WHISPER_SOT] * b, device=dev)
+    else:
+        prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                              (b, VLM_PROMPT)), device=dev)
+    extras = stub_inputs(cfg, rng, b, dev)
+    s = prompt.shape[1]
+    n_img = 0 if whisper else cfg.n_img_tokens
+    start_idx = n_img + s                 # the first decode step's index
+    max_len = start_idx + new
+    torch.cuda.reset_peak_memory_stats()
+
+    # -- the main path: counts to 0, generate, counts read ---------------------
+    reset_launches()
+    t0 = time.perf_counter()
+    tokens, logits = generate(cfg, params, prompt, new, **extras)
+    torch.cuda.synchronize()
+    generate_s = time.perf_counter() - t0
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if launches:
+        raise AssertionError(f"{arch}: generate launched {launches}; every "
+                             f"attention is the global flash")
+    if tuple(tokens.shape) != (b, new) or int(tokens.min()) < 0 or \
+            int(tokens.max()) >= cfg.vocab_size:
+        raise AssertionError(f"{arch}: generated tokens out of range")
+    if tuple(logits.shape) != (b, start_idx, cfg.vocab_size) or \
+            not bool(logits.isfinite().all()):
+        raise AssertionError(f"{arch}: prefill logits wrong shape or "
+                             f"non-finite")
+    if not torch.equal(tokens[:, 0], logits[:, -1].argmax(-1)):
+        raise AssertionError(f"{arch}: first token is not the prefill's "
+                             f"greedy token")
+    del logits
+
+    # -- the encoder and the prefill timed; the decode steps timed, kept -----------
+    encoder_ms = (cuda_ms(lambda: M._run_encoder(cfg, params,
+                                                 extras["frame_embeds"]), 3)
+                  if whisper else None)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    logits_b, cache = M.prefill(cfg, params, prompt, max_len=max_len,
+                                **extras)
+    end.record()
+    end.synchronize()
+    prefill_ms = start.elapsed_time(end)
+    tok = logits_b[:, -1:].argmax(-1)
+    fed, step_logits, dec_ms = [tok], [], []
+    for idx in range(start_idx, max_len - 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        lg, cache = M.decode_step(cfg, params, cache, tok, idx)
+        end.record()
+        end.synchronize()
+        dec_ms.append(start.elapsed_time(end))
+        if len(step_logits) < DENSE_CACHE_STEPS:
+            step_logits.append(lg[:, 0])
+        tok = lg.argmax(-1)
+        fed.append(tok)
+    same_tokens = torch.equal(torch.cat(fed, dim=1), tokens)
+    decode_ms = statistics.median(dec_ms)
+    decode_dev_ms, decode_kernels, decode_calls = profile_card_only(
+        lambda: M.decode_step(cfg, params, cache, tok, max_len - 1))
+
+    # -- (c) whisper's cross cache against enc_h @ wk / wv computed apart ------------
+    cross_equal = None
+    if whisper:
+        enc_h = M._run_encoder(cfg, params, extras["frame_embeds"])
+        se = enc_h.shape[1]
+        cross_equal = all(
+            torch.equal(cache[f"cross_{w}"][i], (
+                enc_h @ params["cross_attn"]["attn"][f"w{w}"][i]).reshape(
+                    b, se, cfg.n_kv_heads, cfg.head_dim).transpose(1, 2))
+            for i in range(cfg.n_layers) for w in ("k", "v"))
+        del enc_h
+        if not cross_equal:
+            raise AssertionError(f"{arch}: the prefill's cross_k/cross_v "
+                                 f"differ from enc_h @ wk / wv")
+    del cache
+    prefill_dev_ms, prefill_kernels, prefill_calls = profile_card_only(
+        lambda: M.prefill(cfg, params, prompt, max_len=max_len, **extras))
+    encoder_dev_ms = (profile_card_only(lambda: M._run_encoder(
+        cfg, params, extras["frame_embeds"]))[0] if whisper else None)
+
+    # -- (a) the decode cache against a no-cache forward ---------------------------
+    n = DENSE_CACHE_STEPS
+    seq = torch.cat([prompt, *fed[:n]], dim=1)
+    reset_launches()
+    full, _ = M.forward(cfg, params, seq, remat=False, **extras)
+    if launch_counts():
+        raise AssertionError(f"{arch}: forward launched {launch_counts()}")
+    cache_rel, cache_worst = logits_diff(torch.stack(step_logits, 1),
+                                         full[:, start_idx:start_idx + n])
+    del full, step_logits
+    if not cache_rel <= CACHE_REL_TOL:
+        raise AssertionError(f"{arch}: {n} decode steps at {start_idx}... "
+                             f"vs a no-cache forward, relative L2 "
+                             f"{cache_rel:.3e} (tol {CACHE_REL_TOL})")
+
+    # -- (b) the bf16 prefill against the same weights in fp32 ---------------------
+    logits_host = logits_b.cpu()
+    del logits_b
+    upcast_in_place(params)
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    extras32 = {k: v.float() for k, v in extras.items()}
+    reset_launches()
+    logits_32, cache = M.prefill(cfg32, params, prompt, **extras32)
+    torch.cuda.synchronize()
+    fp32_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del cache, params
+    if launch_counts():
+        raise AssertionError(f"{arch}: fp32 prefill launched "
+                             f"{launch_counts()}")
+    fp32_rel, fp32_worst = logits_diff(logits_host, logits_32)
+    del logits_32, logits_host
+    torch.cuda.empty_cache()
+    if not fp32_rel <= ENCDEC_FP32_REL_TOL:
+        raise AssertionError(f"{arch}: bf16 prefill vs fp32, relative L2 "
+                             f"{fp32_rel:.3e} (tol {ENCDEC_FP32_REL_TOL})")
+    inputs = (f"{ENCDEC_FRAMES} frames padded to {cfg.enc_seq}, prompt {s}"
+              if whisper else f"{n_img} patches + prompt {s}")
+    return {
+        "case": f"{arch} {cfg.dtype}, B={b}, {inputs}, {new} new tokens",
+        "n_params": n_params, "init_s": init_s, "generate_s": generate_s,
+        "launches": launches, "peak_allocated_gb": peak_gb,
+        "fp32_prefill_peak_allocated_gb": fp32_peak_gb,
+        "prefill_ms": prefill_ms, "encoder_ms": encoder_ms,
+        "prefill_decoder_ms": (prefill_ms - encoder_ms if whisper
+                               else prefill_ms),
+        "encoder_device_ms": encoder_dev_ms,
+        "prefill_device_ms": prefill_dev_ms,
+        "prefill_busy_share": prefill_dev_ms / prefill_ms,
+        "prefill_launch_calls": prefill_calls,
+        "prefill_tokens_per_s": b * start_idx / prefill_ms * 1e3,
+        "prefill_device_ms_by_group": group_kernel_times(prefill_kernels),
+        "prefill_top_kernels": [(k[:72], ms) for k, ms in
+                                prefill_kernels[:6]],
+        "decode_ms_per_token": decode_ms, "decode_ms_all": dec_ms,
+        "decode_device_ms": decode_dev_ms,
+        "decode_busy_share": decode_dev_ms / decode_ms,
+        "decode_launch_calls_per_token": decode_calls,
+        "decode_device_ms_by_group": group_kernel_times(decode_kernels),
+        "decode_tokens_equal_generate": same_tokens,
+        "first_decode_index": start_idx,
+        "cache_vs_forward_rel_l2": cache_rel,
+        "cache_vs_forward_max_abs": cache_worst,
+        "bf16_vs_fp32_rel_l2": fp32_rel, "bf16_vs_fp32_max_abs": fp32_worst,
+        "cross_cache_equal": cross_equal,
+    }
+
+
+def vlm_smoke_training(seed: int, dev, reset_launches, launch_counts):
+    """VLM_ARCH's smoke config memorizing one batch (4 x 32 tokens after
+    its patch embeddings) on the card in SMOKE_TRAIN_STEPS steps, no
+    kernel launched; its logits have n_img rows more than its labels."""
+    import numpy as np
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import DataConfig, batch_at
+    from repro_torch.models import model as M
+    from repro_torch.optim import AdamConfig, init_opt_state
+    from repro_torch.train import make_train_step
+
+    scfg = get_smoke_config(VLM_ARCH)
+    sparams = M.init_params(scfg, seed, device=dev)
+    sopt_cfg = AdamConfig(lr=1e-3, total_steps=64, warmup_steps=2)
+    sopt = init_opt_state(sparams, sopt_cfg)
+    sstep = make_train_step(scfg, sopt_cfg)
+    sbatch = dict(zip(("tokens", "labels"), batch_at(
+        DataConfig(vocab_size=scfg.vocab_size, seq_len=32, global_batch=4),
+        0, device=dev))) | stub_inputs(scfg, np.random.default_rng(seed), 4,
+                                       dev)
+    with torch.no_grad():
+        logits, _ = M.forward(scfg, sparams, sbatch["tokens"],
+                              patch_embeds=sbatch["patch_embeds"])
+    if logits.shape[1] != sbatch["labels"].shape[1] + scfg.n_img_tokens:
+        raise AssertionError(f"{VLM_ARCH} smoke: logits of {logits.shape[1]}"
+                             f" rows for {sbatch['labels'].shape[1]} labels")
+    reset_launches()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(SMOKE_TRAIN_STEPS):
+        m, sparams, sopt = sstep(sparams, sopt, sbatch)
+        losses.append(float(m["loss"]))
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    if launches:
+        raise AssertionError(f"{VLM_ARCH} smoke training launched "
+                             f"{launches}")
+    if not losses[-1] < losses[0] - SMOKE_TRAIN_DROP:
+        raise AssertionError(f"{VLM_ARCH} smoke training: loss "
+                             f"{losses[0]:.4f} -> {losses[-1]:.4f}, want a "
+                             f"drop of more than {SMOKE_TRAIN_DROP}")
+    return {"case": f"{scfg.name} ({scfg.dtype}) on one batch of 4 x "
+                    f"({scfg.n_img_tokens} patches + 32 tokens), "
+                    f"{SMOKE_TRAIN_STEPS} steps",
+            "seconds": seconds, "launches": launches,
+            "logits_rows": logits.shape[1], "label_rows":
+                sbatch["labels"].shape[1],
+            "losses": losses[::10] + losses[-1:]}
+
+
+def encdec_vlm_lm_phase(seed: int, dev, smi: str, reset_launches,
+                        launch_counts):
+    """whisper-base and phi-3-vision-4.2b served at full width and depth,
+    whisper-base's train steps at full width and depth and phi-3-vision's
+    smoke config memorizing one batch; no kernel launched anywhere. ->
+    {arch: record, "train", "vlm_train", "launches": {kernel: main-path
+    launches}, "device", "phase_s"}"""
+    t_phase = time.perf_counter()
+    out = {"device": smi}
+    for arch in (ENCDEC_ARCH, VLM_ARCH):
+        t0 = time.perf_counter()
+        out[arch] = encdec_vlm_serving(arch, seed, dev, reset_launches,
+                                       launch_counts)
+        out[arch]["seconds"] = time.perf_counter() - t0
+        log(f"{arch} ({smi}): " + json.dumps(out[arch]))
+    t0 = time.perf_counter()
+    out["train"] = dense_training(seed, dev, reset_launches, launch_counts,
+                                  arch=ENCDEC_ARCH,
+                                  n_steps=ENCDEC_TRAIN_STEPS,
+                                  batch=ENCDEC_BATCH, seq=ENCDEC_TRAIN_SEQ)
+    out["train"]["frames_per_s"] = (ENCDEC_BATCH * ENCDEC_FRAMES
+                                    / out["train"]["step_ms"] * 1e3)
+    out["train"]["seconds"] = time.perf_counter() - t0
+    log(f"{ENCDEC_ARCH} training ({smi}): " + json.dumps(out["train"]))
+    out["vlm_train"] = vlm_smoke_training(seed, dev, reset_launches,
+                                          launch_counts)
+    log(f"{VLM_ARCH} smoke training ({smi}): "
+        + json.dumps(out["vlm_train"]))
+    launches = {}
+    for rec in (out[ENCDEC_ARCH], out[VLM_ARCH], out["vlm_train"]):
+        for k, v in rec["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"encoder-decoder/VLM LM phase ({smi}): {out['phase_s']:.1f} s")
     return out
 
 
@@ -5384,6 +5718,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     moe_ssm_rec = moe_ssm_lm_phase(args.seed, dev, reset_launches,
                                    launch_counts)
+    torch.cuda.empty_cache()
+    encdec_vlm_rec = encdec_vlm_lm_phase(args.seed, dev, smi[0],
+                                         reset_launches, launch_counts)
 
     a, b = new_cases["a"], new_cases["b"]
     sfc_main = sfc_results[0]
@@ -5601,6 +5938,8 @@ def main(argv=None) -> int:
             dense_rec[a]["launches"].get(entry["name"], 0)
             for a in DENSE_ARCHS)
         entry["moe_lm_launches"] = moe_ssm_rec["launches"].get(
+            entry["name"], 0)
+        entry["encdec_vlm_lm_launches"] = encdec_vlm_rec["launches"].get(
             entry["name"], 0)
         if entry["name"] in batch_launches:
             entry["launches_per_execute_batch"] = sorted(

@@ -6,16 +6,18 @@ prefill + greedy decode.
 
 The port of ``lm_serve.py``: batched prefill, the KV cache, one-token
 decode steps (``models.serving.generate``), at the arch's smoke width
-with random weights from seed 0. The port runs the decoder-only archs:
-the dense gemma2-2b (whose local layers run kernel G once the prompt is
-longer than the window), qwen1.5-0.5b, codeqwen1.5-7b and starcoder2-3b,
-the MoE grok-1-314b and arctic-480b (whose expert dispatch runs kernel A),
-and the SSM mamba2-130m and hybrid zamba2-1.2b (whose ``generate``
-replays the prompt through decode steps); the VLM and the
-encoder-decoder raise naming their ROADMAP items. It runs on the CUDA card, and raises without one unless
-``--device cpu`` is given. The weights and the prompts come from
-``torch.Generator``s seeded 0 and 1, so they differ from the JAX script's
-(threefry) draw.
+with random weights from seed 0. It takes every arch: the dense
+gemma2-2b (whose local layers run kernel G once the prompt is longer than
+the window), qwen1.5-0.5b, codeqwen1.5-7b and starcoder2-3b, the MoE
+grok-1-314b and arctic-480b (whose expert dispatch runs kernel A), the SSM
+mamba2-130m and hybrid zamba2-1.2b (whose ``generate`` replays the prompt
+through decode steps), the VLM phi-3-vision-4.2b (stub patch embeddings
+before each prompt) and the encoder-decoder whisper-base (stub frame
+embeddings for its encoder), the stub inputs drawn as the JAX script draws
+them, 0.02 times a standard normal. It runs on the CUDA card, and raises
+without one unless ``--device cpu`` is given. The weights, the prompts
+and the stub inputs come from ``torch.Generator``s seeded 0, 1 and 2, so
+they differ from the JAX script's (threefry) draw.
 """
 
 import argparse
@@ -50,9 +52,20 @@ def main(argv=None):
     prompts = torch.randint(
         0, cfg.vocab_size, (args.batch, args.prompt_len),
         generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    dtype = getattr(torch, cfg.dtype)
+    extras = {}
+    if cfg.family == "vlm":
+        extras["patch_embeds"] = 0.02 * torch.randn(
+            (args.batch, cfg.n_img_tokens, cfg.d_model), generator=gen,
+            device=dev, dtype=dtype)
+    if cfg.n_enc_layers:
+        extras["frame_embeds"] = 0.02 * torch.randn(
+            (args.batch, cfg.enc_seq, cfg.d_model), generator=gen,
+            device=dev, dtype=dtype)
 
     t0 = time.time()
-    tokens, _ = generate(cfg, params, prompts, args.new_tokens)
+    tokens, _ = generate(cfg, params, prompts, args.new_tokens, **extras)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.time() - t0

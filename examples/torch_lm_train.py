@@ -7,10 +7,11 @@ steps.
 The port of ``lm_train.py``: the launcher's loop
 (``repro_torch.launch.train``: a checkpoint every K steps, the
 deterministic data cursor, restart from the newest checkpoint) on the
-smoke-sized variant of a decoder-only arch (the dense gemma2-2b,
-qwen1.5-0.5b, codeqwen1.5-7b and starcoder2-3b, the MoE grok-1-314b and
-arctic-480b, mamba2-130m and zamba2-1.2b; the VLM and the
-encoder-decoder raise naming their ROADMAP items). The checkpoints go to ``--ckpt-dir``, by default
+smoke-sized variant of any arch (the dense gemma2-2b, qwen1.5-0.5b,
+codeqwen1.5-7b and starcoder2-3b, the MoE grok-1-314b and arctic-480b,
+mamba2-130m, zamba2-1.2b, and phi-3-vision-4.2b and whisper-base, whose
+batches carry the launcher's zero patch or frame embeddings). The
+checkpoints go to ``--ckpt-dir``, by default
 ``repro_torch_lm_ckpt`` in the temporary directory, apart from the JAX
 script's: the launcher resumes from the newest checkpoint it finds there,
 so a finished run in that directory is restored and trains no more steps.

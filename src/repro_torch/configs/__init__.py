@@ -1,8 +1,8 @@
-"""Config registry of the port: the JAX package's arch ids, of which the
-decoder-only ones are ported (the dense gemma2-2b, qwen1.5-0.5b,
-codeqwen1.5-7b and starcoder2-3b, the MoE grok-1-314b and arctic-480b,
-the SSM mamba2-130m and the hybrid zamba2-1.2b); whisper-base and
-phi-3-vision-4.2b raise and name their ROADMAP items (13.4, 13.5)."""
+"""Config registry of the port: the JAX package's ten arch ids (the dense
+gemma2-2b, qwen1.5-0.5b, codeqwen1.5-7b and starcoder2-3b, the MoE
+grok-1-314b and arctic-480b, the SSM mamba2-130m, the hybrid zamba2-1.2b,
+the VLM phi-3-vision-4.2b and the encoder-decoder whisper-base), one
+module each."""
 
 from __future__ import annotations
 
@@ -23,17 +23,13 @@ _PORTED: Dict[str, str] = {
     "codeqwen1.5-7b": "codeqwen1_5_7b", "starcoder2-3b": "starcoder2_3b",
     "grok-1-314b": "grok_1_314b", "arctic-480b": "arctic_480b",
     "mamba2-130m": "mamba2_130m", "zamba2-1.2b": "zamba2_1_2b",
+    "phi-3-vision-4.2b": "phi_3_vision_4_2b", "whisper-base": "whisper_base",
 }
-# the ROADMAP Queue 1 item of each arch still to port
-_ITEM = {"whisper-base": "13.4", "phi-3-vision-4.2b": "13.5"}
 
 
 def _module(arch: str):
     if arch not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch!r}; have {ARCH_IDS}")
-    if arch not in _PORTED:
-        raise ValueError(f"arch {arch!r} is not ported yet (ROADMAP Queue 1 "
-                         f"item {_ITEM[arch]}); ported: {sorted(_PORTED)}")
     return importlib.import_module(f".{_PORTED[arch]}", __package__)
 
 

@@ -21,7 +21,6 @@ from .core.interactions import (PairKernel, make_gravity, make_high_flop,
                                 make_lennard_jones, make_low_flop,
                                 make_sph_density)
 from .data.pipeline import DataState
-from .models.model import check_ported
 
 _FACTORIES = {
     "lennard_jones": make_lennard_jones,
@@ -112,10 +111,11 @@ def params_from_jax(cfg, tree, device) -> dict:
     """The port's params from JAX's ``init_params`` output after
     ``np.asarray`` (a nested dict of numpy arrays), leaf by leaf on
     ``device``; the dict layout is the same on both sides."""
-    check_ported(cfg)
     want = {"embed", "final_norm", "layers"} | (
         set() if cfg.tie_embeddings else {"lm_head"}) | (
         {"shared_attn"} if cfg.family == "hybrid" and cfg.hybrid_attn_every
+        else set()) | (
+        {"enc_layers", "enc_final_norm", "cross_attn"} if cfg.n_enc_layers
         else set())
     if set(tree) != want:
         raise ValueError(f"params of {cfg.name} have keys {sorted(want)}, "

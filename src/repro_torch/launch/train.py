@@ -6,16 +6,18 @@ loop with a checkpoint every K steps, restart from the latest checkpoint
 with the data cursor, a straggler watchdog, and the deterministic data
 pipeline, driven by ``dist.fault.run_with_restarts``. It runs on the CUDA
 card unless ``--device`` names another device. ``--arch`` takes every id;
-the decoder-only archs (dense, MoE, SSM, hybrid) train, whisper-base and
-phi-3-vision-4.2b raise naming their items (13.4, 13.5). One device:
-JAX's mesh and sharded init wait with the rest of ``launch/`` (ROADMAP
-Queue 1 item 13.6).
+the VLM's batches carry zero ``patch_embeds`` and whisper's zero
+``frame_embeds`` in ``cfg.dtype``, as JAX's launcher builds them. One
+device: JAX's mesh and sharded init wait with the rest of ``launch/``
+(ROADMAP Queue 1 item 13.6).
 """
 
 from __future__ import annotations
 
 import argparse
 import time
+
+import torch
 
 from ..ckpt import checkpoint as C
 from ..configs import ARCH_IDS, get_config, get_smoke_config
@@ -54,6 +56,16 @@ def main(argv=None):
     fault_cfg = FaultConfig(ckpt_dir=args.ckpt_dir,
                             ckpt_every=args.ckpt_every)
     step_fn = make_train_step(cfg, opt_cfg, microbatches=args.microbatches)
+    # the stub front ends' inputs, as JAX's launcher builds them
+    dtype = getattr(torch, cfg.dtype)
+    stubs = {}
+    if cfg.family == "vlm":
+        stubs["patch_embeds"] = torch.zeros(
+            (args.batch, cfg.n_img_tokens, cfg.d_model), dtype=dtype,
+            device=dev)
+    if cfg.n_enc_layers:
+        stubs["frame_embeds"] = torch.zeros(
+            (args.batch, cfg.enc_seq, cfg.d_model), dtype=dtype, device=dev)
 
     def train_loop(start_step: int) -> int:
         params = M.init_params(cfg, 0, device=dev)
@@ -69,7 +81,7 @@ def main(argv=None):
             t0 = time.time()
             metrics, params, opt = step_fn(params, opt,
                                            {"tokens": tokens,
-                                            "labels": labels})
+                                            "labels": labels, **stubs})
             loss = float(metrics["loss"])      # waits for the step
             watchdog.observe(time.time() - t0)
             data_step += 1

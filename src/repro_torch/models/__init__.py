@@ -1,9 +1,9 @@
 """The LM side of the port: layers, attention, the mixture of experts,
-the Mamba-2 block, the decoder-only models (dense, MoE, SSM, hybrid) and
-greedy serving. Local attention layers run kernel G
+the Mamba-2 block, the models of all ten configs (dense, MoE, SSM,
+hybrid, the VLM prefix and whisper's encoder-decoder) and greedy
+serving. Local attention layers run kernel G
 (``repro_torch/kernels/csrc/window_attn.cu``); the MoE dispatch runs
-kernel A (``repro_torch/kernels/csrc/prefix_sum.cu``). Whisper and the
-VLM prefix wait for ROADMAP Queue 1 items 13.4 and 13.5."""
+kernel A (``repro_torch/kernels/csrc/prefix_sum.cu``)."""
 
 from . import attention, layers, model, moe, serving, ssm
 from .model import (decode_step, forward, init_cache, init_params, prefill)

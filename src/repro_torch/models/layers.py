@@ -66,6 +66,19 @@ def rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
     return torch.cat([xr1, xr2], dim=-1).to(x.dtype)
 
 
+def sinusoidal_positions(s: int, d: int, dtype, device) -> Tensor:
+    """Whisper-style fixed sinusoidal table (S, D): [sin, cos] of position
+    times ``exp(-i log(1e4) / (half - 1))``, in fp32 as JAX's (its log is
+    an fp32 log), cast to ``dtype``."""
+    half = d // 2
+    step = torch.log(torch.tensor(10000.0, device=device)) / max(half - 1, 1)
+    freqs = torch.exp(-torch.arange(half, dtype=torch.float32,
+                                    device=device) * step)
+    ang = torch.arange(s, dtype=torch.float32, device=device)[:, None] \
+        * freqs[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
 # -- dense / GLU MLP -----------------------------------------------------------
 
 def _act(x: Tensor, kind: str) -> Tensor:

@@ -1,15 +1,20 @@
-"""Model assembly: init / forward / prefill / decode, decoder-only.
+"""Model assembly: init / forward / prefill / decode for all 10 families.
 
-The port of ``repro/models/model.py`` for the decoder-only families:
+The port of ``repro/models/model.py``:
 ``dense`` (gemma2-2b, qwen1.5-0.5b, codeqwen1.5-7b, starcoder2-3b),
 ``moe`` (grok-1-314b, arctic-480b: the MLP swapped for ``models/moe.py``,
 whose dispatch launches kernel A), ``ssm`` (mamba2-130m, the Mamba-2
-stack of ``models/ssm.py``) and ``hybrid`` (zamba2-1.2b: the Mamba-2
+stack of ``models/ssm.py``), ``hybrid`` (zamba2-1.2b: the Mamba-2
 stack with one *shared* attention + MLP block after every
 ``hybrid_attn_every`` layers, one weight set, a KV cache per
-invocation). ``init_params(cfg, seed) -> params`` is a nested dict with
-the layer weights stacked over a leading L dimension, as in JAX; the layer
-scan is a Python loop over that dimension.
+invocation), ``vlm`` (phi-3-vision-4.2b: the decoder with stub
+``patch_embeds`` put before the token embeddings; RoPE positions and the
+KV cache start at the prefix) and ``audio`` (whisper-base: a
+bidirectional encoder over stub ``frame_embeds``, sinusoidal positions
+and no RoPE, and a cross-attention in each decoder layer whose K/V the
+prefill caches). ``init_params(cfg, seed) -> params`` is a nested dict
+with the layer weights stacked over a leading L dimension, as in JAX; the
+layer scan is a Python loop over that dimension.
 
 Modes:
   forward      full-sequence logits
@@ -26,9 +31,15 @@ recomputed in the backward pass (JAX's ``nothing_saveable`` policy).
 
 For ``ssm`` and ``hybrid`` JAX's ``prefill`` returns the logits and a
 *zeroed* decode cache, and its ``generate`` replays the prompt through
-decode steps; the port keeps both (``models/serving.py``). Encoder-decoder
-(whisper) and VLM inputs are not ported (ROADMAP Queue 1 items 13.4, 13.5)
-and raise.
+decode steps; the port keeps both (``models/serving.py``).
+
+Whisper's decoder layer runs self-attention, then the MLP, then the
+cross-attention, as JAX's code does (its layer scan and its
+``decode_step`` add the cross-attention after the MLP); the comment in
+JAX's ``decode_step`` and published Whisper put it before the MLP. The
+port follows the code, which the tests hold it to. The frames must come
+in ``cfg.dtype``: JAX promotes fp32 frames against bf16 weights, and the
+port raises rather than cast.
 """
 
 from __future__ import annotations
@@ -45,27 +56,14 @@ from ..kernels.ops import window_attention
 from .attention import _chunk_for, attention, decode_attention
 from .layers import (apply_norm, embed_tokens, init_attn, init_embed,
                      init_mlp, init_norm, mlp, out_project, qkv_project,
-                     rope)
+                     rope, sinusoidal_positions)
 from .moe import init_moe, moe_mlp
 from .ssm import init_mamba2, mamba2_block, mamba2_decode
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
 
-UNPORTED = "ROADMAP Queue 1 item"
 _MAMBA = ("ssm", "hybrid")
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise for a family or option the port does not have yet."""
-    missing = [(what, item) for what, item, on in (
-        ("an encoder (n_enc_layers)", "13.4", cfg.n_enc_layers),
-        ("non-rope positions (use_rope=False)", "13.4", not cfg.use_rope),
-        (f"the {cfg.family} family", "13.5", cfg.family == "vlm")) if on]
-    if missing:
-        raise ValueError(
-            f"{cfg.name}: {', '.join(w for w, _ in missing)} not ported yet "
-            f"({UNPORTED} {', '.join(sorted({i for _, i in missing}))})")
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -145,7 +143,6 @@ def _index(tree, i):
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
     """Random weights from ``torch.Generator(device).manual_seed(seed)``,
     in ``cfg.dtype``, on ``device`` (default: the CUDA card)."""
-    check_ported(cfg)
     dev = resolve_device(device)
     dtype = _dtype(cfg)
     gen = torch.Generator(device=dev)
@@ -167,6 +164,18 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
             "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, dev,
                             cfg.mlp_gated),
         }
+    if cfg.n_enc_layers:
+        norm = lambda: init_norm(cfg.d_model, cfg.norm, dtype, dev)  # noqa: E731
+        attn = lambda: init_attn(gen, cfg.d_model, cfg.n_heads,  # noqa: E731
+                                 cfg.n_kv_heads, cfg.head_dim, dtype, dev)
+        params["enc_layers"] = _stack([
+            {"norm1": norm(), "norm2": norm(), "attn": attn(),
+             "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, dev,
+                             cfg.mlp_gated)}
+            for _ in range(cfg.n_enc_layers)])
+        params["enc_final_norm"] = norm()
+        params["cross_attn"] = _stack([{"norm": norm(), "attn": attn()}
+                                       for _ in range(cfg.n_layers)])
     return params
 
 
@@ -179,8 +188,9 @@ def _self_attention(cfg: ModelConfig, p: Params, x: Tensor, positions: Tensor,
                     is_local: bool) -> Tuple[Tensor, Tensor, Tensor]:
     """-> (projected output, k, v) — k/v reused by prefill cache building."""
     q, k, v = qkv_project(x, p, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if cfg.use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     s = x.shape[1]
     if is_local and cfg.window < s:
         o = window_attention(q, k, v, window=cfg.window,
@@ -219,6 +229,76 @@ def _decoder_layer(cfg: ModelConfig, p: Params, x: Tensor, positions: Tensor,
     h, aux = _mlp_or_moe(cfg, p, apply_norm(x, p["norm2"], cfg.norm))
     x = x + _maybe_post(cfg, p, "post_norm2", h)
     return x, aux, k, v
+
+
+def _q_project(cfg: ModelConfig, p: Params, x: Tensor) -> Tensor:
+    """x (B, S, d) -> q (B, H, S, Dh): ``qkv_project``'s q alone (JAX
+    projects k and v too and drops them)."""
+    b, s, _ = x.shape
+    q = x @ p["wq"]
+    if "bq" in p:
+        q = q + p["bq"]
+    return q.reshape(b, s, cfg.n_heads, cfg.head_dim).transpose(1, 2)
+
+
+def _cross_kv(cfg: ModelConfig, p: Params, enc_h: Tensor
+              ) -> Tuple[Tensor, Tensor]:
+    """The cross-attention's K and V of the encoder output: ``enc_h @ wk``
+    and ``enc_h @ wv`` (no bias) as (B, KH, Se, Dh)."""
+    b, se, _ = enc_h.shape
+    return tuple((enc_h @ p[w]).reshape(b, se, cfg.n_kv_heads,
+                                        cfg.head_dim).transpose(1, 2)
+                 for w in ("wk", "wv"))
+
+
+def _cross_attention(cfg: ModelConfig, xp: Params, h: Tensor, k: Tensor,
+                     v: Tensor) -> Tensor:
+    """Non-causal attention of the normed ``h`` over the encoder's K/V;
+    the flash picks each side's chunk (``_chunk_for``)."""
+    q = _q_project(cfg, xp["attn"], apply_norm(h, xp["norm"], cfg.norm))
+    o = attention(q, k, v, False, 0.0, cfg.attn_q_chunk, cfg.attn_k_chunk)
+    return out_project(o, xp["attn"])
+
+
+def _decoder_block(cfg: ModelConfig, p: Params, xp: Optional[Params],
+                   x: Tensor, positions: Tensor, is_local: bool,
+                   enc_h: Optional[Tensor]):
+    """``_decoder_layer``, then (whisper) the cross-attention over
+    ``enc_h``, added after the MLP as JAX's layer scan adds it.
+    -> (x, aux_loss, (k, v) or (k, v, cross k, cross v))."""
+    x, aux, k, v = _decoder_layer(cfg, p, x, positions, is_local)
+    if enc_h is None:
+        return x, aux, (k, v)
+    xk, xv = _cross_kv(cfg, xp["attn"], enc_h)
+    return x + _cross_attention(cfg, xp, x, xk, xv), aux, (k, v, xk, xv)
+
+
+def _encoder_layer(cfg: ModelConfig, p: Params, h: Tensor) -> Tensor:
+    q, k, v = qkv_project(apply_norm(h, p["norm1"], cfg.norm), p["attn"],
+                          cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+    a = attention(q, k, v, False, 0.0, cfg.attn_q_chunk, cfg.attn_k_chunk)
+    h = h + out_project(a, p["attn"])
+    return h + mlp(apply_norm(h, p["norm2"], cfg.norm), p["mlp"], cfg.act)
+
+
+def _run_encoder(cfg: ModelConfig, params: Params, frames: Tensor,
+                 remat: bool = False) -> Tensor:
+    """Whisper's encoder over stub frame embeddings (B, Se, d): the
+    sinusoidal table added in the frames' dtype, bidirectional layers,
+    ``enc_final_norm``. With ``remat`` each layer runs under
+    ``torch.utils.checkpoint``."""
+    if frames.dtype != _dtype(cfg):
+        raise TypeError(f"{cfg.name}: frame_embeds are {frames.dtype}, the "
+                        f"model computes in {_dtype(cfg)}; pass the frames "
+                        f"in cfg.dtype")
+    x = frames + sinusoidal_positions(frames.shape[1], cfg.d_model,
+                                      frames.dtype, frames.device)[None]
+    for lp in _unstack(params["enc_layers"], cfg.n_enc_layers):
+        if remat:
+            x = checkpoint(_encoder_layer, cfg, lp, x, use_reentrant=False)
+        else:
+            x = _encoder_layer(cfg, lp, x)
+    return apply_norm(x, params["enc_final_norm"], cfg.norm)
 
 
 def _mamba_layer(cfg: ModelConfig, p: Params, x: Tensor) -> Tensor:
@@ -264,34 +344,37 @@ def _unstack(tree, n: int):
 
 def _run_decoder_stack(cfg: ModelConfig, params: Params, x: Tensor,
                        positions: Tensor, collect_kv: bool = False,
-                       remat: bool = False):
-    """Loop over the stacked decoder layers -> (x, aux_loss, kv or None).
+                       remat: bool = False, enc_h: Optional[Tensor] = None):
+    """Loop over the stacked decoder layers -> (x, aux_loss, kv or None);
+    kv is the stacked (k, v), and with ``enc_h`` (whisper) the stacked
+    cross-attention K and V after them.
 
     gemma2 (``local_global``) runs (local, global) layer pairs, as JAX's
-    pair scan does. With ``remat`` each layer runs under
-    ``torch.utils.checkpoint`` and keeps only its input for the backward
-    pass."""
+    pair scan does. With ``remat`` each layer (and its cross-attention)
+    runs under ``torch.utils.checkpoint`` and keeps only its input for the
+    backward pass."""
     if cfg.family in _MAMBA:
         return (_run_mamba_stack(cfg, params, x, positions, remat),
                 torch.zeros((), device=x.device), None)
     kinds = ([i % 2 == 0 for i in range(cfg.n_layers)] if cfg.local_global
              else [False] * cfg.n_layers)
     aux = torch.zeros((), device=x.device)
-    ks, vs = [], []
+    kvs = []
     layers = _unstack(params["layers"], cfg.n_layers)
+    cross = (_unstack(params["cross_attn"], cfg.n_layers) if enc_h is not None
+             else [None] * cfg.n_layers)
     for i, is_local in enumerate(kinds):
         if remat:
-            x, a, k, v = checkpoint(_decoder_layer, cfg, layers[i], x,
-                                    positions, is_local,
-                                    use_reentrant=False)
+            x, a, kv = checkpoint(_decoder_block, cfg, layers[i], cross[i],
+                                  x, positions, is_local, enc_h,
+                                  use_reentrant=False)
         else:
-            x, a, k, v = _decoder_layer(cfg, layers[i], x, positions,
-                                        is_local)
+            x, a, kv = _decoder_block(cfg, layers[i], cross[i], x,
+                                      positions, is_local, enc_h)
         aux = aux + a
         if collect_kv:
-            ks.append(k)
-            vs.append(v)
-    return x, aux, ((torch.stack(ks), torch.stack(vs)) if collect_kv
+            kvs.append(kv)
+    return x, aux, ([torch.stack(t) for t in zip(*kvs)] if collect_kv
                     else None)
 
 
@@ -326,12 +409,36 @@ def _run_mamba_stack(cfg: ModelConfig, params: Params, x: Tensor,
 
 def _embed_inputs(cfg: ModelConfig, params: Params, tokens: Tensor,
                   extras: Dict[str, Tensor]) -> Tuple[Tensor, Tensor]:
-    if extras:
-        raise ValueError(f"extra inputs {sorted(extras)} (VLM patches, "
-                         f"encoder frames) are not ported yet ({UNPORTED})")
+    """The decoder's input (B, S', d) and positions (S',): for the VLM the
+    patch embeddings (cast to the working dtype) before the token
+    embeddings, so S' = n_img + S; for whisper the sinusoidal table
+    added."""
+    takes = ({"patch_embeds"} if cfg.family == "vlm" else
+             {"frame_embeds"} if cfg.n_enc_layers else set())
+    if set(extras) - takes:
+        raise ValueError(f"{cfg.name} ({cfg.family}) takes no "
+                         f"{sorted(set(extras) - takes)}; its extra inputs "
+                         f"are {sorted(takes)}")
     x = embed_tokens(params["embed"], tokens, scale=cfg.scale_embed)
+    if "patch_embeds" in extras:
+        x = torch.cat([extras["patch_embeds"].to(x.dtype), x], dim=1)
+    if cfg.n_enc_layers:            # whisper decoder: sinusoidal, no rope
+        x = x + sinusoidal_positions(x.shape[1], cfg.d_model, x.dtype,
+                                     x.device)[None]
     positions = torch.arange(x.shape[1], device=x.device)
     return x, positions
+
+
+def _encode(cfg: ModelConfig, params: Params, extras: Dict[str, Tensor],
+            remat: bool) -> Optional[Tensor]:
+    """Whisper's encoder output over ``frame_embeds``; None for a decoder
+    without an encoder."""
+    if not cfg.n_enc_layers:
+        return None
+    if "frame_embeds" not in extras:
+        raise ValueError(f"{cfg.name} needs frame_embeds (B, Se, "
+                         f"{cfg.d_model}) for its encoder")
+    return _run_encoder(cfg, params, extras["frame_embeds"], remat)
 
 
 def lm_head(cfg: ModelConfig, params: Params) -> Tensor:
@@ -359,15 +466,17 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: Tensor,
     """Final-norm hidden states (B, S, d) and the aux loss — the train loss
     applies the LM head chunk by chunk, so the full (B, S, V) logits never
     exist. ``remat`` recomputes each layer in the backward pass."""
-    check_ported(cfg)
     x, positions = _embed_inputs(cfg, params, tokens, extras)
-    x, aux, _ = _run_decoder_stack(cfg, params, x, positions, remat=remat)
+    enc_h = _encode(cfg, params, extras, remat)
+    x, aux, _ = _run_decoder_stack(cfg, params, x, positions, remat=remat,
+                                   enc_h=enc_h)
     return apply_norm(x, params["final_norm"], cfg.norm), aux
 
 
 def forward(cfg: ModelConfig, params: Params, tokens: Tensor,
             remat: bool = True, **extras) -> Tuple[Tensor, Tensor]:
-    """Full-sequence logits. Returns (logits (B, S, V), aux_loss)."""
+    """Full-sequence logits. Returns (logits (B, S', V), aux_loss); S' =
+    n_img + S for the VLM with ``patch_embeds``."""
     x, aux = forward_hidden(cfg, params, tokens, remat=remat, **extras)
     return logits_transform(cfg)(x @ lm_head(cfg, params)), aux
 
@@ -375,10 +484,11 @@ def forward(cfg: ModelConfig, params: Params, tokens: Tensor,
 def prefill(cfg: ModelConfig, params: Params, tokens: Tensor,
             max_len: Optional[int] = None, **extras
             ) -> Tuple[Tensor, Dict[str, Tensor]]:
-    """Score the prompt and build the decode cache (serving prefill)."""
-    check_ported(cfg)
-    s = tokens.shape[1]
-    max_len = max_len or s
+    """Score the prompt and build the decode cache (serving prefill). The
+    KV cache holds the VLM's prefix first; it is padded to ``max_len``
+    where that is longer, and whisper's cache adds the cross-attention
+    K/V of every layer (``cross_k``, ``cross_v``: (L, B, KH, Se, Dh))."""
+    max_len = max_len or tokens.shape[1]
     x, positions = _embed_inputs(cfg, params, tokens, extras)
     if cfg.family in _MAMBA:
         # as JAX: the logits and a zeroed cache; ``generate`` replays the
@@ -386,10 +496,13 @@ def prefill(cfg: ModelConfig, params: Params, tokens: Tensor,
         x, _, _ = _run_decoder_stack(cfg, params, x, positions)
         return _logits(cfg, params, x), init_cache(
             cfg, tokens.shape[0], max_len, device=x.device)
-    x, _, (ks, vs) = _run_decoder_stack(cfg, params, x, positions,
-                                        collect_kv=True)
-    pad = (0, 0, 0, max_len - s)
-    cache = {"k": F.pad(ks, pad), "v": F.pad(vs, pad)}
+    enc_h = _encode(cfg, params, extras, False)
+    x, _, kv = _run_decoder_stack(cfg, params, x, positions,
+                                  collect_kv=True, enc_h=enc_h)
+    pad = max_len - kv[0].shape[3]
+    if pad > 0:
+        kv[:2] = [F.pad(t, (0, 0, 0, pad)) for t in kv[:2]]
+    cache = dict(zip(("k", "v", "cross_k", "cross_v"), kv))
     return _logits(cfg, params, x), cache
 
 
@@ -400,10 +513,10 @@ def prefill(cfg: ModelConfig, params: Params, tokens: Tensor,
 
 def cache_spec(cfg: ModelConfig, batch: int, max_len: int
                ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
-    """(shape, dtype) of each decode-cache tensor: K and V a layer; the
-    conv window and SSM state a Mamba layer, and for ``hybrid`` K and V an
+    """(shape, dtype) of each decode-cache tensor: K and V a layer (and
+    whisper's cross-attention K and V over ``enc_seq`` frames); the conv
+    window and SSM state a Mamba layer, and for ``hybrid`` K and V an
     invocation of the shared block."""
-    check_ported(cfg)
     if cfg.family in _MAMBA:
         spec = _mamba_cache_spec(cfg, batch)
         if cfg.family == "hybrid":
@@ -413,7 +526,12 @@ def cache_spec(cfg: ModelConfig, batch: int, max_len: int
             spec["shared_k"] = spec["shared_v"] = (kv, _dtype(cfg))
         return spec
     kv = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
-    return {"k": (kv, _dtype(cfg)), "v": (kv, _dtype(cfg))}
+    spec = {"k": (kv, _dtype(cfg)), "v": (kv, _dtype(cfg))}
+    if cfg.n_enc_layers and cfg.enc_seq:
+        xkv = (cfg.n_layers, batch, cfg.n_kv_heads, cfg.enc_seq,
+               cfg.head_dim)
+        spec["cross_k"] = spec["cross_v"] = (xkv, _dtype(cfg))
+    return spec
 
 
 def _mamba_cache_spec(cfg: ModelConfig, batch: int):
@@ -436,14 +554,19 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 def decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, Tensor],
                 tokens: Tensor, cache_index: int
                 ) -> Tuple[Tensor, Dict[str, Tensor]]:
-    """One decoding step. tokens (B, 1); cache_index = current length.
+    """One decoding step. tokens (B, 1); cache_index = current length (for
+    the VLM it counts the image prefix). Whisper adds row ``cache_index``
+    of the sinusoidal table and, after each layer's MLP, attends over
+    every cached encoder frame (the padded ones too, as JAX).
 
     The cache is updated in place (JAX returns a new one; here that would
     copy the whole cache every token) and returned."""
-    check_ported(cfg)
     idx = int(cache_index)
     x = embed_tokens(params["embed"], tokens, scale=cfg.scale_embed)
     positions = torch.tensor([idx], device=x.device)
+    if cfg.n_enc_layers:
+        x = x + sinusoidal_positions(cache["k"].shape[3], cfg.d_model,
+                                     x.dtype, x.device)[idx]
     if cfg.family in _MAMBA:
         return _logits(cfg, params, _decode_mamba(cfg, params, cache, x,
                                                   idx, positions)), cache
@@ -454,8 +577,9 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, Tensor],
         hn = apply_norm(x, lp["norm1"], cfg.norm)
         q, k, v = qkv_project(hn, lp["attn"], cfg.n_heads, cfg.n_kv_heads,
                               cfg.head_dim)
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
+        if cfg.use_rope:
+            q = rope(q, positions, cfg.rope_theta)
+            k = rope(k, positions, cfg.rope_theta)
         kc[:, :, idx] = k[:, :, 0]
         vc[:, :, idx] = v[:, :, 0]
         if cfg.local_global and i % 2 == 0 and cfg.window < s_cache:
@@ -471,6 +595,13 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, Tensor],
         x = x + _maybe_post(cfg, lp, "post_norm1", out_project(o, lp["attn"]))
         m, _ = _mlp_or_moe(cfg, lp, apply_norm(x, lp["norm2"], cfg.norm))
         x = x + _maybe_post(cfg, lp, "post_norm2", m)
+        if cfg.n_enc_layers:
+            xp = _index(params["cross_attn"], i)
+            xk, xv = cache["cross_k"][i], cache["cross_v"][i]
+            q2 = _q_project(cfg, xp["attn"],
+                            apply_norm(x, xp["norm"], cfg.norm))
+            o2 = decode_attention(q2, xk, xv, xk.shape[2] - 1)
+            x = x + out_project(o2, xp["attn"])
     return _logits(cfg, params, x), cache
 
 

@@ -5,7 +5,12 @@ decode step); the prompt and every generated token stay on the params'
 device, so the loop never waits on the host between steps. For ``ssm`` and
 ``hybrid`` the prefill's cache is zeroed (as JAX's), so ``generate``
 replays the prompt through decode steps to build the state, as JAX's
-does: one decode step a prompt token.
+does: one decode step a prompt token. For the VLM the cache holds the
+image prefix before the prompt, so ``generate`` sizes it n_img + S +
+n_tokens and decodes from n_img + S; JAX's sizes it S + n_tokens and
+decodes from S, over the prefix's cache rows (a reference gap, ROADMAP).
+Whisper's encoder output lives in the prefill's cross-attention cache, so
+the decode steps take no extra input.
 
 Precision flags: the library sets none. The card checks (``chip_smoke.py``)
 run with ``torch.backends.cuda.matmul.allow_tf32``,
@@ -52,11 +57,13 @@ def generate(cfg: ModelConfig, params, prompt, n_tokens: int,
              max_len: Optional[int] = None, **extras
              ) -> Tuple[Tensor, Tensor]:
     """Greedy generation on the params' device. prompt (B, S) ->
-    (tokens (B, n_tokens), prefill logits (B, S, V))."""
-    M.check_ported(cfg)
+    (tokens (B, n_tokens), prefill logits (B, S', V)); ``extras`` go to
+    the prefill, and S' = n_img + S for the VLM's ``patch_embeds``."""
     prompt = torch.as_tensor(prompt, device=params["embed"].device).long()
     b, s = prompt.shape
-    max_len = max_len or (s + n_tokens)
+    start = s + (extras["patch_embeds"].shape[1] if "patch_embeds" in extras
+                 else 0)
+    max_len = max_len or (start + n_tokens)
     logits, cache = M.prefill(cfg, params, prompt, max_len=max_len, **extras)
     tok = logits[:, -1:].argmax(-1)
     decode = make_decode_step(cfg)
@@ -68,7 +75,7 @@ def generate(cfg: ModelConfig, params, prompt, n_tokens: int,
             lg, cache = decode(params, cache, prompt[:, t:t + 1], t)
         tok = lg.argmax(-1)
     outs = [tok]
-    for idx in range(s, s + n_tokens - 1):
+    for idx in range(start, start + n_tokens - 1):
         lg, cache = decode(params, cache, tok, idx)
         tok = lg.argmax(-1)
         outs.append(tok)

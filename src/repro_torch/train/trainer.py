@@ -117,10 +117,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamConfig,
                     compress_pod_grads: bool = False,
                     remat: bool = True) -> Callable:
     """-> train_step(params, opt_state, batch) -> (metrics, params, opt),
-    params and opt updated in place. The encoder-decoder and the VLM,
-    which the port does not have, raise here (ROADMAP Queue 1 items 13.4,
-    13.5)."""
-    M.check_ported(cfg)
+    params and opt updated in place. The batch's extra inputs (the VLM's
+    ``patch_embeds``, whisper's ``frame_embeds``) go to the model, and
+    microbatches split them with the tokens."""
     loss_fn = make_loss_fn(cfg, remat=remat)
 
     def grads_of(params, batch):

@@ -113,16 +113,12 @@ def test_autotune_batch_caches_and_batches(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "gemma2-2b", "grok-1-314b",
                                   "arctic-480b", "mamba2-130m",
-                                  "zamba2-1.2b"])
+                                  "zamba2-1.2b", "whisper-base",
+                                  "phi-3-vision-4.2b"])
 def test_lm_serve_generates_in_vocab(arch):
     out = _load("lm_serve").main(["--arch", arch, "--new-tokens", "6",
                                   "--device", "cpu"])
     assert out["shape"] == (4, 6) and out["in_vocab"]
-
-
-def test_lm_serve_unported_family_raises_naming_the_item():
-    with pytest.raises(ValueError, match=r"Queue 1 item 13\.4"):
-        _load("lm_serve").main(["--arch", "whisper-base", "--device", "cpu"])
 
 
 def test_lm_train_loss_falls_and_resumes(tmp_path):
@@ -138,6 +134,19 @@ def test_lm_train_loss_falls_and_resumes(tmp_path):
 @pytest.mark.parametrize("arch", ["grok-1-314b", "zamba2-1.2b"])
 def test_lm_train_takes_the_moe_and_hybrid_archs(arch, tmp_path):
     """The launcher's loop on a MoE and a hybrid smoke config: 21 steps
+    (logged at 0 and 20), finite losses, a checkpoint at the end."""
+    out = _load("lm_train").main(["--arch", arch, "--steps", "21",
+                                  "--device", "cpu", "--ckpt-dir",
+                                  str(tmp_path)])
+    assert sorted(out["losses"]) == [0, 20] and out["arch"] == arch
+    assert all(math.isfinite(v) for v in out["losses"].values())
+    assert C.latest_step(tmp_path) == 21
+
+
+@pytest.mark.parametrize("arch", ["whisper-base", "phi-3-vision-4.2b"])
+def test_lm_train_takes_the_encdec_and_vlm_archs(arch, tmp_path):
+    """The launcher's loop on whisper-base's and phi-3-vision-4.2b's smoke
+    configs, whose batches carry zero frame or patch embeddings: 21 steps
     (logged at 0 and 20), finite losses, a checkpoint at the end."""
     out = _load("lm_train").main(["--arch", arch, "--steps", "21",
                                   "--device", "cpu", "--ckpt-dir",

@@ -518,14 +518,6 @@ def test_loss_decreases_on_a_memorized_batch():
     assert losses[-1] < losses[0] - 0.5, losses[::10]
 
 
-def test_unported_families_raise_naming_the_item():
-    cfg = dataclasses.replace(TC.get_smoke_config("gemma2-2b"), family="vlm")
-    with pytest.raises(ValueError, match=r"Queue 1 item 13\.5"):
-        TT.make_train_step(cfg, TO.AdamConfig())
-    with pytest.raises(ValueError, match=r"item 13\.4"):
-        TC.get_smoke_config("whisper-base")
-
-
 # -- AdamW ---------------------------------------------------------------------
 
 
