@@ -123,7 +123,8 @@ the main paths through ``plan(...).execute()`` and checks and times them:
     wgmma route's SASS counted, the gemma case timed beside its SIMT body
     and the backward of ``scaled_dot_product_attention``; three
     ``make_train_step`` steps on 2 x 8192 tokens (remat, AdamW), 26 G and
-    13 Gb launches a step, all on the wgmma routes, timed and profiled; the first step against the same step with G and
+    13 Gb launches a step, all on the wgmma routes, timed; the first step
+    against the same step with G and
     Gb's plain versions (the loss, every gradient against an fp32 model's,
     the updated params); the smoke-width model memorizing one batch.
   * examples: the eight ``examples/torch_*.py`` called in process
@@ -143,7 +144,11 @@ the main paths through ``plan(...).execute()`` and checks and times them:
     no-cache ``forward`` over the prompt and those tokens (relative L2
     <= 2e-2), the prefill's logits against a prefill of the weights upcast
     to fp32 (<= 5e-2); qwen1.5-0.5b's three train steps on 2 x 4096
-    tokens, each loss within 2e-2 of the fp32-upcast model's;
+    tokens, each loss within 2e-2 of the fp32-upcast model's, and a fourth
+    step's FLOPs (``FlopCounterMode``) within 1 % of the dry run's count
+    for the same step (``launch/dryrun.py``: an unsharded trace of fake
+    tensors on the host, run in a worker process while the card works),
+    the dry run's predicted peak bytes printed beside the card's;
   * the MoE archs at full width and reduced depth (grok-1-314b 4 of 64
     layers, arctic-480b 2 of 35; bf16): ``generate`` on 2 x 4096 + 16
     with kernel A launched exactly once a MoE layer in the prefill and in
@@ -153,7 +158,7 @@ the main paths through ``plan(...).execute()`` and checks and times them:
     forward where nothing drops, layer 0's MoE block in bf16 against a
     per-expert fp32 reference; mamba2-130m and zamba2-1.2b at full width
     and depth: a 2 x 4096 prefill timed and profiled, ``generate`` on 2 x
-    256 + 16 (the prompt replayed through decode steps) with no kernel
+    64 + 16 (the prompt replayed through decode steps) with no kernel
     launched, the replay against a no-cache forward in fp32, the middle
     layer's blocks in bf16 against fp32; mamba2-130m's three train steps
     on 2 x 4096 tokens; grok-1-314b's smoke config memorizing one batch,
@@ -368,6 +373,11 @@ DENSE_FP32_REL_TOL = 5e-2
 # 2 x 4096 tokens, each bf16 loss within 2e-2 relative of the fp32-upcast
 # model's loss on the same batch (STEP_REL_TOL's bf16 reasoning)
 DENSE_TRAIN_ARCH, DENSE_TRAIN_STEPS = "qwen1.5-0.5b", 3
+# the dry run's FLOPs of that step (launch/dryrun.py, fake tensors on the
+# host) against FlopCounterMode's count of the step on the card: the same
+# ops on the same shapes, so anything past 1 % is a path the dry run does
+# not trace
+DRYRUN_FLOP_TOL = 1e-2
 
 
 # the MoE archs at full width, their depth cut to what fits one 80 GB card
@@ -389,11 +399,13 @@ MOE_CACHE_PROMPT = 64
 # a few 2^-8 taken as a random walk)
 BLOCK_REL_TOL = 2e-2
 # the SSM archs at full width and depth (bf16, seed 0): the prefill of 2 x
-# 4096 tokens timed; generate on 2 x 256 + 16, whose replay of the prompt
+# 4096 tokens timed; generate on 2 x 64 + 16, whose replay of the prompt
 # is one decode step a token (a 4096-token replay would take minutes of
-# launches). With random weights the Mamba stack amplifies each rounding:
-# on an H100 the bf16 replay departs from a bf16 forward by 0.155 / 0.227
-# (mamba2-130m / zamba2-1.2b; reported as bf16_cache_vs_forward_rel_l2),
+# launches; each replayed token costs zamba2-1.2b ~80 ms of launches, and
+# the check replays the prompt three times). With random weights the Mamba
+# stack amplifies each rounding: on an H100 a 256-token bf16 replay departs
+# from a bf16 forward by 0.155 / 0.227 (mamba2-130m / zamba2-1.2b;
+# reported as bf16_cache_vs_forward_rel_l2),
 # while one block in bf16 is within 0.003-0.008 of fp32. So (a), the
 # replay's last logits and 3 decode steps against a no-cache forward, runs
 # on the weights upcast to fp32, where the SSD's chunked sums and the
@@ -404,7 +416,7 @@ BLOCK_REL_TOL = 2e-2
 # bf16 model's hidden state, BLOCK_REL_TOL as for the MoE block. The
 # whole model's bf16 distances are reported, not held
 SSM_ARCHS = ("mamba2-130m", "zamba2-1.2b")
-SSM_REPLAY_PROMPT, SSM_CACHE_STEPS = 256, 3
+SSM_REPLAY_PROMPT, SSM_CACHE_STEPS = 64, 3
 SSM_FP32_CACHE_REL_TOL = 1e-3
 # mamba2-130m trains at full width and depth on 2 x 4096 tokens; the MoE
 # backward through the kernel-A dispatch runs on grok-1-314b's smoke config
@@ -438,8 +450,12 @@ ENCDEC_FP32_REL_TOL = 2e-2
 ENCDEC_TRAIN_SEQ, ENCDEC_TRAIN_STEPS = 448, 3
 
 
+_T0 = time.perf_counter()
+
+
 def log(*args):
-    print(*args, flush=True)
+    """A line of the run's record, led by the seconds since the start."""
+    print(f"[{time.perf_counter() - _T0:7.1f} s]", *args, flush=True)
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -819,8 +835,10 @@ def lm_serving(seed: int, dev, reset_launches, launch_counts,
     decode_dev_ms, decode_launches, decode_kernels = device_time(
         lambda: M.decode_step(cfg, params, cache, tok, max_len - 1), reps=3)
     del cache
+    # one session: a profile of the prefill's ~48,000 launch calls takes
+    # tens of seconds to parse; a session that drops records reads low
     prefill_dev_ms, prefill_launches, prefill_kernels = device_time(
-        lambda: M.prefill(cfg, params, prompt, max_len=max_len))
+        lambda: M.prefill(cfg, params, prompt, max_len=max_len), sessions=1)
 
     # -- kernel G on the captured gemma q, k, v --------------------------------
     q, k, v, kw = (captured[n] for n in ("q", "k", "v", "kw"))
@@ -1247,25 +1265,12 @@ def lm_training(seed: int, dev, reset_launches, launch_counts):
                              f"{norms}, AdamW step {int(opt['step'])}")
     ms = statistics.median(step_ms[1:])
     mark("init and train steps")
-    dev_ms, kernels, launch_calls = profile_card_only(
-        lambda: step(params, opt, batches[0]))
-    mark("profiled step")
-    by_group = group_kernel_times(kernels)
-    # Gb's device time per call: its kernels' share of the step's profile
-    # (13 calls; a profiler session around Gb alone, like one around G
-    # alone, can see no kernel on the card)
-    gb_dev_ms = by_group["kernel Gb"] / n_local
-    if gb_dev_ms <= 0:
-        raise AssertionError("the train step's profile holds no kernel Gb "
-                             "time")
     log(f"gemma2-2b train step ({n_params} parameters, bf16, B={TRAIN_BATCH}"
         f" S={TRAIN_SEQ}, remat, AdamW): {ms:.1f} ms a step (steps "
         f"{[round(x, 1) for x in step_ms]}), "
         f"{TRAIN_BATCH * TRAIN_SEQ / ms * 1e3:.0f} tokens/s, peak "
         f"{peak_gb:.2f} GB allocated; launches {launches}, Gb by route "
-        f"{gb_routes}; losses {losses}, "
-        f"grad norms {norms}; device busy {dev_ms / ms:.3f} of a step, "
-        f"{launch_calls} launch calls a step; by group {by_group}")
+        f"{gb_routes}; losses {losses}, grad norms {norms}")
     del opt
     torch.cuda.empty_cache()
 
@@ -1411,10 +1416,6 @@ def lm_training(seed: int, dev, reset_launches, launch_counts):
         "step_ms_all": step_ms,
         "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / ms * 1e3,
         "peak_allocated_gb": peak_gb, "losses": losses, "grad_norms": norms,
-        "device_ms": dev_ms, "busy_share": dev_ms / ms,
-        "launch_calls_per_step": launch_calls,
-        "device_ms_by_group": by_group,
-        "top_kernels": [(k_[:72], t) for k_, t in kernels[:8]],
         "plain_step_ms": plain_step_ms, "plain_loss": loss_p,
         "plain_grad_norm": norm_p, "loss_rel": loss_rel,
         "worst_grad": worst_grad, "worst_grad_rel_l2": grad_rel[worst_grad],
@@ -1429,10 +1430,6 @@ def lm_training(seed: int, dev, reset_launches, launch_counts):
         "kernel_gb_simt_ms": gb_simt_ms,
         "kernel_gb_work_bound_ms": gb_work_bound_ms,
         "kernel_gb_work_tflops": gb_work_flops / gb_ms / 1e9,
-        "kernel_gb_device_ms": gb_dev_ms,
-        "kernel_gb_device_ms_by_kernel": [
-            (k_[:60], t / n_local) for k_, t in kernels
-            if any(g in k_ for g in dict(KERNEL_GROUPS)["kernel Gb"])],
         "kernel_gb_plain_ms": gb_plain_ms,
         "kernel_gb_bound_ms": gb_bound_ms, "kernel_gb_bound_by": gb_bound_by,
         "kernel_gb_gflop": gb_flops / 1e9, "kernel_gb_mbytes": gb_bytes / 1e6,
@@ -1713,16 +1710,83 @@ def dense_serving(arch: str, seed: int, dev, reset_launches, launch_counts):
     }
 
 
+def traced_train_step(arch: str, batch: int, seq: int) -> dict:
+    """The dry run's unsharded trace of ``arch``'s train step on ``batch``
+    x ``seq`` tokens (remat, AdamW moments in ``cfg.moment_dtype``): fake
+    tensors on the host, no card. Runs in a worker process."""
+    from repro_torch.configs import ShapeCell, get_config
+    from repro_torch.launch.dryrun import lower_cell
+    t0 = time.perf_counter()
+    tr = lower_cell(get_config(arch), ShapeCell("train", seq, batch,
+                                                "train"), None)
+    return {"flops": tr.cost["flops"],
+            "bytes_accessed": tr.cost["bytes accessed"],
+            "argument_bytes": tr.memory["argument_size_in_bytes"],
+            "temp_bytes": tr.memory["temp_size_in_bytes"],
+            "trace_s": time.perf_counter() - t0}
+
+
+def start_dryrun_trace():
+    """A one-worker pool (spawned: no CUDA state) tracing
+    DENSE_TRAIN_ARCH's step; -> (pool, async result). Its worker is a
+    daemon, ended at exit if the script fails first."""
+    import multiprocessing as mp
+    pool = mp.get_context("spawn").Pool(1)
+    return pool, pool.apply_async(traced_train_step, (
+        DENSE_TRAIN_ARCH, DENSE_BATCH, DENSE_PROMPT))
+
+
+def dryrun_flop_check(step, params, opt, batch, dryrun) -> dict:
+    """One more step on the card under ``FlopCounterMode``, its FLOPs held
+    within DRYRUN_FLOP_TOL of the dry run's trace of the same step, its
+    peak allocation beside the trace's predicted bytes (arguments + the
+    peak of the step's temporaries)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    pool, result = dryrun
+    traced = result.get(timeout=600)
+    pool.close()
+    pool.join()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as fc:
+        step(params, opt, batch)
+    torch.cuda.synchronize()
+    flops = fc.get_total_flops()
+    peak = torch.cuda.max_memory_allocated()
+    rel = abs(flops - traced["flops"]) / flops
+    predicted = traced["argument_bytes"] + traced["temp_bytes"]
+    log(f"{DENSE_TRAIN_ARCH} train step FLOPs: {flops:.6e} on the card "
+        f"(FlopCounterMode), {traced['flops']:.6e} by the dry run's trace "
+        f"({traced['trace_s']:.1f} s on the host), relative {rel:.3e} (tol "
+        f"{DRYRUN_FLOP_TOL}); peak bytes {peak} allocated on the card, "
+        f"{predicted:.0f} predicted ({traced['argument_bytes']:.0f} "
+        f"arguments + {traced['temp_bytes']:.0f} temporaries)")
+    if not rel <= DRYRUN_FLOP_TOL:
+        raise AssertionError(f"{DENSE_TRAIN_ARCH} train step: {flops} FLOPs "
+                             f"on the card, {traced['flops']} by the dry "
+                             f"run (relative {rel:.3e}, tol "
+                             f"{DRYRUN_FLOP_TOL})")
+    return {"card_flops": flops, "dryrun_flops": traced["flops"],
+            "flops_rel": rel, "card_peak_bytes": peak,
+            "predicted_peak_bytes": predicted,
+            "dryrun_argument_bytes": traced["argument_bytes"],
+            "dryrun_temp_bytes": traced["temp_bytes"],
+            "dryrun_bytes_accessed": traced["bytes_accessed"],
+            "dryrun_trace_s": traced["trace_s"]}
+
+
 def dense_training(seed: int, dev, reset_launches, launch_counts,
                    arch: str = DENSE_TRAIN_ARCH,
                    n_steps: int = DENSE_TRAIN_STEPS,
-                   batch: int = DENSE_BATCH, seq: int = DENSE_PROMPT):
+                   batch: int = DENSE_BATCH, seq: int = DENSE_PROMPT,
+                   dryrun=None):
     """``arch`` (DENSE_TRAIN_ARCH, SSM_TRAIN_ARCH or ENCDEC_ARCH) at full
     width and depth: ``n_steps`` ``make_train_step`` steps of ``batch`` x
     ``seq`` tokens (bf16, remat, AdamW), each loss against the
     fp32-upcast model's loss on the same batch at the same params; no kernel
     launched (no local layer, no expert). Whisper's batches carry its
-    ``stub_inputs`` frames (fp32 ones for the fp32 loss)."""
+    ``stub_inputs`` frames (fp32 ones for the fp32 loss). With ``dryrun``
+    (``start_dryrun_trace``), ``dryrun_flop_check`` after the steps."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -1772,6 +1836,8 @@ def dense_training(seed: int, dev, reset_launches, launch_counts,
                              f"{losses} vs fp32 {losses32}, relative "
                              f"{rels} (tol {STEP_REL_TOL})")
     ms = statistics.median(step_ms[1:])
+    check = (dryrun_flop_check(step, params, opt, batches[0], dryrun)
+             if dryrun else None)
     del params, opt, batches
     torch.cuda.empty_cache()
     return {"case": f"{arch} {cfg.dtype}, B={batch}, S={seq}, remat, "
@@ -1779,12 +1845,15 @@ def dense_training(seed: int, dev, reset_launches, launch_counts,
             "step_ms": ms, "step_ms_all": step_ms,
             "tokens_per_s": batch * seq / ms * 1e3,
             "peak_allocated_gb": peak_gb, "losses": losses,
-            "fp32_losses": losses32, "loss_rel_to_fp32": rels}
+            "fp32_losses": losses32, "loss_rel_to_fp32": rels,
+            **({"dryrun_check": check} if check else {})}
 
 
-def dense_lm_phase(seed: int, dev, reset_launches, launch_counts):
+def dense_lm_phase(seed: int, dev, reset_launches, launch_counts,
+                   dryrun=None):
     """The three dense archs served at full width and depth, then
-    DENSE_TRAIN_ARCH's train steps. -> {arch: record, "train": record}"""
+    DENSE_TRAIN_ARCH's train steps and, with ``dryrun``, the dry run's FLOP
+    check. -> {arch: record, "train": record}"""
     t_phase = time.perf_counter()
     out = {}
     for arch in DENSE_ARCHS:
@@ -1794,7 +1863,8 @@ def dense_lm_phase(seed: int, dev, reset_launches, launch_counts):
         out[arch]["seconds"] = time.perf_counter() - t0
         log(f"{arch}: " + json.dumps(out[arch]))
     t0 = time.perf_counter()
-    out["train"] = dense_training(seed, dev, reset_launches, launch_counts)
+    out["train"] = dense_training(seed, dev, reset_launches, launch_counts,
+                                  dryrun=dryrun)
     out["train"]["seconds"] = time.perf_counter() - t0
     log(f"{DENSE_TRAIN_ARCH} training: " + json.dumps(out["train"]))
     out["phase_s"] = time.perf_counter() - t_phase
@@ -4107,6 +4177,10 @@ def main(argv=None) -> int:
     log(f"precision flags: {precision_flags()} (torch's defaults: "
         f"{precision_defaults})")
 
+    # the dry run's trace of the qwen train step, on a host core while the
+    # kernels build and the card works (dense LM phase)
+    dryrun = start_dryrun_trace()
+
     # -- build ---------------------------------------------------------------
     nvcc = subprocess.run([_build.nvcc_path(), "--version"], check=True,
                           capture_output=True, text=True).stdout
@@ -5714,7 +5788,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     examples_rec = examples_phase(reset_launches, launch_counts)
     torch.cuda.empty_cache()
-    dense_rec = dense_lm_phase(args.seed, dev, reset_launches, launch_counts)
+    dense_rec = dense_lm_phase(args.seed, dev, reset_launches, launch_counts,
+                               dryrun)
     torch.cuda.empty_cache()
     moe_ssm_rec = moe_ssm_lm_phase(args.seed, dev, reset_launches,
                                    launch_counts)
@@ -5908,8 +5983,6 @@ def main(argv=None) -> int:
                          "enable_gqa=True), softcap 0: its backward "
                          "through autograd",
          "softcap0_ms": train["kernel_gb_softcap0_ms"],
-         "device_ms": train["kernel_gb_device_ms"],
-         "device_ms_from": "torch.profiler, a train step's 13 calls",
          "kernel_route": "wgmma (bf16 tensor cores, TMA; prep, dK/dV, dQ "
                          "launches; reads G's lse); main path routes "
                          f"{train['gb_routes']}, sweep routes {gb_by_route}; "

@@ -10,7 +10,7 @@ import importlib
 from typing import Dict, List
 
 from .base import (SHAPES, ModelConfig, ShapeCell, cell_is_runnable,
-                   shape_by_name)
+                   input_specs, shape_by_name)
 
 ARCH_IDS: List[str] = [
     "grok-1-314b", "arctic-480b", "zamba2-1.2b", "mamba2-130m",
@@ -43,4 +43,4 @@ def get_smoke_config(arch: str) -> ModelConfig:
 
 __all__ = ["ARCH_IDS", "ModelConfig", "SHAPES", "ShapeCell",
            "cell_is_runnable", "get_config", "get_smoke_config",
-           "shape_by_name"]
+           "input_specs", "shape_by_name"]

@@ -1,15 +1,19 @@
 """The port's copy of the JAX package's config schema.
 
-``ModelConfig``, ``ShapeCell``, ``SHAPES``, ``shape_by_name`` and
-``cell_is_runnable`` are copied from ``repro/configs/base.py``, which
-imports JAX. ``input_specs`` (the dry-run's stand-ins) belongs to the
-dry-run tools and is not ported (ROADMAP Queue 1 item 13.6).
+``ModelConfig``, ``ShapeCell``, ``SHAPES``, ``shape_by_name``,
+``cell_is_runnable`` and ``input_specs`` are copied from
+``repro/configs/base.py``, which imports JAX. ``input_specs`` gives the
+dry-run tools (``launch/dryrun.py``) their stand-ins as ``(shape,
+torch.dtype)`` pairs, the idiom of ``models/model.py::cache_spec``, where
+JAX gives ``ShapeDtypeStruct``s.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
+
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,3 +169,27 @@ def cell_is_runnable(cfg: ModelConfig, shape: ShapeCell) -> Tuple[bool, str]:
         return False, ("long_500k needs sub-quadratic attention; "
                        f"{cfg.name} is {cfg.family} (full attention)")
     return True, ""
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeCell
+                ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """(shape, dtype) of every model input of this cell; nothing is
+    allocated (the dry-run makes fake tensors of them)."""
+    b, s = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    act = getattr(torch, cfg.dtype)
+
+    if shape.kind == "train":
+        specs = {"tokens": ((b, s), i32), "labels": ((b, s), i32)}
+    elif shape.kind == "prefill":
+        specs = {"tokens": ((b, s), i32)}
+    else:  # decode: one new token against a cache of length s
+        specs = {"tokens": ((b, 1), i32), "cache_index": ((), i32)}
+
+    if cfg.family == "vlm" and cfg.n_img_tokens and shape.kind != "decode":
+        specs["patch_embeds"] = ((b, cfg.n_img_tokens, cfg.d_model), act)
+    if cfg.n_enc_layers and cfg.enc_seq:
+        # audio stub: precomputed frame embeddings for the encoder
+        if shape.kind == "train" or shape.kind == "prefill":
+            specs["frame_embeds"] = ((b, cfg.enc_seq, cfg.d_model), act)
+    return specs

@@ -11,11 +11,12 @@ Modules:
   fault      straggler watchdog, restart-from-latest-checkpoint driver,
              elastic restore onto the surviving devices.
   compress   int8 gradient compression with error feedback.
-
-``repro.dist.sharding`` (role-based sharding of the LM's tensors) is not
-ported yet (ROADMAP.md Queue 1 item 13.6).
+  sharding   role-based sharding of the LM's tensors ("dp" / "tp" resolved
+             on a ``DeviceMesh``; ``constrain`` redistributes a DTensor and
+             is a no-op without a mesh), the params / optimizer / batch /
+             cache rules the dry run distributes by.
 """
 
-from . import compress, engine, fault, halo
+from . import compress, engine, fault, halo, sharding
 
-__all__ = ["compress", "engine", "fault", "halo"]
+__all__ = ["compress", "engine", "fault", "halo", "sharding"]

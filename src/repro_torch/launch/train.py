@@ -8,8 +8,9 @@ pipeline, driven by ``dist.fault.run_with_restarts``. It runs on the CUDA
 card unless ``--device`` names another device. ``--arch`` takes every id;
 the VLM's batches carry zero ``patch_embeds`` and whisper's zero
 ``frame_embeds`` in ``cfg.dtype``, as JAX's launcher builds them. One
-device: JAX's mesh and sharded init wait with the rest of ``launch/``
-(ROADMAP Queue 1 item 13.6).
+device: JAX's launcher imports ``dist.sharding`` but builds no mesh, and
+neither does this one; the production meshes serve the dry-run tools
+(``launch/mesh.py``, ``launch/dryrun.py``).
 """
 
 from __future__ import annotations

@@ -26,14 +26,17 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..dist.sharding import keep_whole
+
 Tensor = torch.Tensor
 NEG_INF = -1.0e30
 
 
 def attention(q: Tensor, k: Tensor, v: Tensor, causal: bool, softcap: float,
               q_chunk: int, k_chunk: int) -> Tensor:
-    """Production path: chunked flash. (JAX's dense switch for roofline cost
-    runs belongs to the dry-run tools, which are not ported.)"""
+    """Production path: chunked flash. (JAX's dense switch serves its cost
+    runs, which count a loop body once; the port's cost runs trace every
+    chunk, so it has none.)"""
     return flash_attention(q, k, v, causal, softcap, q_chunk, k_chunk)
 
 
@@ -52,6 +55,7 @@ def _softcap_grad(s_capped: Tensor, cap: float) -> Tensor:
 
 
 def _split_gqa(q: Tensor, kh: int) -> Tensor:
+    q = keep_whole(q, 1, kh)        # on a mesh: heads split by KV group
     b, h, s, d = q.shape
     return q.reshape(b, kh, h // kh, s, d)
 

@@ -13,6 +13,8 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from ..dist.sharding import constrain, keep_whole, role_size
+
 Tensor = torch.Tensor
 
 
@@ -88,8 +90,9 @@ def _act(x: Tensor, kind: str) -> Tensor:
 
 def mlp(x: Tensor, p: Dict[str, Tensor], act: str) -> Tensor:
     if "w_gate" not in p:            # plain 2-matrix MLP (starcoder2/whisper)
-        return _act(x @ p["w_up"], act) @ p["w_down"]
-    gate = _act(x @ p["w_gate"], act)
+        h = _act(constrain(x @ p["w_up"], "dp", None, "tp"), act)
+        return h @ p["w_down"]
+    gate = _act(constrain(x @ p["w_gate"], "dp", None, "tp"), act)
     return (gate * (x @ p["w_up"])) @ p["w_down"]
 
 
@@ -138,16 +141,29 @@ def qkv_project(x: Tensor, p: Dict[str, Tensor], n_heads: int, n_kv: int,
     v = x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, n_heads, head_dim).transpose(1, 2)
-    k = k.reshape(b, s, n_kv, head_dim).transpose(1, 2)
-    v = v.reshape(b, s, n_kv, head_dim).transpose(1, 2)
-    return q, k, v
+    return (split_heads(q, n_heads, head_dim), split_heads(k, n_kv, head_dim),
+            split_heads(v, n_kv, head_dim))
+
+
+def split_heads(t: Tensor, n: int, head_dim: int) -> Tensor:
+    """(B, S, n * Dh) -> (B, n, S, Dh). On a mesh a column shard must hold
+    whole heads: columns split other than at head boundaries are gathered
+    first (a no-op without a mesh)."""
+    t = keep_whole(t, -1, n)
+    b, s, _ = t.shape
+    return t.reshape(b, s, n, head_dim).transpose(1, 2)
 
 
 def out_project(o: Tensor, p: Dict[str, Tensor]) -> Tensor:
     """(B, H, S, Dh) -> (B, S, d)."""
     b, h, s, dh = o.shape
-    return o.transpose(1, 2).reshape(b, s, h * dh) @ p["wo"]
+    x = o.transpose(1, 2).reshape(b, s, h * dh)
+    if h % role_size("tp"):
+        # wo's TP row shards split heads: shard the merged columns here,
+        # so that the gradient comes back to the heads whole (DTensor
+        # will not split a sharded dim into heads)
+        x = constrain(x, "dp", None, "tp")
+    return x @ p["wo"]
 
 
 # -- embedding -----------------------------------------------------------------

@@ -21,6 +21,17 @@ Modes:
   prefill      full sequence -> (logits, decode cache)
   decode_step  one token + cache -> (logits, cache updated in place)
 
+JAX's ``constrain`` sites are here (``dist/sharding.py``): q, k and v,
+the sequence-sharded residual, the FSDP weight gather at use
+(``_gather_fsdp``), the embeddings and the logits. Without a mesh each is
+a no-op; on a mesh (the dry run's DTensors) they lay the tensors out as
+GSPMD does, and the port adds what DTensor needs besides: the residual's
+norm gathered along the sequence before the projections (``_sp_norm``),
+a head split that TP does not divide gathered first
+(``layers.split_heads``), the stacked layer dim unsharded before the loop
+(``_unstack``), attention run on each shard's (batch, KV head) block
+(``_attend``) and the LM head gathered with its vocab over TP (``_head``).
+
 Where the port differs in structure: a local layer whose window is shorter
 than the sequence runs kernel G (``kernels.ops.window_attention``) where
 JAX runs the plain ``window_attention_blocked``; the two compute the same
@@ -52,12 +63,14 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core._device import resolve_device
+from ..dist.sharding import (constrain, constrain_like, per_shard,
+                             replicate_dim)
 from ..kernels.ops import window_attention
 from .attention import _chunk_for, attention, decode_attention
 from .layers import (apply_norm, embed_tokens, init_attn, init_embed,
                      init_mlp, init_norm, mlp, out_project, qkv_project,
-                     rope, sinusoidal_positions)
-from .moe import init_moe, moe_mlp
+                     rope, sinusoidal_positions, split_heads)
+from .moe import _ep, init_moe, moe_mlp
 from .ssm import init_mamba2, mamba2_block, mamba2_decode
 
 Tensor = torch.Tensor
@@ -137,7 +150,7 @@ def _stack(trees):
 def _index(tree, i):
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
-    return tree[i]
+    return replicate_dim(tree, 0)[i]
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
@@ -188,17 +201,82 @@ def _self_attention(cfg: ModelConfig, p: Params, x: Tensor, positions: Tensor,
                     is_local: bool) -> Tuple[Tensor, Tensor, Tensor]:
     """-> (projected output, k, v) — k/v reused by prefill cache building."""
     q, k, v = qkv_project(x, p, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+    q = constrain(q, "dp", "tp", None, None)
+    k = constrain(k, "dp", "tp", None, None)
+    v = constrain(v, "dp", "tp", None, None)
     if cfg.use_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     s = x.shape[1]
     if is_local and cfg.window < s:
-        o = window_attention(q, k, v, window=cfg.window,
-                             blk=_chunk_for(s, 128), softcap=cfg.attn_softcap)
+        o = _attend(window_attention, q, k, v, window=cfg.window,
+                    blk=_chunk_for(s, 128), softcap=cfg.attn_softcap)
     else:
-        o = attention(q, k, v, True, cfg.attn_softcap, cfg.attn_q_chunk,
-                      cfg.attn_k_chunk)
+        o = _attend(attention, q, k, v, causal=True,
+                    softcap=cfg.attn_softcap, q_chunk=cfg.attn_q_chunk,
+                    k_chunk=cfg.attn_k_chunk)
     return out_project(o, p), k, v
+
+
+def _attend(fn, q: Tensor, k: Tensor, v: Tensor, **kwargs) -> Tensor:
+    """``fn(q, k, v, **kwargs)``; on a mesh, over each shard's (batch, KV
+    head) block, with K and V unsharded along the sequence and Q laid out
+    as K (its heads follow their KV heads)."""
+    k = constrain(k, "dp", "tp", None, None)
+    v = constrain(v, "dp", "tp", None, None)
+    return per_shard(fn, constrain_like(q, k), k, v, **kwargs)
+
+
+_FSDP_GATHER_RULES = {
+    # leaf name -> spec roles with the fsdp (weight-resting) axis dropped:
+    # inside the layer each weight is all-gathered over DP just in time
+    # (ZeRO-3) instead of staying put while activation partials are
+    # all-reduced over the data axis.
+    "wq": (None, "tp"), "wk": (None, "tp"), "wv": (None, "tp"),
+    "wo": ("tp", None),
+    "w_gate": (None, "tp"), "w_up": (None, "tp"), "w_down": ("tp", None),
+    "in_proj": (None, "tp"), "out_proj": ("tp", None),
+    "router": (None, None),
+}
+
+_FSDP_GATHER_RULES_MOE_EP = {
+    "w_gate": ("tp", None, None), "w_up": ("tp", None, None),
+    "w_down": ("tp", None, None), "router": (None, None),
+}
+
+_FSDP_GATHER_RULES_MOE_TP = {
+    "w_gate": (None, None, "tp"), "w_up": (None, None, "tp"),
+    "w_down": (None, "tp", None), "router": (None, None),
+}
+
+
+def _gather_fsdp(p: Params, names: Tuple[str, ...] = ()) -> Params:
+    """One layer's weights laid out by the rules above (experts over the
+    model axis when it divides their count, else TP within each expert).
+    Without a mesh every ``constrain`` is a no-op and ``p`` comes back as
+    it was."""
+    out = {}
+    for name, leaf in p.items():
+        if isinstance(leaf, dict):
+            out[name] = _gather_fsdp(leaf, names + (name,))
+        elif "moe" in names and name in _FSDP_GATHER_RULES_MOE_EP:
+            rules = (_FSDP_GATHER_RULES_MOE_EP if _ep(leaf.shape[0])
+                     else _FSDP_GATHER_RULES_MOE_TP)
+            out[name] = constrain(leaf, *rules[name])
+        elif name in _FSDP_GATHER_RULES and leaf.ndim == len(
+                _FSDP_GATHER_RULES[name]):
+            out[name] = constrain(leaf, *_FSDP_GATHER_RULES[name])
+        else:
+            out[name] = leaf
+    return out
+
+
+def _sp_norm(cfg: ModelConfig, x: Tensor, p: Params) -> Tensor:
+    """The norm of the sequence-sharded residual, gathered along the
+    sequence for the block's projections (Megatron-SP's all-gather; JAX's
+    GSPMD places it by itself, DTensor will not fold two sharded dims
+    into one matmul row dim)."""
+    return constrain(apply_norm(x, p, cfg.norm), "dp", None, None)
 
 
 def _maybe_post(cfg: ModelConfig, p: Params, name: str, h: Tensor) -> Tensor:
@@ -221,12 +299,15 @@ def _mlp_or_moe(cfg: ModelConfig, p: Params, x: Tensor
 
 def _decoder_layer(cfg: ModelConfig, p: Params, x: Tensor, positions: Tensor,
                    is_local: bool) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
-    """-> (x, aux_loss, k, v)."""
+    """-> (x, aux_loss, k, v). The residual stream is sequence-sharded
+    over the TP axis between blocks (Megatron-SP)."""
+    x = constrain(x, "dp", "tp", None)
+    p = _gather_fsdp(p)
     h, k, v = _self_attention(cfg, p["attn"],
-                              apply_norm(x, p["norm1"], cfg.norm),
+                              _sp_norm(cfg, x, p["norm1"]),
                               positions, is_local)
     x = x + _maybe_post(cfg, p, "post_norm1", h)
-    h, aux = _mlp_or_moe(cfg, p, apply_norm(x, p["norm2"], cfg.norm))
+    h, aux = _mlp_or_moe(cfg, p, _sp_norm(cfg, x, p["norm2"]))
     x = x + _maybe_post(cfg, p, "post_norm2", h)
     return x, aux, k, v
 
@@ -234,20 +315,17 @@ def _decoder_layer(cfg: ModelConfig, p: Params, x: Tensor, positions: Tensor,
 def _q_project(cfg: ModelConfig, p: Params, x: Tensor) -> Tensor:
     """x (B, S, d) -> q (B, H, S, Dh): ``qkv_project``'s q alone (JAX
     projects k and v too and drops them)."""
-    b, s, _ = x.shape
     q = x @ p["wq"]
     if "bq" in p:
         q = q + p["bq"]
-    return q.reshape(b, s, cfg.n_heads, cfg.head_dim).transpose(1, 2)
+    return split_heads(q, cfg.n_heads, cfg.head_dim)
 
 
 def _cross_kv(cfg: ModelConfig, p: Params, enc_h: Tensor
               ) -> Tuple[Tensor, Tensor]:
     """The cross-attention's K and V of the encoder output: ``enc_h @ wk``
     and ``enc_h @ wv`` (no bias) as (B, KH, Se, Dh)."""
-    b, se, _ = enc_h.shape
-    return tuple((enc_h @ p[w]).reshape(b, se, cfg.n_kv_heads,
-                                        cfg.head_dim).transpose(1, 2)
+    return tuple(split_heads(enc_h @ p[w], cfg.n_kv_heads, cfg.head_dim)
                  for w in ("wk", "wv"))
 
 
@@ -256,7 +334,8 @@ def _cross_attention(cfg: ModelConfig, xp: Params, h: Tensor, k: Tensor,
     """Non-causal attention of the normed ``h`` over the encoder's K/V;
     the flash picks each side's chunk (``_chunk_for``)."""
     q = _q_project(cfg, xp["attn"], apply_norm(h, xp["norm"], cfg.norm))
-    o = attention(q, k, v, False, 0.0, cfg.attn_q_chunk, cfg.attn_k_chunk)
+    o = _attend(attention, q, k, v, causal=False, softcap=0.0,
+                q_chunk=cfg.attn_q_chunk, k_chunk=cfg.attn_k_chunk)
     return out_project(o, xp["attn"])
 
 
@@ -276,7 +355,8 @@ def _decoder_block(cfg: ModelConfig, p: Params, xp: Optional[Params],
 def _encoder_layer(cfg: ModelConfig, p: Params, h: Tensor) -> Tensor:
     q, k, v = qkv_project(apply_norm(h, p["norm1"], cfg.norm), p["attn"],
                           cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
-    a = attention(q, k, v, False, 0.0, cfg.attn_q_chunk, cfg.attn_k_chunk)
+    a = _attend(attention, q, k, v, causal=False, softcap=0.0,
+                q_chunk=cfg.attn_q_chunk, k_chunk=cfg.attn_k_chunk)
     h = h + out_project(a, p["attn"])
     return h + mlp(apply_norm(h, p["norm2"], cfg.norm), p["mlp"], cfg.act)
 
@@ -302,7 +382,9 @@ def _run_encoder(cfg: ModelConfig, params: Params, frames: Tensor,
 
 
 def _mamba_layer(cfg: ModelConfig, p: Params, x: Tensor) -> Tensor:
-    h = mamba2_block(apply_norm(x, p["norm1"], cfg.norm), p["mamba"],
+    x = constrain(x, "dp", "tp", None)     # sequence-sharded residual (SP)
+    p = _gather_fsdp(p)
+    h = mamba2_block(_sp_norm(cfg, x, p["norm1"]), p["mamba"],
                      d_inner=cfg.d_inner, state=cfg.ssm_state,
                      n_heads=cfg.ssm_heads, headdim=cfg.ssm_headdim,
                      chunk=cfg.ssm_chunk)
@@ -335,11 +417,12 @@ def _mamba_groups(cfg: ModelConfig):
 def _unstack(tree, n: int):
     """The n layers' params, each a tree of views: ``unbind`` once a leaf,
     so the backward stacks each leaf's n gradients in one op (a ``select``
-    a layer would scatter each into a zero stacked tensor)."""
+    a layer would scatter each into a zero stacked tensor). A DTensor
+    sharded along the layer dim is gathered along it first."""
     if isinstance(tree, dict):
         parts = {k: _unstack(v, n) for k, v in tree.items()}
         return [{k: parts[k][i] for k in parts} for i in range(n)]
-    return tree.unbind(0)
+    return replicate_dim(tree, 0).unbind(0)
 
 
 def _run_decoder_stack(cfg: ModelConfig, params: Params, x: Tensor,
@@ -420,6 +503,7 @@ def _embed_inputs(cfg: ModelConfig, params: Params, tokens: Tensor,
                          f"{sorted(set(extras) - takes)}; its extra inputs "
                          f"are {sorted(takes)}")
     x = embed_tokens(params["embed"], tokens, scale=cfg.scale_embed)
+    x = constrain(x, "dp", None, None)
     if "patch_embeds" in extras:
         x = torch.cat([extras["patch_embeds"].to(x.dtype), x], dim=1)
     if cfg.n_enc_layers:            # whisper decoder: sinusoidal, no rope
@@ -445,6 +529,13 @@ def lm_head(cfg: ModelConfig, params: Params) -> Tensor:
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
+def _head(cfg: ModelConfig, params: Params) -> Tensor:
+    """The LM head gathered just in time with its vocab over TP, as the
+    train loss gathers it (a no-op without a mesh): the logits are then
+    computed vocab-sharded, never whole on one device."""
+    return constrain(lm_head(cfg, params), None, "tp")
+
+
 def logits_transform(cfg: ModelConfig):
     """The final logit softcap with the roundings of JAX's ``cap * tanh(l
     / cap)``: in place when ``l`` needs no gradient (no logits-sized
@@ -457,8 +548,10 @@ def logits_transform(cfg: ModelConfig):
 
 
 def _logits(cfg: ModelConfig, params: Params, x: Tensor) -> Tensor:
-    x = apply_norm(x, params["final_norm"], cfg.norm)
-    return logits_transform(cfg)(x @ lm_head(cfg, params))
+    x = constrain(apply_norm(x, params["final_norm"], cfg.norm),
+                  "dp", None, None)
+    logits = constrain(x @ _head(cfg, params), "dp", None, "tp")
+    return logits_transform(cfg)(logits)
 
 
 def forward_hidden(cfg: ModelConfig, params: Params, tokens: Tensor,
@@ -478,7 +571,8 @@ def forward(cfg: ModelConfig, params: Params, tokens: Tensor,
     """Full-sequence logits. Returns (logits (B, S', V), aux_loss); S' =
     n_img + S for the VLM with ``patch_embeds``."""
     x, aux = forward_hidden(cfg, params, tokens, remat=remat, **extras)
-    return logits_transform(cfg)(x @ lm_head(cfg, params)), aux
+    logits = constrain(x @ _head(cfg, params), "dp", None, "tp")
+    return logits_transform(cfg)(logits), aux
 
 
 def prefill(cfg: ModelConfig, params: Params, tokens: Tensor,
@@ -572,7 +666,7 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, Tensor],
                                                   idx, positions)), cache
     s_cache = cache["k"].shape[3]
     for i in range(cfg.n_layers):
-        lp = _index(params["layers"], i)
+        lp = _gather_fsdp(_index(params["layers"], i))
         kc, vc = cache["k"][i], cache["v"][i]
         hn = apply_norm(x, lp["norm1"], cfg.norm)
         q, k, v = qkv_project(hn, lp["attn"], cfg.n_heads, cfg.n_kv_heads,

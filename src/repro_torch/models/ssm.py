@@ -24,6 +24,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..dist.sharding import constrain, keep_whole, replicate_dim, role_size
 from .layers import _normal, rms_norm
 
 Tensor = torch.Tensor
@@ -146,12 +147,17 @@ def mamba2_block(x: Tensor, p: Dict[str, Tensor], *, d_inner: int,
 
     dt = F.softplus(dt.float() + p["dt_bias"])
     a = -torch.exp(p["a_log"])
+    xs = keep_whole(xs, -1, n_heads)      # on a mesh: whole heads a shard
     xh = xs.reshape(*xs.shape[:-1], n_heads, headdim)
     y = ssd_chunked(xh, dt, a, bm, cm, chunk)
     y = y + xh.float() * p["d_skip"][:, None]
     y = y.reshape(xs.shape).to(x.dtype)
 
     y = rms_norm(y * F.silu(z), p["norm_scale"])
+    if n_heads % role_size("tp"):
+        # out_proj's TP row shards split heads: shard the columns here, so
+        # that the gradient comes back to the heads whole
+        y = constrain(y, "dp", None, "tp")
     return y @ p["out_proj"]
 
 
@@ -174,6 +180,7 @@ def mamba2_decode(x: Tensor, p: Dict[str, Tensor], cache: Dict[str, Tensor],
 
     dt = F.softplus(dt.float() + p["dt_bias"])[:, 0]                  # (B,H)
     a = -torch.exp(p["a_log"])
+    xs = keep_whole(xs, -1, n_heads)
     xh = xs.reshape(-1, n_heads, headdim).float()                     # (B,H,P)
     decay = torch.exp(dt * a)                                         # (B,H)
     bmf = bm[:, 0].float()                                            # (B,N)
@@ -183,7 +190,7 @@ def mamba2_decode(x: Tensor, p: Dict[str, Tensor], cache: Dict[str, Tensor],
              + dx[..., None] * bmf[:, None, None, :])
     cache["ssm"].copy_(h_new)
     y = (h_new @ cmf[:, None, :, None])[..., 0] + xh * p["d_skip"][:, None]
-    y = y.reshape(-1, 1, d_inner).to(x.dtype)
+    y = replicate_dim(y, 1).reshape(-1, 1, d_inner).to(x.dtype)
 
     y = rms_norm(y * F.silu(z), p["norm_scale"])
     return y @ p["out_proj"], cache

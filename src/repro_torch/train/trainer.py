@@ -13,15 +13,15 @@ themselves never require grad and the serving entry points on the same
 params build no graph. On the card the local layers' attention runs kernel
 G forward and kernel Gb backward.
 
-Where the port differs: JAX's ``dist/sharding.py::constrain`` calls are
-GSPMD layout hints that do nothing without a device mesh; the port trains
-on one device and leaves them out (``dist/sharding.py`` waits with
-``launch/``, ROADMAP Queue 1 item 13.6). The gold logit is read by
-``gather``, the same value as JAX's iota comparison (which avoids a gather
-along a vocab-sharded axis). JAX's ``REPRO_LOSS_CHUNKS`` and
+JAX's ``constrain`` calls are here too (``dist/sharding.py``): on a mesh
+(the dry run's DTensors) they lay out the logits and the LM head, and each
+microbatch is spread over DP; without one they do nothing. Where the port
+differs: on one device the gold logit is read by ``gather``, the same
+value as JAX's iota comparison, which the port takes on a mesh (it avoids
+a gather along a vocab-sharded axis). JAX's ``REPRO_LOSS_CHUNKS`` and
 ``REPRO_SCAN_UNROLL`` environment knobs serve its dry-run tools and are not
-read. The step's metrics add ``grad_norm``, the global norm of the
-gradients before clipping.
+read: the port's dry run traces eagerly. The step's metrics add
+``grad_norm``, the global norm of the gradients before clipping.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..dist.compress import compress_grads_int8, decompress_grads_int8
+from ..dist.sharding import constrain, is_dtensor, replicate_dim
 from ..models import model as M
 from ..optim.adam import (AdamConfig, adam_update, global_norm, tree_leaves,
                           tree_map)
@@ -43,10 +44,17 @@ Tensor = torch.Tensor
 def _nll(logits: Tensor, labels: Tensor, z_loss: float
          ) -> Tuple[Tensor, Tensor]:
     """Per-token (nll + z-loss, valid) in fp32; label -1 is not valid."""
-    lf = logits.float()
+    lf = constrain(logits.float(), "dp", None, "tp")
     m = lf.detach().amax(-1, keepdim=True)
     lse = torch.log(torch.exp(lf - m).sum(-1)) + m[..., 0]
-    gold = lf.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
+    if is_dtensor(lf):
+        # JAX's iota comparison: DTensor will not gather along the
+        # vocab-sharded dim; the same value, with a (B, S, V) mask
+        iota = torch.arange(lf.shape[-1], device=lf.device)
+        gold = torch.where(iota == labels.clamp_min(0)[..., None], lf,
+                           0.0).sum(-1)
+    else:
+        gold = lf.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
     return lse - gold + z_loss * lse ** 2, (labels >= 0).float()
 
 
@@ -82,6 +90,7 @@ def chunked_cross_entropy(logits_fn: Callable, x: Tensor, labels: Tensor,
     while s % n_chunks:
         n_chunks -= 1
     cs = s // n_chunks
+    head = constrain(head, None, "tp")     # just-in-time weight gather
     total = count = torch.zeros((), device=x.device)
     for i in range(n_chunks):
         sl = slice(i * cs, (i + 1) * cs)
@@ -134,10 +143,12 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamConfig,
 
     def train_step(params, opt_state, batch: Dict[str, Tensor]):
         if microbatches > 1:
-            split = {k: v.reshape(microbatches, v.shape[0] // microbatches,
-                                  *v.shape[1:]) for k, v in batch.items()}
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+            # on a mesh each microbatch is spread over DP (JAX's layout)
+            split = {k: constrain(replicate_dim(v, 0).reshape(
+                microbatches, v.shape[0] // microbatches, *v.shape[1:]),
+                None, "dp", *[None] * (v.ndim - 1)) for k, v in batch.items()}
+            grads = tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), params)
             loss = torch.zeros((), device=batch["tokens"].device)
             for i in range(microbatches):
                 mb_loss, _, g = grads_of(params,

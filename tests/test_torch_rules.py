@@ -58,14 +58,31 @@ def test_no_jax_and_no_reference_package(path):
         assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {mod}"
 
 
+# the dry-run tools record a cell whose trace raises, as JAX's do
+RECORDERS = {PORT / "launch" / "dryrun.py": "run_cell",
+             PORT / "launch" / "costrun.py": "measure"}
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
 def test_nothing_catches_exceptions(path):
-    """No ``try`` in the port, with one exception whose contract is to
+    """No ``try`` in the port, with the exceptions whose contract is to
     catch: ``dist/fault.py::run_with_restarts``, the restart driver (JAX's
     ``repro.dist.fault``), which catches exactly ``RuntimeError`` and
-    re-raises it once its restart budget is spent."""
+    re-raises it once its restart budget is spent; and the dry-run tools'
+    ``launch/dryrun.py::run_cell`` and ``launch/costrun.py::measure``
+    (JAX's), which write a cell that raises into its JSON record, error
+    and traceback, and go on to the next cell."""
     tree = ast.parse(path.read_text(), filename=str(path))
     tries = [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+    if path in RECORDERS:
+        [fn] = [n for n in tree.body if isinstance(n, ast.FunctionDef)
+                and n.name == RECORDERS[path]]
+        assert [n for n in ast.walk(fn) if isinstance(n, ast.Try)] == \
+            tries and len(tries) == 1, path
+        [handler] = tries[0].handlers
+        assert ast.unparse(handler.type) == "Exception", path
+        assert "traceback.format_exc()" in ast.unparse(handler), path
+        return
     if path == PORT / "dist" / "fault.py":
         [driver] = [n for n in tree.body if isinstance(n, ast.FunctionDef)
                     and n.name == "run_with_restarts"]
@@ -80,14 +97,17 @@ def test_nothing_catches_exceptions(path):
 
 
 def test_import_needs_no_nvcc_triton_or_jax(tmp_path):
-    code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels, "
+    code = ("import sys, torch, repro_torch, repro_torch.core, repro_torch.kernels, "
             "repro_torch.kernels.ops, repro_torch.kernels.ref, "
             "repro_torch.convert, repro_torch.configs, repro_torch.models, "
             "repro_torch.models.serving, repro_torch.kernels.window_attn, "
             "repro_torch.physics, repro_torch.traj, repro_torch.ckpt, "
             "repro_torch.testing, repro_torch.dist, repro_torch.serve, "
             "repro_torch.optim, repro_torch.data, repro_torch.train, "
-            "repro_torch.train.serve, repro_torch.launch.train\n"
+            "repro_torch.train.serve, repro_torch.launch.train, "
+            "repro_torch.launch.dryrun, repro_torch.launch.costrun, "
+            "repro_torch.launch.particle_dryrun, repro_torch.launch.report\n"
+            "assert not torch.distributed.is_initialized()\n"
             "bad = [m for m in ('jax', 'triton', 'repro') if m in sys.modules]\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PATH=str(tmp_path), PYTHONPATH=str(ROOT / "src"))
